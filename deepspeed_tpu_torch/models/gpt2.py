@@ -1,0 +1,314 @@
+"""GPT-2 for inference on the card (counterpart of
+``deepspeed_tpu/models/gpt2.py``).
+
+The inference paths of the JAX model: the causal forward, the append-cache
+decode of ``generate()`` and the paged prefill/decode of the serving
+engine, with learned positions, tanh-GELU MLP, sequential residual blocks
+and the tied LM head. Attention routes through ``deepspeed_tpu_torch.ops``:
+the flash kernel for causal self-attention (prefill), the append and paged
+decode kernels for cached steps — their plain versions on the CPU.
+
+KV caches and pools are tensors updated IN PLACE (``index_copy_``) where
+the JAX model returns new arrays and the serving engine donates the old
+ones: one allocation lives for the whole generation or serving run.
+
+ALiBi, rotary, parallel residuals, local windows, padded generation and
+the training-only knobs (dropout, remat, progressive layer drop) belong to
+other model families or later slices.
+"""
+
+import dataclasses
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepspeed_tpu_torch.models.decode_utils import (paged_positions,
+                                                     paged_write_rows)
+from deepspeed_tpu_torch.ops.attention import attention
+from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      decode_attention_paged)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_epsilon: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16  # compute/activation dtype
+    # decode mode: attention reads/writes a KV cache (``forward(cache=)``)
+    decode: bool = False
+    # paged decode (the serving engine's cache): KV lives in a SHARED
+    # block pool ([paged_num_blocks, paged_block_size, H, D] per layer);
+    # block tables / lengths / valid counts arrive via ``paging``
+    paged: bool = False
+    paged_num_blocks: int = 0
+    paged_block_size: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    def for_decode(self):
+        return dataclasses.replace(self, decode=True)
+
+    def for_paged_decode(self, num_blocks: int, block_size: int):
+        """Serving variant: decode mode whose KV cache is a shared block
+        pool (block 0 reserved as the garbage sink — see
+        ``ops.decode_attention.GARBAGE_BLOCK``)."""
+        return dataclasses.replace(self, decode=True, paged=True,
+                                   paged_num_blocks=int(num_blocks),
+                                   paged_block_size=int(block_size))
+
+    @staticmethod
+    def gpt2_125m(**kw):
+        return GPT2Config(n_embd=768, n_layer=12, n_head=12, **kw)
+
+    @staticmethod
+    def tiny(**kw):
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("n_positions", 64)
+        kw.setdefault("n_embd", 64)
+        kw.setdefault("n_layer", 2)
+        kw.setdefault("n_head", 4)
+        return GPT2Config(**kw)
+
+
+class KVCache:
+    """Append KV cache of one decode batch: per-layer ``[B, n_positions,
+    H, D]`` key/value buffers, the 0-d int32 device index of the next free
+    row (read by the decode kernel on the card, never synced to the host)
+    and its host mirror ``length``."""
+
+    def __init__(self, config: GPT2Config, batch: int, device):
+        shape = (batch, config.n_positions, config.n_head, config.head_dim)
+        self.keys = [torch.zeros(shape, dtype=config.dtype, device=device)
+                     for _ in range(config.n_layer)]
+        self.values = [torch.zeros_like(k) for k in self.keys]
+        self.index = torch.zeros((), dtype=torch.int32, device=device)
+        self.length = 0
+
+
+class PagedKVCache:
+    """Paged KV pools of the serving engine: per-layer ``[num_blocks,
+    block_size, H, D]`` key/value pools shared by every sequence."""
+
+    def __init__(self, config: GPT2Config, device):
+        if config.paged_num_blocks <= 1 or config.paged_block_size <= 0:
+            raise ValueError(
+                f"paged decode needs paged_num_blocks > 1 (got "
+                f"{config.paged_num_blocks}; block 0 is the reserved garbage "
+                f"sink) and paged_block_size > 0 (got "
+                f"{config.paged_block_size})")
+        shape = (config.paged_num_blocks, config.paged_block_size,
+                 config.n_head, config.head_dim)
+        self.keys = [torch.zeros(shape, dtype=config.dtype, device=device)
+                     for _ in range(config.n_layer)]
+        self.values = [torch.zeros_like(k) for k in self.keys]
+
+
+def _dense(layer: nn.Linear, x, dtype):
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _layer_norm(ln: nn.LayerNorm, x, dtype):
+    # statistics in fp32, output in the compute dtype (flax LayerNorm)
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, config: GPT2Config, device=None):
+        super().__init__()
+        self.config = config
+        self.c_attn = nn.Linear(config.n_embd, 3 * config.n_embd,
+                                device=device)
+        self.c_proj = nn.Linear(config.n_embd, config.n_embd, device=device)
+
+    def forward(self, x, keys=None, values=None, step=None):
+        """``keys``/``values``: this layer's cache buffers (decode mode);
+        ``step``: the per-call cache addressing the model computed once
+        for all layers (see :meth:`GPT2LMHeadModel.forward`)."""
+        cfg = self.config
+        B, T, C = x.shape
+        H, D = cfg.n_head, cfg.head_dim
+        q, k, v = _dense(self.c_attn, x, cfg.dtype).split(C, dim=-1)
+        q4, k4, v4 = (t.view(B, T, H, D) for t in (q, k, v))
+        y4 = None
+        if cfg.decode and cfg.paged:
+            # scatter this step's KV into the shared pools, in place; pad
+            # tokens land in the garbage block (paged_write_rows)
+            rows = step["write_rows"]
+            keys.view(-1, H, D).index_copy_(0, rows, k4.reshape(B * T, H, D))
+            values.view(-1, H, D).index_copy_(0, rows,
+                                              v4.reshape(B * T, H, D))
+            if not step["prefill"]:
+                y4 = decode_attention_paged(
+                    q4.contiguous(), keys, values, step["block_tables"],
+                    step["lengths"])
+        elif cfg.decode:
+            # append cache: rows [index, index + T), in place
+            keys.index_copy_(1, step["write_rows"], k4)
+            values.index_copy_(1, step["write_rows"], v4)
+            if not step["prefill"]:
+                y4 = decode_attention(q4.contiguous(), keys, values,
+                                      step["index"])
+        if y4 is None:
+            # training-free causal forward, and every prefill: causal
+            # attention over the call's own keys (flash kernel on the card)
+            y4 = attention(q4.transpose(1, 2), k4.transpose(1, 2),
+                           v4.transpose(1, 2), causal=True).transpose(1, 2)
+        return _dense(self.c_proj, y4.reshape(B, T, C), cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, config: GPT2Config, device=None):
+        super().__init__()
+        self.config = config
+        self.c_fc = nn.Linear(config.n_embd, 4 * config.n_embd, device=device)
+        self.c_proj = nn.Linear(4 * config.n_embd, config.n_embd,
+                                device=device)
+
+    def forward(self, x):
+        dt = self.config.dtype
+        h = F.gelu(_dense(self.c_fc, x, dt), approximate="tanh")
+        return _dense(self.c_proj, h, dt)
+
+
+class Block(nn.Module):
+    """Sequential residual: ``x + attn(ln_1 x)``, then ``+ mlp(ln_2 ·)``."""
+
+    def __init__(self, config: GPT2Config, device=None):
+        super().__init__()
+        self.config = config
+        eps = config.layer_norm_epsilon
+        self.ln_1 = nn.LayerNorm(config.n_embd, eps=eps, device=device)
+        self.attn = CausalSelfAttention(config, device=device)
+        self.ln_2 = nn.LayerNorm(config.n_embd, eps=eps, device=device)
+        self.mlp = MLP(config, device=device)
+
+    def forward(self, x, keys=None, values=None, step=None):
+        dt = self.config.dtype
+        x = x + self.attn(_layer_norm(self.ln_1, x, dt), keys, values, step)
+        return x + self.mlp(_layer_norm(self.ln_2, x, dt))
+
+
+class GPT2LMHeadModel(nn.Module):
+    """GPT-2 with the tied-embedding LM head.
+
+    ``GPT2LMHeadModel(config, seed=0)`` draws its weights on the CPU from
+    a ``torch.Generator`` seeded with ``seed`` — the JAX model's init
+    distributions — so the same seed gives the same weights on every
+    device; ``device="meta"`` builds the structure without weights.
+    """
+
+    def __init__(self, config: GPT2Config, device=None, seed: int = 0):
+        super().__init__()
+        self.config = config
+        C = config.n_embd
+        self.wte = nn.Parameter(torch.empty(config.vocab_size, C,
+                                            device=device))
+        self.wpe = nn.Parameter(torch.empty(config.n_positions, C,
+                                            device=device))
+        self.h = nn.ModuleList(Block(config, device=device)
+                               for _ in range(config.n_layer))
+        self.ln_f = nn.LayerNorm(C, eps=config.layer_norm_epsilon,
+                                 device=device)
+        if torch.device(device or "cpu").type != "meta":
+            self.init_weights(torch.Generator().manual_seed(seed))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """normal(0.02) embeddings and projections, normal(0.01)
+        positions, normal(0.02/sqrt(2L)) residual projections, zero
+        biases, unit LayerNorms (the JAX model's initializers)."""
+        resid = 0.02 / (2 * self.config.n_layer) ** 0.5
+
+        def normal(t, std):
+            t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+        normal(self.wte, 0.02)
+        normal(self.wpe, 0.01)
+        for block in self.h:
+            normal(block.attn.c_attn.weight, 0.02)
+            normal(block.attn.c_proj.weight, resid)
+            normal(block.mlp.c_fc.weight, 0.02)
+            normal(block.mlp.c_proj.weight, resid)
+        for name, p in self.named_parameters():
+            if name.endswith(".bias"):
+                p.zero_()
+            elif ".ln_" in name or name.startswith("ln_f"):
+                p.fill_(1.0)
+
+    def new_cache(self, batch: int, device=None):
+        """A fresh cache for this decode-mode model: a :class:`KVCache`
+        of ``batch`` rows, or the :class:`PagedKVCache` pools."""
+        device = device or self.wte.device
+        if self.config.paged:
+            return PagedKVCache(self.config, device)
+        return KVCache(self.config, batch, device)
+
+    def _step(self, input_ids, cache, paging):
+        """Cache addressing shared by every layer of one call, and the
+        token positions."""
+        cfg = self.config
+        B, T = input_ids.shape
+        dev = input_ids.device
+        t = torch.arange(T, device=dev)
+        if not cfg.decode:
+            return None, t[None]
+        if cfg.paged:
+            if paging is None:
+                raise ValueError(
+                    "paged decode needs the `paging` argument: "
+                    '{"block_tables": [B, MB] int32, "lengths": [B] int32, '
+                    '"num_valid": [B] int32, "prefill": bool}')
+            tables, lengths = paging["block_tables"], paging["lengths"]
+            pos = paged_positions(lengths, T)
+            rows = paged_write_rows(tables, pos, paging["num_valid"],
+                                    cfg.paged_block_size)
+            step = {"prefill": bool(paging["prefill"]),
+                    "write_rows": rows.reshape(-1).long(),
+                    "block_tables": tables, "lengths": lengths}
+            # pads read a clipped position; their outputs are never used
+            return step, pos.clamp(0, cfg.n_positions - 1)
+        if cache.length + T > cfg.n_positions:
+            raise ValueError(f"cache holds {cfg.n_positions} positions; "
+                             f"{cache.length} used + {T} new overflows it")
+        pos = (cache.index + t).long()
+        step = {"prefill": cache.length == 0, "write_rows": pos,
+                "index": cache.index}
+        return step, pos[None]
+
+    def forward(self, input_ids, cache=None, paging=None,
+                return_hidden=False):
+        """Logits ``[B, T, vocab]`` in fp32 (or the final hidden states
+        with ``return_hidden``). Decode mode needs ``cache`` (from
+        :meth:`new_cache`), and paged mode also ``paging``."""
+        cfg = self.config
+        if cfg.decode and cache is None:
+            raise ValueError("decode mode needs a cache from new_cache()")
+        step, pos = self._step(input_ids, cache, paging)
+        x = self.wte[input_ids].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
+        for i, block in enumerate(self.h):
+            if cfg.decode:
+                x = block(x, cache.keys[i], cache.values[i], step)
+            else:
+                x = block(x)
+        if cfg.decode and not cfg.paged:
+            cache.index += input_ids.shape[1]
+            cache.length += input_ids.shape[1]
+        x = _layer_norm(self.ln_f, x, cfg.dtype)
+        return x if return_hidden else self.lm_head(x)
+
+    def lm_head(self, hidden):
+        """Tied-embedding logits in fp32: the products of the compute-dtype
+        values are exact in fp32 and sum there."""
+        w = self.wte.to(self.config.dtype)
+        return F.linear(hidden.float(), w.float())
+
+
+__all__ = ["GPT2Config", "GPT2LMHeadModel", "KVCache", "PagedKVCache",
+           "Block", "MLP", "CausalSelfAttention"]

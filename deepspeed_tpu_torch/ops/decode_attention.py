@@ -1,0 +1,216 @@
+"""Decode attention on the card (counterpart of
+``deepspeed_tpu/ops/decode_attention.py``).
+
+Two hand-written CUDA kernels replace the TPU kernels of that module:
+
+- :func:`decode_attention` — ``csrc/decode_append.cu``, replacing
+  ``_kernel`` (``decode_attention.py:39``, launched at ``:135``): a decode
+  step against the valid ``[0, cache_index + T_q)`` prefix of an append
+  KV cache (``InferenceEngine.generate``);
+- :func:`decode_attention_paged` — ``csrc/decode_paged.cu``, replacing
+  ``_paged_kernel`` (``decode_attention.py:194``, launched at ``:300``):
+  the same through per-row block tables and lengths over a shared block
+  pool (the serving engine's decode step).
+
+Each has its plain PyTorch version beside it; a CPU tensor takes it, a
+CUDA tensor launches the kernel or raises. The int8 paged kernel comes
+with the serving fast-path slice; the tensor-parallel wrappers with the
+multi-GPU slice.
+"""
+
+import ctypes
+
+import torch
+
+from deepspeed_tpu_torch.models.decode_utils import cache_attn_mask
+from deepspeed_tpu_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS,
+                                                     softmax_pv)
+from deepspeed_tpu_torch.ops.op_builder import load
+
+# pool block 0 is the reserved garbage sink: block tables pad with it,
+# bucketed-prefill pad tokens scatter into it, and the paged kernel never
+# reads it
+GARBAGE_BLOCK = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_APPEND_SIG = {"ds_decode_append": (
+    [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P], _I)}
+_PAGED_SIG = {"ds_decode_paged": (
+    [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P], _I)}
+
+
+def _attend(q, k, v, visible, scale):
+    """q ``[B, Tq, H, D]`` against k/v ``[B, S, H, D]`` with ``visible``
+    ``[B, Tq, S]``: the kernels' math in plain PyTorch."""
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    o, _ = softmax_pv(s, visible[:, None], v.transpose(1, 2))
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention_reference(q, k_cache, v_cache, cache_index,
+                               softmax_scale=None):
+    """Plain version of :func:`decode_attention`. Like the kernel it reads
+    ``cache_index`` on the device (no host sync): it attends over every
+    cache row, masked to keys ``<= cache_index + r``."""
+    b, tq, _, d = q.shape
+    s_len = k_cache.shape[1]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    visible = cache_attn_mask(s_len, torch.as_tensor(cache_index,
+                                                     device=q.device),
+                              tq)[0].expand(b, tq, s_len)
+    # rows past the valid prefix are zeroed, not just masked: the kernel
+    # never reads them, so not even a NaN there may reach the output
+    valid = visible[:, -1, :, None, None]
+    k, v = (torch.where(valid, cache, 0) for cache in (k_cache, v_cache))
+    return _attend(q, k, v, visible, scale)
+
+
+def gather_paged_cache(pool, block_tables):
+    """The dense ``[B, MB*bs, H, D]`` logical window assembled from pool
+    blocks: gathered rows land at their logical positions; entries past a
+    row's allocation read the garbage block and must be masked."""
+    b, mb = block_tables.shape
+    _, bs, heads, d = pool.shape
+    return pool[block_tables.long()].reshape(b, mb * bs, heads, d)
+
+
+def decode_attention_paged_reference(q, k_pool, v_pool, block_tables,
+                                     lengths, softmax_scale=None):
+    """Plain version of :func:`decode_attention_paged`: gather the window,
+    then mask each row to keys ``<= lengths[b] + r`` whose table entry is
+    a real pool block."""
+    b, tq, _, d = q.shape
+    bs = k_pool.shape[1]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    real = ((block_tables.long() > GARBAGE_BLOCK)
+            & (block_tables.long() < k_pool.shape[0])).repeat_interleave(
+        bs, dim=1)                                               # [B, S]
+    visible = cache_attn_mask(real.shape[1], lengths.long(), tq)[:, 0] \
+        & real[:, None, :]
+    # rows of the garbage block are zeroed, not just masked: the kernel
+    # never reads them, so not even a NaN there may reach the output
+    k, v = (torch.where(real[:, :, None, None],
+                        gather_paged_cache(pool, block_tables.clamp(
+                            0, k_pool.shape[0] - 1)), 0)
+            for pool in (k_pool, v_pool))
+    return _attend(q, k, v, visible, scale)
+
+
+def _check_common(q, pools, name):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
+    if q.requires_grad:
+        raise NotImplementedError(f"{name} has no backward; call under "
+                                  "torch.no_grad()")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} takes bf16 or fp32, got {q.dtype}")
+    if q.dim() != 4 or q.shape[1] < 1:
+        raise ValueError(f"q must be [B, T_q >= 1, H, D], got "
+                         f"{tuple(q.shape)}")
+    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not in "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    for t in (q, *pools):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: every tensor must be {q.dtype} on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"{name}: q and the caches must be contiguous "
+                             f"4-d tensors, got {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+        if t.shape[2:] != q.shape[2:]:
+            raise ValueError(f"{name}: heads/dim {tuple(t.shape[2:])} != "
+                             f"query {tuple(q.shape[2:])}")
+
+
+def _int32_on(t, device, name):
+    if (t.device != device or t.dtype != torch.int32
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+
+
+def decode_attention(q, k_cache, v_cache, cache_index, softmax_scale=None):
+    """Attend a decode step against the valid prefix of an append KV cache.
+
+    q ``[B, T_q, H, D]``; caches ``[B, S, H, D]`` whose rows
+    ``[0, cache_index + T_q)`` are valid (this step's keys already
+    written at ``[cache_index, cache_index + T_q)``); ``cache_index`` a 0-d
+    int32 tensor on q's device (the kernel reads it there, so the host
+    never waits on it). Returns ``[B, T_q, H, D]`` in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, cache_index,
+                                          softmax_scale)
+    _check_common(q, (k_cache, v_cache), "decode_attention")
+    if k_cache.shape != v_cache.shape or k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"cache shapes {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if cache_index.dim() != 0:
+        raise ValueError("cache_index must be a 0-d int32 tensor")
+    _int32_on(cache_index, q.device, "cache_index")
+    b, tq, h, d = q.shape
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    lib = load("decode_append", _APPEND_SIG)
+    err = lib.ds_decode_append(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cache_index.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, tq, h, d, k_cache.shape[1],
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_append kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
+                           softmax_scale=None):
+    """Attend a decode (or k-token verify) step against a paged KV cache.
+
+    q ``[B, T_q, H, D]`` — query row r of batch row b sits at absolute
+    position ``lengths[b] + r`` and sees keys up to it, including the
+    other rows of the same step (their KV must already be in the pool);
+    pools ``[num_blocks, block_size, H, D]``; ``block_tables`` ``[B, MB]``
+    int32 (entries past the allocation name the garbage block, never
+    read); ``lengths`` ``[B]`` int32, valid tokens per row before this
+    step. Returns ``[B, T_q, H, D]`` in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_paged_reference(
+            q, k_pool, v_pool, block_tables, lengths, softmax_scale)
+    _check_common(q, (k_pool, v_pool), "decode_attention_paged")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"pool shapes differ: {tuple(k_pool.shape)} vs "
+                         f"{tuple(v_pool.shape)}")
+    _int32_on(block_tables, q.device, "block_tables")
+    _int32_on(lengths, q.device, "lengths")
+    b, tq, h, d = q.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"lengths {tuple(lengths.shape)} do not match "
+                         f"batch {b}")
+    nb, bs = k_pool.shape[:2]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    lib = load("decode_paged", _PAGED_SIG)
+    err = lib.ds_decode_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, tq, h, d, nb, bs,
+        block_tables.shape[1], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_paged kernel launch failed: CUDA error "
+                           f"{err}")
+    decode_attention_paged.launches += 1
+    return out
+
+
+# kernel launches by each wrapper (chip_smoke.py zeroes and reads them)
+decode_attention.launches = 0
+decode_attention_paged.launches = 0

@@ -1,0 +1,61 @@
+"""Weights of the JAX package's GPT-2 in the port's layout.
+
+:func:`params_from_jax` turns the flax parameter tree of
+``deepspeed_tpu.models.gpt2.GPT2LMHeadModel`` — as numpy arrays, e.g.
+``jax.tree_util.tree_map(np.asarray, params)`` — into a state dict for
+:class:`deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel`. Two layout facts
+drive it:
+
+- with ``scan_layers=True`` (the JAX default) the block parameters sit
+  under ``transformer/h/block`` stacked on a leading layer axis; with
+  ``scan_layers=False`` under ``transformer/h_<i>``;
+- a flax ``Dense`` kernel is ``[in, out]``, an ``nn.Linear`` weight
+  ``[out, in]``; LayerNorm ``scale`` is the ``weight``.
+
+No JAX import: the tree is plain nested dicts of numpy arrays.
+"""
+
+import numpy as np
+import torch
+
+_DENSE = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc"),
+          ("mlp", "c_proj"))
+_NORMS = ("ln_1", "ln_2")
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s flax sub-tree (stacked or per-layer layout)."""
+    blocks = tree["transformer"]
+    if "h" in blocks:
+        return {k: _index(v, i) for k, v in blocks["h"]["block"].items()}
+    return blocks[f"h_{i}"]
+
+
+def _index(node, i):
+    if isinstance(node, dict):
+        return {k: _index(v, i) for k, v in node.items()}
+    return node[i]
+
+
+def params_from_jax(tree, config) -> dict:
+    """State dict of the port's GPT-2 (fp32 tensors on the CPU) from the
+    JAX model's flax params (``{"params": ...}`` or the bare tree)."""
+    tree = tree.get("params", tree)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    sd = {"wte": t(tree["wte"]), "wpe": t(tree["wpe"]),
+          "ln_f.weight": t(tree["ln_f"]["scale"]),
+          "ln_f.bias": t(tree["ln_f"]["bias"])}
+    for i in range(config.n_layer):
+        layer = _layer(tree, i)
+        for mod, name in _DENSE:
+            dense = layer[mod][name]
+            sd[f"h.{i}.{mod}.{name}.weight"] = t(dense["kernel"]).T \
+                .contiguous()
+            sd[f"h.{i}.{mod}.{name}.bias"] = t(dense["bias"])
+        for name in _NORMS:
+            sd[f"h.{i}.{name}.weight"] = t(layer[name]["scale"])
+            sd[f"h.{i}.{name}.bias"] = t(layer[name]["bias"])
+    return sd

@@ -1,0 +1,111 @@
+"""The port stands alone and never falls back to the CPU.
+
+- ``import deepspeed_tpu_torch`` (every module of it) leaves ``jax`` and
+  ``deepspeed_tpu`` out of ``sys.modules``, checked in a fresh process;
+- no file under the package imports either;
+- asking for the card without one raises; a tensor on a device the
+  wrappers do not run on raises instead of taking the plain version;
+- ``chip_smoke.py`` exits non-zero, printing no result, without a card
+  or without the rest of the repository.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      decode_attention_paged)
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "deepspeed_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "deepspeed_tpu")
+
+
+def _no_gpu_env():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import deepspeed_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_no_gpu_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+             if f.endswith(".py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, REPO), name) for f in files
+           for name in _imports(f) if name.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_cuda_without_a_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    model = GPT2LMHeadModel(GPT2Config.tiny(), device="meta")
+    with pytest.raises(RuntimeError, match="cuda"):
+        deepspeed_tpu_torch.init_inference(model)  # default device: card
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    """Only a CPU tensor takes the plain version: any other device
+    launches the kernel or raises."""
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)
+    q4 = torch.empty((1, 1, 2, 16), device="meta")
+    idx = torch.empty((), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention(q4, q4, q4, idx)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention_paged(q4, q4, q4, idx, idx)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    env = _no_gpu_env()
+    if alone:  # a directory holding chip_smoke.py and nothing else
+        cwd = str(tmp_path)
+        shutil.copy(script, cwd)
+        script = os.path.join(cwd, "chip_smoke.py")
+        env["PYTHONPATH"] = ""
+    out = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,179 @@
+"""The port's attention ops against the JAX package's Pallas kernels.
+
+The same numpy inputs (fixed seeds) go through the Pallas kernel, run in
+interpret mode on the CPU as the JAX package's own tests run it, and
+through the port's wrapper, which on a CPU tensor takes its plain PyTorch
+version — the function its CUDA kernel is held against on the card.
+Tolerance: float32 on both sides, 1e-5 absolute and relative (the same
+math summed in another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops import decode_attention as jax_decode
+from deepspeed_tpu.ops.attention import (
+    attention_reference as jax_attention_reference)
+from deepspeed_tpu.models import decode_utils as jax_decode_utils
+from deepspeed_tpu.ops.flash_attention import _flash_forward
+from deepspeed_tpu.utils.compat import tpu_interpret_mode
+from deepspeed_tpu_torch.models.decode_utils import (cache_attn_mask,
+                                                     paged_positions,
+                                                     paged_write_rows)
+from deepspeed_tpu_torch.ops.attention import attention, attention_reference
+from deepspeed_tpu_torch.ops.decode_attention import (
+    GARBAGE_BLOCK, decode_attention, decode_attention_paged,
+    gather_paged_cache)
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _close(port, ref):
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash forward (TPU kernel _fwd_kernel)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("tq,tk,block,causal", [
+    (24, 24, 8, True),    # several query/key tiles, diagonal masking
+    (8, 24, 8, True),     # Tq < Tk: bottom-right causal offset
+    (24, 8, 8, True),     # Tq > Tk: fully masked rows get O = 0
+    (13, 13, 13, True),   # a length no power of two divides
+    (16, 24, 8, False),
+])
+def test_flash_matches_pallas(tq, tk, block, causal):
+    rng = np.random.default_rng(tq * 100 + tk)
+    q = rng.normal(size=(2, 2, tq, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 2, tk, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 2, tk, 16)).astype(np.float32)
+    with tpu_interpret_mode():
+        ref_o, ref_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), 0.25, causal, block,
+                                        block)
+    o, lse = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal,
+                             softmax_scale=0.25)
+    _close(o, ref_o)
+    _close(lse, ref_lse)
+
+
+def test_dispatch_cpu_takes_the_reference():
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.normal(size=(1, 2, 10, 16)).astype(np.float32)
+               for _ in range(3))
+    mask = rng.random((1, 1, 10, 10)) > 0.3
+    mask[..., 0] = True
+    ref = jax_attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), mask=jnp.asarray(mask))
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    _close(attention_reference(*t, mask=torch.from_numpy(mask)), ref)
+    # the dispatch takes no mask: on the CPU it is the dense reference
+    for causal in (True, False):
+        _close(attention(*t, causal=causal),
+               jax_attention_reference(*map(jnp.asarray, (q, k, v)),
+                                       causal=causal))
+
+
+# ---------------------------------------------------------------------------
+# append-cache decode (TPU kernel _kernel)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("idx,tq", [(0, 1), (63, 1), (64, 1), (65, 3),
+                                    (124, 4)])
+def test_decode_matches_pallas(idx, tq):
+    B, H, D, S = 2, 2, 16, 128
+    rng = np.random.default_rng(idx + tq)
+    kc = np.zeros((B, S, H, D), np.float32)
+    vc = np.zeros((B, S, H, D), np.float32)
+    kc[:, :idx + tq] = rng.normal(size=(B, idx + tq, H, D))
+    vc[:, :idx + tq] = rng.normal(size=(B, idx + tq, H, D))
+    kc[:, idx + tq:] = 1e4   # past the valid prefix: never read
+    q = rng.normal(size=(B, tq, H, D)).astype(np.float32)
+    with tpu_interpret_mode():
+        ref = jax_decode.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                          jnp.asarray(vc), idx, block_k=64)
+    out = decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                           torch.from_numpy(vc),
+                           torch.tensor(idx, dtype=torch.int32))
+    _close(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# paged decode (TPU kernel _paged_kernel)
+# ---------------------------------------------------------------------------
+def _paged_inputs(lengths, tq, bs=16, mb=4, H=2, D=16, seed=0):
+    """Random pools and per-row permuted block tables covering each row's
+    ``length + tq`` positions; unallocated entries name the garbage
+    block."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    nb = 1 + B * mb
+    kp = rng.normal(size=(nb, bs, H, D)).astype(np.float32)
+    vp = rng.normal(size=(nb, bs, H, D)).astype(np.float32)
+    tables = np.full((B, mb), GARBAGE_BLOCK, np.int32)
+    free = list(rng.permutation(np.arange(1, nb)))
+    for b, ln in enumerate(lengths):
+        need = -(-(ln + tq) // bs)
+        tables[b, :need] = [free.pop() for _ in range(need)]
+    q = rng.normal(size=(B, tq, H, D)).astype(np.float32)
+    return q, kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("lengths,tq", [
+    ([0, 15, 16, 17], 1),   # empty row, block boundaries
+    ([5, 31, 40], 3),       # T_q > 1: per-row causal (verify step)
+])
+def test_paged_matches_pallas(lengths, tq):
+    arrays = _paged_inputs(lengths, tq, seed=sum(lengths) + tq)
+    with tpu_interpret_mode():
+        ref = jax_decode.decode_attention_paged(*map(jnp.asarray, arrays))
+    out = decode_attention_paged(*map(torch.from_numpy, arrays))
+    _close(out, ref)
+
+
+def test_paged_garbage_block_never_contributes():
+    q, kp, vp, tables, lengths = _paged_inputs([3, 20], 1, seed=7)
+    out = decode_attention_paged(*map(torch.from_numpy,
+                                      (q, kp, vp, tables, lengths)))
+    kp[GARBAGE_BLOCK] = 1e4
+    vp[GARBAGE_BLOCK] = np.nan
+    poisoned = decode_attention_paged(*map(torch.from_numpy,
+                                           (q, kp, vp, tables, lengths)))
+    np.testing.assert_array_equal(out.numpy(), poisoned.numpy())
+
+
+def test_gather_paged_cache_matches_jax():
+    _, kp, _, tables, _ = _paged_inputs([9, 33], 1, seed=2)
+    ref = jax_decode.gather_paged_cache(jnp.asarray(kp), jnp.asarray(tables))
+    _close(gather_paged_cache(torch.from_numpy(kp),
+                              torch.from_numpy(tables)), ref)
+
+
+# ---------------------------------------------------------------------------
+# paged write addressing (decode_utils)
+# ---------------------------------------------------------------------------
+def test_paged_write_rows_send_pads_to_the_garbage_block():
+    """Right-padded prefill tails and idle slots write into block 0, never
+    over a real row; real tokens map through the block table."""
+    tables = np.array([[3, 5, 0], [2, 0, 0], [0, 0, 0]], np.int32)
+    lengths = np.array([0, 6, 0], np.int32)
+    num_valid = np.array([5, 1, 0], np.int32)
+    ref = jax_decode_utils.paged_write_rows(
+        jnp.asarray(tables), jax_decode_utils.paged_positions(
+            jnp.asarray(lengths), 8), jnp.asarray(num_valid), 4)
+    rows = paged_write_rows(torch.from_numpy(tables),
+                            paged_positions(torch.from_numpy(lengths), 8),
+                            torch.from_numpy(num_valid), 4)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(ref))
+    assert (rows[0, 5:] < 4).all() and (rows[2] < 4).all()  # garbage block
+    assert rows[0, :5].tolist() == [12, 13, 14, 15, 20]
+
+
+@pytest.mark.parametrize("idx", [3, [0, 2, 7]])
+def test_cache_attn_mask_matches_jax(idx):
+    ref = jax_decode_utils.cache_attn_mask(10, jnp.asarray(idx), 3)
+    np.testing.assert_array_equal(
+        cache_attn_mask(10, torch.tensor(idx), 3).numpy(), np.asarray(ref))
