@@ -5,28 +5,38 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the three CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one
+1. build the five CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and print the card;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, in bf16 and fp32, and time kernel, plain
-   version and (where one exists) the PyTorch library call computing the
-   same function, beside the least time the card could take (bound).
-   ``ms``, ``plain_ms`` and ``library_ms`` are device times (CUDA events
-   around calls the host queued ahead of the device, see
-   :func:`device_ms`); ``wrapper_ms`` is the time of back-to-back wrapper
-   calls on CUDA events, which the host's launch rate sets for the
-   microsecond decode kernels;
-3. serve 8 requests through GPT-2 125M at full width (bf16, random
+   serving and training paths' shapes and at ragged ones, in bf16 and
+   fp32 — the flash kernels also on ``[B, T, H, D]`` views through
+   ``flash_attention_bthd`` — and time kernel, plain version and (where
+   one exists) the PyTorch library call computing the same function,
+   beside the least time the card could take (bound). ``ms``,
+   ``plain_ms`` and ``library_ms`` are device times (CUDA events around
+   calls the host queued ahead of the device, see :func:`device_ms`);
+   ``wrapper_ms`` is the time of back-to-back wrapper calls on CUDA
+   events, which the host's launch rate sets for the microsecond decode
+   kernels;
+3. train GPT-2 125M at full width with ``bench.py``'s configuration
+   (batch 16 x 1024, bf16 over fp32 masters, dots remat, fused AdamW
+   step, clip 1.0) through ``deepspeed_tpu_torch.initialize``: one
+   warm-up step whose loss is within 0.3 of ln V, then 10 timed steps
+   (tokens/s, MFU against 989 TF/s) over which the loss falls; then the
+   first step's per-tensor gradients and the first three losses against
+   a second engine from the same seed run with the plain versions (which
+   takes the same 11 steps, its losses printed beside the kernel path's);
+4. serve 8 requests through GPT-2 125M at full width (bf16, random
    weights from ``--seed``) with ``init_serving``, after one untimed
-   warm-up pass of phases 3 and 4: every request finishes
+   warm-up pass of phases 4 and 5: every request finishes
    with its tokens, the flash and paged-decode kernels were launched, and
    the first token and first decode-step logits agree with the same
    engine run with the plain versions on the card;
-4. ``init_inference(model).generate`` on a 2 x 128 prompt through the
+5. ``init_inference(model).generate`` on a 2 x 128 prompt through the
    append-decode kernel, with the same logits check.
 
-Phases 3 and 4 are the two main paths: each sets every launch count to 0
-just before it runs and reads the counts just after, before its
+Phases 3, 4 and 5 are the three main paths: each sets every launch count
+to 0 just before it runs and reads the counts just after, before its
 comparison run with the plain versions.
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
@@ -45,7 +55,8 @@ from unittest import mock
 
 import numpy as np
 
-KERNEL_SOURCES = ("flash_fwd", "decode_append", "decode_paged")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                  "decode_append", "decode_paged")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -66,8 +77,21 @@ REPEATS = 20
 # at the H100's 1.98 GHz boost clock) while the host queues the calls
 SPIN_CYCLES = 20_000_000
 # the row of each kernel's checks reported in the {"kernels": ...} line:
-# flash at T=1024, append decode at idx=1000 T_q=1, paged decode at T_q=1
-MAIN_ROW = {"flash_fwd": 2, "decode_append": 2, "decode_paged": 0}
+# the flash kernels at the training shape (B=16 H=12 T=1024 D=64), append
+# decode at idx=1000 T_q=1, paged decode at T_q=1; and the flash kernels'
+# training-shape row through the [B, T, H, D] entry
+MAIN_ROW = {"flash_fwd": 3, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_append": 2, "decode_paged": 0}
+BTHD_ROW = {"flash_fwd": 4, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+TRAIN_STEPS = 10
+# GPT-2 125M training, kernel path vs plain-version path from the same
+# seed, bf16: the first losses agree to the bf16 noise of the forward
+# (the logits stay fp32); step-1 gradients of each parameter tensor within
+# 5 % relative L2 — both paths round p and ds to bf16 at the same points,
+# but flash O differs by bf16 ulps (the running maxima), and the
+# differences pass through 12 layers of bf16 backward
+TRAIN_LOSS_ATOL = 0.05
+TRAIN_GRAD_RTOL = 0.05
 
 
 def log(msg):
@@ -166,37 +190,177 @@ def compare(name, got, want, dtype):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def pairs(tq, tk, causal):
+    """Visible (query, key) pairs of one head: the flash kernels' work."""
+    if not causal:
+        return tq * tk
+    return sum(min(tk, max(0, i + tk - tq + 1)) for i in range(tq))
+
+
+def rand_heads(b, h, t, d, layout, dtype, gen):
+    """A random ``[B, H, T, D]`` operand: contiguous for ``bhtd``, a
+    transposed view of a contiguous ``[B, T, H, D]`` tensor for ``bthd``
+    (what :func:`flash_attention_bthd` hands the kernels)."""
+    import torch
+
+    if layout == "bthd":
+        return (torch.randn((b, t, h, d), generator=gen, device="cuda")
+                .to(dtype).transpose(1, 2))
+    return torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
+
+
+def shape_name(b, h, tq, tk, d, layout, causal=True):
+    return (f"B={b} H={h} Tq={tq} Tk={tk} D={d} {layout}"
+            + ("" if causal else " non-causal"))
+
+
+# flash forward: serving prefill shapes (B=1), the training shape (B=16)
+# in both layouts, and a ragged [B, T, H, D] case; (B, H, T, layout)
+FWD_SHAPES = ((1, 12, 16, "bhtd"), (1, 12, 100, "bhtd"),
+              (1, 12, 1024, "bhtd"), (16, 12, 1024, "bhtd"),
+              (16, 12, 1024, "bthd"), (2, 12, 100, "bthd"))
+# flash backward: the training shape in both layouts (timed), then ragged
+# and offset cases and the other head dims; (B, H, Tq, Tk, D, layout,
+# causal)
+BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
+              (16, 12, 1024, 1024, 64, "bthd", True),
+              (2, 12, 100, 100, 64, "bhtd", True),
+              (2, 12, 100, 100, 64, "bthd", True),
+              (2, 4, 37, 100, 64, "bhtd", True),
+              (2, 4, 100, 37, 64, "bhtd", True),
+              (2, 4, 64, 100, 64, "bhtd", False),
+              (1, 2, 77, 77, 16, "bhtd", True),
+              (1, 2, 77, 77, 32, "bthd", True),
+              (1, 2, 77, 77, 128, "bhtd", True))
+
+
 def check_flash(dtype, gen):
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_bthd, flash_attention_reference)
 
-    B, H, D = 1, 12, 64
+    D, dt = 64, str(dtype)[6:]
     rows = []
-    for T in (16, 100, 1024):
-        q, k, v = (torch.randn((B, H, T, D), generator=gen, device="cuda")
-                   .to(dtype) for _ in range(3))
-        o, lse = flash_attention(q, k, v, causal=True)
+    for B, H, T, layout in FWD_SHAPES:
+        q, k, v = (rand_heads(B, H, T, D, layout, dtype, gen)
+                   for _ in range(3))
+        name = shape_name(B, H, T, T, D, layout)
         ro, rlse = flash_attention_reference(q, k, v, causal=True)
+        if layout == "bthd":  # through the [B, T, H, D] entry
+            qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
+
+            def kernel():
+                return flash_attention_bthd(qb, kb, vb)
+
+            o = kernel().transpose(1, 2)
+        else:
+            def kernel():
+                return flash_attention(q, k, v)
+
+            o, lse = kernel()
+            torch.cuda.synchronize()
+            lse_err = (lse - rlse).abs().max().item()
+            if lse_err > 1e-3:
+                raise AssertionError(f"flash {name} lse error {lse_err}")
         torch.cuda.synchronize()
-        err = compare(f"flash T={T} {dtype}", o, ro, str(dtype)[6:])
-        lse_err = (lse - rlse).abs().max().item()
-        if lse_err > 1e-3:
-            raise AssertionError(f"flash T={T} lse error {lse_err}")
-        esize = q.element_size()
-        nbytes = 4 * B * H * T * D * esize + B * H * T * 4
-        flops = 4 * D * B * H * T * (T + 1) // 2
+        err = compare(f"flash {name} {dtype}", o, ro, dt)
+        nbytes = 4 * B * H * T * D * q.element_size() + B * H * T * 4
+        flops = 4 * D * B * H * pairs(T, T, True)
         rows.append({
-            "shape": f"B={B} H={H} T={T} D={D}", "max_abs_err": err,
-            **times(lambda: flash_attention(q, k, v),
-                    lambda: flash_attention_reference(q, k, v),
+            "shape": name, "max_abs_err": err,
+            **times(kernel, lambda: flash_attention_reference(q, k, v),
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=True)),
-            "bound_ms": bound_ms(nbytes, flops, str(dtype)[6:]),
-            "bound_by": bound_by(nbytes, flops, str(dtype)[6:])})
+            "bound_ms": bound_ms(nbytes, flops, dt),
+            "bound_by": bound_by(nbytes, flops, dt)})
     return rows
+
+
+def check_flash_bwd(dtype, gen):
+    """The dQ and dK/dV kernels against their plain versions on the same
+    inputs (the forward kernel's O and lse). ``[B, T, H, D]`` cases run
+    through :func:`flash_attention_bthd` with autograd, checked to launch
+    each kernel once. Returns (dq rows, dkv rows); only the training
+    shape is timed (SDPA's backward, dQ/dK/dV together, as the library
+    yardstick of both)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    dt = str(dtype)[6:]
+    dq_rows, dkv_rows = [], []
+    for B, H, Tq, Tk, D, layout, causal in BWD_SHAPES:
+        name = shape_name(B, H, Tq, Tk, D, layout, causal)
+        q = rand_heads(B, H, Tq, D, layout, dtype, gen)
+        k, v = (rand_heads(B, H, Tk, D, layout, dtype, gen)
+                for _ in range(2))
+        do = rand_heads(B, H, Tq, D, layout, dtype, gen)
+        if layout == "bthd":  # the whole autograd path through the entry
+            leaves = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v)]
+            before = launch_counts()
+            o = fa.flash_attention_bthd(*leaves, causal=causal)
+            o.backward(do.transpose(1, 2))
+            got = [t.grad.transpose(1, 2) for t in leaves]
+            o = o.detach().transpose(1, 2)
+            after = launch_counts()
+            for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                if after[kname] - before[kname] != 1:
+                    raise AssertionError(f"flash_attention_bthd {name}: "
+                                         f"{kname} launched "
+                                         f"{after[kname] - before[kname]} "
+                                         f"times, not once")
+            lse = fa.flash_attention(q, k, v, causal=causal)[1]
+        else:
+            o, lse = fa.flash_attention(q, k, v, causal=causal)
+        delta = fa.attention_delta(do, o)
+        if layout == "bhtd":
+            got = [fa.flash_attention_backward(q, k, v, do, lse, delta,
+                                               causal),
+                   *fa.flash_attention_backward_dkv(q, k, v, do, lse, delta,
+                                                    causal)]
+        args = (q, k, v, do, lse, delta, causal)
+        want = [fa.flash_attention_backward_dq_reference(*args),
+                *fa.flash_attention_backward_dkv_reference(*args)]
+        torch.cuda.synchronize()
+        errs = [compare(f"flash bwd {n} {name} {dtype}", g, w, dt)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        n_pairs = B * H * pairs(Tq, Tk, causal)
+        esize = q.element_size()
+        io = B * H * D * esize
+        stats = B * H * Tq * 4 * 2  # lse and delta
+        dq_row = {"shape": name, "max_abs_err": errs[0],
+                  "bound_ms": None, "bound_by": None}
+        dkv_row = {"shape": name, "max_abs_err": max(errs[1:]),
+                   "bound_ms": None, "bound_by": None}
+        for row, nbytes, flops in (
+                (dq_row, io * (3 * Tq + 2 * Tk) + stats, 6 * D * n_pairs),
+                (dkv_row, io * (2 * Tq + 4 * Tk) + stats, 8 * D * n_pairs)):
+            row["bound_ms"] = bound_ms(nbytes, flops, dt)
+            row["bound_by"] = bound_by(nbytes, flops, dt)
+        if Tq == 1024:  # the training shape: time it
+            lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+
+            def library():
+                return torch.autograd.grad(lo, (lq, lk, lv), do,
+                                           retain_graph=True)
+
+            dq_row.update(times(
+                lambda: fa.flash_attention_backward(*args),
+                lambda: fa.flash_attention_backward_dq_reference(*args),
+                library))
+            dkv_row.update(times(
+                lambda: fa.flash_attention_backward_dkv(*args),
+                lambda: fa.flash_attention_backward_dkv_reference(*args),
+                library))
+            del lo
+        dq_rows.append(dq_row)
+        dkv_rows.append(dkv_row)
+    return dq_rows, dkv_rows
 
 
 def check_append(dtype, gen):
@@ -294,7 +458,9 @@ def phase_kernels(seed):
     rng = np.random.default_rng(seed)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
+        dq_rows, dkv_rows = check_flash_bwd(dtype, gen)
         res = {"flash_fwd": check_flash(dtype, gen),
+               "flash_bwd_dq": dq_rows, "flash_bwd_dkv": dkv_rows,
                "decode_append": check_append(dtype, gen),
                "decode_paged": check_paged(dtype, gen, rng)}
         for name, rows in res.items():
@@ -315,8 +481,11 @@ def plain_versions():
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    with mock.patch("deepspeed_tpu_torch.ops.attention.flash_attention",
-                    fa.flash_attention_reference), \
+    with mock.patch.object(fa, "_fwd_launch", fa.flash_attention_reference), \
+            mock.patch.object(fa, "_dq_launch",
+                              fa.flash_attention_backward_dq_reference), \
+            mock.patch.object(fa, "_dkv_launch",
+                              fa.flash_attention_backward_dkv_reference), \
             mock.patch("deepspeed_tpu_torch.models.gpt2.decode_attention",
                        da.decode_attention_reference), \
             mock.patch("deepspeed_tpu_torch.models.gpt2."
@@ -327,11 +496,14 @@ def plain_versions():
 
 def kernel_wrappers():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_paged)
-    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
-    return {"flash_fwd": flash_attention, "decode_append": decode_attention,
+    return {"flash_fwd": fa.flash_attention,
+            "flash_bwd_dq": fa.flash_attention_backward,
+            "flash_bwd_dkv": fa.flash_attention_backward_dkv,
+            "decode_append": decode_attention,
             "decode_paged": decode_attention_paged}
 
 
@@ -532,6 +704,97 @@ def phase_generate(model, seed, card):
     return counts
 
 
+def first_grads(engine, batch):
+    """Per-parameter gradients of the first step's loss (the engine's
+    model, before any update); leaves the engine's gradients clear."""
+    engine.module(batch).backward()
+    grads = {n: p.grad.clone() for n, p in engine.module.named_parameters()}
+    engine.zero_grad()
+    return grads
+
+
+def phase_training(seed, card):
+    """The training path: bench.py's configuration on GPT-2 125M at full
+    width through ``deepspeed_tpu_torch.initialize``. One warm-up step
+    (its loss is the first loss: within 0.3 of ln V), then 10 timed steps
+    with the launch counts zeroed just before and read just after; the
+    loss must fall. Then a second engine from the same seed runs with the
+    plain versions on the card: the first step's per-tensor gradients and
+    the first three losses are held against the kernel path's. Returns
+    the training path's launch counts."""
+    import torch
+
+    from deepspeed_tpu_torch.tools.profile_training import (
+        BATCH, PEAK_BF16_FLOPS, SEQ, bench_batch, bench_engine, bench_model,
+        flops_per_token, timed_steps, train_steps)
+
+    engine = bench_engine(bench_model(seed))
+    batch = bench_batch(engine.module.config.vocab_size, seed, engine.device)
+    kernel_grads = first_grads(engine, batch)
+    first, _ = timed_steps(engine, batch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs = timed_steps(engine, batch, TRAIN_STEPS)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = first + losses
+    n_layer = engine.module.config.n_layer
+    log_v = float(np.log(engine.module.config.vocab_size))
+    if not all(np.isfinite(losses)) or abs(losses[0] - log_v) > 0.3:
+        raise AssertionError(f"training: first loss {losses[0]} not within "
+                             f"0.3 of ln V = {log_v}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: the loss did not fall: {losses}")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if counts[name] != TRAIN_STEPS * n_layer:
+            raise AssertionError(f"training: {name} launched {counts[name]}"
+                                 f" times in {TRAIN_STEPS} steps, not "
+                                 f"{n_layer} a step")
+    if counts["flash_fwd"] not in (TRAIN_STEPS * n_layer,
+                                   2 * TRAIN_STEPS * n_layer):
+        raise AssertionError(f"training: flash_fwd launched "
+                             f"{counts['flash_fwd']} times")
+    tokens_per_s = TRAIN_STEPS * BATCH * SEQ / secs
+    mfu = tokens_per_s * flops_per_token(engine.module) / PEAK_BF16_FLOPS
+    log(f"training: GPT-2 125M, batch {BATCH} x {SEQ}, bf16, dots remat, "
+        f"fused AdamW step; {TRAIN_STEPS} steps in {secs:.3f} s "
+        f"({1e3 * secs / TRAIN_STEPS:.1f} ms/step, {tokens_per_s:.0f} "
+        f"tokens/s, MFU {mfu:.4f} of 989 TF/s), peak memory {peak_gb:.2f} "
+        f"GB; losses {[round(x, 4) for x in losses]} (ln V = {log_v:.4f}); "
+        f"launches per step flash_fwd {counts['flash_fwd'] / TRAIN_STEPS} "
+        f"({'saved' if counts['flash_fwd'] == TRAIN_STEPS * n_layer else 'recomputed'} "
+        f"by the dots policy), flash_bwd_dq "
+        f"{counts['flash_bwd_dq'] / TRAIN_STEPS}, flash_bwd_dkv "
+        f"{counts['flash_bwd_dkv'] / TRAIN_STEPS} [{card}]")
+    del engine
+
+    with plain_versions():
+        plain = bench_engine(bench_model(seed))
+        plain_grads = first_grads(plain, batch)
+        plain_losses = [float(x) for x in
+                        train_steps(plain, batch, 1 + TRAIN_STEPS)]
+    grad_err = {}
+    for name, g in kernel_grads.items():
+        ref = plain_grads[name].float()
+        grad_err[name] = ((g.float() - ref).norm()
+                          / ref.norm().clamp_min(1e-30)).item()
+    worst = max(grad_err, key=grad_err.get)
+    loss_err = max(abs(a - b) for a, b in zip(losses[:3], plain_losses))
+    if loss_err > TRAIN_LOSS_ATOL or grad_err[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(
+            f"training kernels vs plain versions: losses {losses[:3]} vs "
+            f"{plain_losses[:3]} (max diff {loss_err}, limit "
+            f"{TRAIN_LOSS_ATOL}); worst gradient {worst} relative L2 "
+            f"{grad_err[worst]} (limit {TRAIN_GRAD_RTOL})")
+    log(f"training vs plain versions: plain-path losses "
+        f"{[round(x, 4) for x in plain_losses]}; first 3 max |diff| "
+        f"{loss_err:.3g} (limit {TRAIN_LOSS_ATOL}); step-1 gradients"
+        f" relative L2 max {grad_err[worst]:.3g} at {worst}, median "
+        f"{float(np.median(list(grad_err.values()))):.3g} (limit "
+        f"{TRAIN_GRAD_RTOL})")
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -567,23 +830,33 @@ def main():
     log(f"phase 2: kernels hold against plain versions (bf16, fp32) in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    by_path = {"training": phase_training(args.seed, card)}
+    log(f"phase 3: training in {time.perf_counter() - t0:.1f} s")
+
     model = GPT2LMHeadModel(GPT2Config.gpt2_125m(), seed=args.seed)
     t0 = time.perf_counter()
     warm_up(model, args.seed)
     log(f"warm-up (one serving drain, one generate; untimed, uncounted) in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_path = {"serving": phase_serving(model, args.seed, card)}
-    log(f"phase 3: serving in {time.perf_counter() - t0:.1f} s")
+    by_path["serving"] = phase_serving(model, args.seed, card)
+    log(f"phase 4: serving in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["generate"] = phase_generate(model, args.seed, card)
-    log(f"phase 4: generate in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 5: generate in {time.perf_counter() - t0:.1f} s")
 
     # name: (source, TPU kernel it replaces, the path that needs it;
     # "launches" is that path's count, "launches_by_path" every path's)
     sources = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
                              "deepspeed_tpu/ops/flash_attention.py:77",
-                             "serving"),
+                             "training"),
+               "flash_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_bwd_dq.cu",
+                                "deepspeed_tpu/ops/flash_attention.py:196",
+                                "training"),
+               "flash_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_bwd_dkv.cu",
+                                 "deepspeed_tpu/ops/flash_attention.py:252",
+                                 "training"),
                "decode_append": ("deepspeed_tpu_torch/csrc/decode_append.cu",
                                  "deepspeed_tpu/ops/decode_attention.py:39",
                                  "generate"),
@@ -604,6 +877,11 @@ def main():
             "library_ms": row["library_ms"],
             "wrapper_ms": row["wrapper_ms"], "shape": row["shape"],
             "dtype": "bfloat16"})
+        if name in BTHD_ROW:  # the same kernel through the [B, T, H, D] entry
+            bthd = kernel_rows[name][BTHD_ROW[name]]
+            kernels[-1]["bthd"] = {k: bthd[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "wrapper_ms",
+                "bound_ms")}
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,49 @@
 
 It mirrors the JAX package's module paths, imports ``torch`` and never
 ``jax`` or ``deepspeed_tpu``, and runs on the card unless the caller
-passes ``device="cpu"``. This slice holds the serving path: GPT-2 with
-hand-written flash-prefill and decode-attention kernels for Hopper
-(``csrc/``), the inference engine's ``generate()`` and the
-continuous-batching serving engine.
+passes ``device="cpu"``. It holds the serving path (GPT-2 with
+hand-written flash-prefill and decode-attention kernels for Hopper in
+``csrc/``, the inference engine's ``generate()`` and the
+continuous-batching serving engine) and the one-card training path
+(:func:`initialize`, the training engine with the fused step, AdamW/SGD/
+LAMB, and the flash-attention backward kernels).
 """
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mesh=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, device=None):
+    """Build a training engine around ``model`` (an ``nn.Module`` whose
+    ``forward(batch)`` returns the loss, e.g. ``models.gpt2.
+    GPT2ForTraining``) on the card (``device=None``) or the CPU.
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
+    the dataloader is None. ``mesh`` comes with the multi-GPU slice and
+    ``training_data`` with the checkpoint slice (the data-loader cursor);
+    every parameter of ``model`` is trained, so ``model_parameters`` is
+    not taken."""
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    for name, value, where in (
+            ("mesh", mesh, "the multi-GPU slice"),
+            ("training_data", training_data, "the checkpoint slice"),
+            ("collate_fn", collate_fn, "the checkpoint slice"),
+            ("model_parameters", model_parameters,
+             "no slice: the engine trains every parameter of the model")):
+        if value is not None:
+            raise NotImplementedError(
+                f"initialize({name}=...) is not supported by the PyTorch "
+                f"port: {where}")
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    engine = DeepSpeedEngine(model=model, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler, config=config,
+                             device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler
+
 
 def init_inference(model, config=None, **kwargs):
     """Build an :class:`~deepspeed_tpu_torch.inference.engine.

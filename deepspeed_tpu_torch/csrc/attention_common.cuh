@@ -1,6 +1,7 @@
 // Shared helpers of the port's attention kernels (flash_fwd.cu,
-// decode_append.cu, decode_paged.cu): element conversions, the rounding
-// point of the TPU kernels, and vector loads.
+// flash_bwd_dq.cu, flash_bwd_dkv.cu, decode_append.cu, decode_paged.cu):
+// element conversions, the rounding point of the TPU kernels, strides
+// passed by value, and vector loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +32,21 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
+}
+
+// element strides handed to a kernel by value (kernel parameters, no
+// device copy): N int64 from the caller's host array
+template <int N>
+struct Strides {
+  long long v[N];
+};
+
+template <int N>
+inline Strides<N> load_strides(const void* host) {
+  Strides<N> s;
+  const long long* p = static_cast<const long long*>(host);
+  for (int i = 0; i < N; ++i) s.v[i] = p[i];
+  return s;
 }
 
 // 8 consecutive elements starting at p (16-byte aligned for bf16,

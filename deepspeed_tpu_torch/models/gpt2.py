@@ -1,30 +1,40 @@
-"""GPT-2 for inference on the card (counterpart of
-``deepspeed_tpu/models/gpt2.py``).
+"""GPT-2 on the card (counterpart of ``deepspeed_tpu/models/gpt2.py``).
 
-The inference paths of the JAX model: the causal forward, the append-cache
+The inference paths of the JAX model (the causal forward, the append-cache
 decode of ``generate()`` and the paged prefill/decode of the serving
-engine, with learned positions, tanh-GELU MLP, sequential residual blocks
-and the tied LM head. Attention routes through ``deepspeed_tpu_torch.ops``:
-the flash kernel for causal self-attention (prefill), the append and paged
-decode kernels for cached steps — their plain versions on the CPU.
+engine) and its training path (:class:`GPT2ForTraining`, the LM-head
+cross-entropy with the dense/chunked switch, per-block activation
+checkpointing), with learned positions, tanh-GELU MLP, sequential residual
+blocks and the tied LM head. Attention routes through
+``deepspeed_tpu_torch.ops``: the flash kernels (forward and backward) for
+causal self-attention, the append and paged decode kernels for cached
+steps — their plain versions on the CPU.
+
+Parameters are fp32 (the masters); every product runs in the config's
+compute dtype, casting the weights at each use, so gradients reach the
+fp32 parameters through the casts.
 
 KV caches and pools are tensors updated IN PLACE (``index_copy_``) where
 the JAX model returns new arrays and the serving engine donates the old
 ones: one allocation lives for the whole generation or serving run.
 
-ALiBi, rotary, parallel residuals, local windows, padded generation and
-the training-only knobs (dropout, remat, progressive layer drop) belong to
-other model families or later slices.
+ALiBi, rotary, parallel residuals, local windows, padded generation,
+dropout and progressive layer drop belong to other model families or
+later slices.
 """
 
 import dataclasses
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.models.decode_utils import (paged_positions,
                                                      paged_write_rows)
-from deepspeed_tpu_torch.ops.attention import attention
+from deepspeed_tpu_torch.models.remat_utils import (REMAT_POLICIES,
+                                                    checkpointed)
+from deepspeed_tpu_torch.ops.attention import attention, attention_reference
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_paged)
 
@@ -46,6 +56,32 @@ class GPT2Config:
     paged: bool = False
     paged_num_blocks: int = 0
     paged_block_size: int = 0
+    # training: per-block activation checkpointing ("full" recomputes the
+    # block in backward, "dots" saves matmul and flash outputs and
+    # recomputes the elementwise chains — models/remat_utils.py)
+    remat: bool = False
+    remat_policy: str = "full"
+    # accepted for the JAX config's sake: the port loops over its layers
+    scan_layers: bool = True
+    # None/True: flash attention; False: the dense plain attention (the
+    # JAX model's escape hatch for numerics comparison)
+    use_flash: Optional[bool] = None
+    dropout: float = 0.0
+    pld: bool = False
+
+    def __post_init__(self):
+        if self.dropout > 0:
+            raise NotImplementedError(
+                "GPT2Config.dropout > 0 is not ported yet: dropout comes "
+                "with the training-features slice of the PyTorch port")
+        if self.pld:
+            raise NotImplementedError(
+                "GPT2Config.pld (progressive layer drop) is not ported yet: "
+                "it comes with the training-features slice of the PyTorch "
+                "port")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} not in "
+                             f"{REMAT_POLICIES}")
 
     @property
     def head_dim(self) -> int:
@@ -156,10 +192,12 @@ class CausalSelfAttention(nn.Module):
                 y4 = decode_attention(q4.contiguous(), keys, values,
                                       step["index"])
         if y4 is None:
-            # training-free causal forward, and every prefill: causal
-            # attention over the call's own keys (flash kernel on the card)
-            y4 = attention(q4.transpose(1, 2), k4.transpose(1, 2),
-                           v4.transpose(1, 2), causal=True).transpose(1, 2)
+            # the causal forward (training included) and every prefill:
+            # causal attention over the call's own keys
+            attend = attention_reference if cfg.use_flash is False \
+                else attention
+            y4 = attend(q4.transpose(1, 2), k4.transpose(1, 2),
+                        v4.transpose(1, 2), causal=True).transpose(1, 2)
         return _dense(self.c_proj, y4.reshape(B, T, C), cfg.dtype)
 
 
@@ -292,9 +330,12 @@ class GPT2LMHeadModel(nn.Module):
             raise ValueError("decode mode needs a cache from new_cache()")
         step, pos = self._step(input_ids, cache, paging)
         x = self.wte[input_ids].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
             if cfg.decode:
                 x = block(x, cache.keys[i], cache.values[i], step)
+            elif remat:
+                x = checkpointed(block, x, policy=cfg.remat_policy)
             else:
                 x = block(x)
         if cfg.decode and not cfg.paged:
@@ -304,11 +345,141 @@ class GPT2LMHeadModel(nn.Module):
         return x if return_hidden else self.lm_head(x)
 
     def lm_head(self, hidden):
-        """Tied-embedding logits in fp32: the products of the compute-dtype
-        values are exact in fp32 and sum there."""
-        w = self.wte.to(self.config.dtype)
-        return F.linear(hidden.float(), w.float())
+        """Tied-embedding logits in fp32 (:func:`head_logits`)."""
+        return head_logits(hidden, self.wte)
 
 
-__all__ = ["GPT2Config", "GPT2LMHeadModel", "KVCache", "PagedKVCache",
-           "Block", "MLP", "CausalSelfAttention"]
+# ---------------------------------------------------------------------------
+# the LM head (fp32 logits, cross-entropy) and the engine-facing model
+# ---------------------------------------------------------------------------
+class _Bf16HeadLogits(torch.autograd.Function):
+    """fp32 logits ``h · wᵀ`` of bf16 ``h [N, C]`` and ``w [V, C]`` on the
+    card: one bf16 GEMM with fp32 output (``torch.mm(out_dtype=)``, the
+    JAX head's ``preferred_element_type=float32``), so the logits are not
+    rounded to bf16. Backward rounds the fp32 cotangent to bf16 and runs
+    two bf16 GEMMs, as the TPU does with its default matmul precision."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        return g @ w, g.t() @ h
+
+
+def head_logits(hidden, head_w):
+    """fp32 logits ``[..., V]`` of the tied head: compute-dtype products
+    summed in fp32 (``einsum(..., preferred_element_type=float32)``)."""
+    w = head_w.to(hidden.dtype)
+    if hidden.dtype == torch.float32:
+        return F.linear(hidden, w)
+    if hidden.device.type == "cuda" and hidden.dtype == torch.bfloat16:
+        flat = _Bf16HeadLogits.apply(hidden.reshape(-1, hidden.shape[-1]), w)
+        return flat.view(*hidden.shape[:-1], w.shape[0])
+    # the products of two 16-bit values are exact in fp32
+    return F.linear(hidden.float(), w.float())
+
+
+def shift_labels(labels, ignore_index: int = -100):
+    """Next-token shift: labels[t] <- labels[t+1], last column ignored."""
+    return torch.cat([labels[:, 1:],
+                      labels.new_full((labels.shape[0], 1), ignore_index)],
+                     dim=1)
+
+
+def _nll_sum(logits, labels, ignore_index):
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1), ignore_index=ignore_index,
+                           reduction="sum")
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Mean token cross-entropy in fp32, masked where ``labels ==
+    ignore_index`` (0 when every token is)."""
+    valid = (labels != ignore_index).sum().clamp_min(1)
+    return _nll_sum(logits.float(), labels, ignore_index) / valid
+
+
+def chunked_softmax_xent(hidden, wte, labels, chunk: int = 128,
+                         ignore_index: int = -100):
+    """Cross-entropy against the tied embedding without the full ``[B, T,
+    V]`` fp32 logits: one sequence chunk at a time, each under activation
+    checkpointing, so the peak is ``[B, chunk, V]`` and backward recomputes
+    each chunk's logits (the JAX version's remat'd scan)."""
+    w = wte.to(hidden.dtype)
+
+    def chunk_nll(hc, wc, lc):
+        return _nll_sum(head_logits(hc, wc), lc, ignore_index)
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for t0 in range(0, hidden.shape[1], chunk):
+        total = total + checkpointed(chunk_nll, hidden[:, t0:t0 + chunk], w,
+                                     labels[:, t0:t0 + chunk])
+    return total / (labels != ignore_index).sum().clamp_min(1)
+
+
+def lm_head_loss(hidden, head_w, shifted_labels,
+                 dense_budget: int = 1_000_000_000, chunk: int = 512):
+    """LM-head cross-entropy with the dense-vs-chunked switch: the full
+    ``[B, T, V]`` fp32 logits when they fit ``dense_budget`` bytes, else
+    :func:`chunked_softmax_xent`. The tied head has no bias (GPT-J's
+    separate head and its bias come with that model family)."""
+    B, T, _ = hidden.shape
+    if B * T * head_w.shape[0] * 4 <= dense_budget:
+        return cross_entropy_loss(head_logits(hidden, head_w), shifted_labels)
+    return chunked_softmax_xent(hidden, head_w, shifted_labels, chunk=chunk)
+
+
+def _input_ids_labels(batch):
+    """``(input_ids, labels)`` of a batch: a dict with ``input_ids`` (and
+    optionally ``labels``) or an ``(input_ids, labels)`` pair."""
+    if isinstance(batch, dict):
+        ids, labels = batch["input_ids"], batch.get("labels")
+    else:
+        ids, labels = batch
+    ids = ids.long()
+    return ids, ids if labels is None else labels.long()
+
+
+def gpt2_loss_fn(model: GPT2LMHeadModel):
+    """Engine-facing loss of ``model``: ``fn(batch) -> loss``, the
+    next-token objective (labels shifted inside). The dense head gets a
+    3.5 GB logits budget under remat and 1 GB without, where the saved
+    block activations already take the memory."""
+
+    def loss_fn(batch):
+        ids, labels = _input_ids_labels(batch)
+        hidden = model(ids, return_hidden=True)
+        return lm_head_loss(
+            hidden, model.wte, shift_labels(labels),
+            dense_budget=3_500_000_000 if model.config.remat
+            else 1_000_000_000)
+
+    return loss_fn
+
+
+class GPT2ForTraining(nn.Module):
+    """Engine-ready GPT-2: ``initialize(model=GPT2ForTraining(cfg))``;
+    ``forward(batch)`` returns the mean next-token loss. Weights as in
+    :class:`GPT2LMHeadModel` (``seed``, ``device="meta"`` for none)."""
+
+    def __init__(self, config: GPT2Config, device=None, seed: int = 0):
+        super().__init__()
+        if config.decode:
+            raise ValueError("GPT2ForTraining needs a config without decode")
+        self.config = config
+        self.model = GPT2LMHeadModel(config, device=device, seed=seed)
+        self.loss_fn = gpt2_loss_fn(self.model)
+
+    def forward(self, batch):
+        return self.loss_fn(batch)
+
+
+__all__ = ["GPT2Config", "GPT2LMHeadModel", "GPT2ForTraining", "KVCache",
+           "PagedKVCache", "Block", "MLP", "CausalSelfAttention",
+           "chunked_softmax_xent", "cross_entropy_loss", "gpt2_loss_fn",
+           "head_logits", "lm_head_loss", "shift_labels"]

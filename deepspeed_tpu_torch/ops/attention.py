@@ -1,12 +1,12 @@
 """Attention ops (counterpart of ``deepspeed_tpu/ops/attention.py``).
 
 :func:`attention_reference` is the plain dense attention; :func:`attention`
-dispatches on the device alone: a CPU tensor takes the reference, a CUDA
-tensor the flash kernel (``ops/flash_attention.py``), which takes any
+goes through the flash autograd function (``ops/flash_attention.py``) on
+both devices: on a CPU tensor its forward and backward take their plain
+versions, on a CUDA tensor they launch the flash kernels, which take any
 sequence length — there is no dense fallback on the card. The JAX entry
-point's mask, bias and dropout have no caller on the serving path; they
-come with the training slice, together with sequence-parallel dispatch in
-the multi-GPU slice.
+point's mask, bias and dropout have no caller on the GPT-2 serving and
+training paths; sequence-parallel dispatch comes with the multi-GPU slice.
 """
 
 import torch
@@ -37,11 +37,8 @@ def attention_reference(q, k, v, mask=None, causal=True, softmax_scale=None):
 
 
 def attention(q, k, v, causal=True, softmax_scale=None):
-    """Dispatching attention entry point (q, k, v ``[B, H, T, D]``): the
-    reference on the CPU; on any other device the flash kernel, which
-    launches or raises."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, causal=causal,
-                                   softmax_scale=softmax_scale)
+    """Attention entry point (q, k, v ``[B, H, T, D]``), differentiable:
+    flash attention, whose wrappers take their plain versions on the CPU
+    and launch the kernels (or raise) on any other device."""
     return flash_attention(q, k, v, causal=causal,
                            softmax_scale=softmax_scale)[0]

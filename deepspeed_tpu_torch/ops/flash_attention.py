@@ -1,20 +1,38 @@
-"""Flash attention forward on the card (counterpart of
+"""Flash attention forward and backward on the card (counterpart of
 ``deepspeed_tpu/ops/flash_attention.py``).
 
-Replaces the TPU kernel ``_fwd_kernel`` (``deepspeed_tpu/ops/
-flash_attention.py:77``, launched by ``_flash_forward`` at ``:174``) with
-the hand-written CUDA kernel ``csrc/flash_fwd.cu``: causal
-online-softmax attention with the bottom-right mask ``off = Tk - Tq``,
-returning O in the input dtype and the fp32 logsumexp. Layout
-``[B, H, T, D]``, taken through explicit strides (the last dim must be
-contiguous), so a strided ``[B, T, H, D]`` view goes in without a copy.
-Unlike the TPU wrapper it takes any ``T``: ragged tiles are masked in the
-kernel.
+Three hand-written CUDA kernels replace the TPU kernels of the JAX module:
 
-The backward kernels (TPU kernels 2 and 3) come with the training slice.
+- ``csrc/flash_fwd.cu`` for ``_fwd_kernel`` (``:77``, launched at ``:174``):
+  causal online-softmax attention with the bottom-right mask ``off = Tk -
+  Tq``, returning O in the input dtype and the fp32 logsumexp;
+- ``csrc/flash_bwd_dq.cu`` for ``_bwd_dq_kernel`` (``:196`` · ``:336``):
+  dQ by query tiles;
+- ``csrc/flash_bwd_dkv.cu`` for ``_bwd_dkv_kernel`` (``:252`` · ``:355``):
+  dK and dV by key tiles.
+
+Each takes explicit strides (last dim contiguous), so the ``[B, T, H, D]``
+entry :func:`flash_attention_bthd` passes transposed views of its inputs
+to the same kernels: that is the port of the TPU kernels 4-6
+(``_fwd_kernel_bthd`` and the two ``_bwd_*_bthd``), which share kernels
+1-3's bodies and differ only in layout. Unlike the TPU wrappers the
+kernels take any ``T``: ragged tiles are masked in the kernel.
+
+Gradients flow through :class:`FlashAttentionFunction`, the counterpart of
+the ``custom_vjp`` pair ``_fa_fwd``/``_fa_bwd``: it saves q, k, v, O and
+lse, computes ``delta = rowsum(dO * O)`` in fp32 and runs the two backward
+kernels. The forward runs as the custom op ``deepspeed_tpu_torch::
+flash_fwd``, so selective activation checkpointing (``models/
+remat_utils.py``) can save its outputs by op, as the JAX model saves the
+residuals named ``flash_o``/``flash_lse``.
+
+Every wrapper takes its plain PyTorch version for a tensor on the CPU and
+launches its kernel, or raises, for a CUDA tensor; ``.launches`` on each
+public wrapper counts its kernel's launches.
 """
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -24,9 +42,24 @@ NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
 
-_SIG = {"ds_flash_fwd": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIG_FWD = {"ds_flash_fwd": (
+    [_PTR] * 5 + [_INT] * 6 + [_I64] * 12 + [ctypes.c_float, _INT, _PTR],
+    _INT)}
+_SIG_DQ = {"ds_flash_bwd_dq": (
+    [_PTR] * 7 + [_INT] * 6 + [_PTR, ctypes.c_float, _INT, _PTR], _INT)}
+_SIG_DKV = {"ds_flash_bwd_dkv": (
+    [_PTR] * 8 + [_INT] * 6 + [_PTR, ctypes.c_float, _INT, _PTR], _INT)}
+
+
+def _scale(q, softmax_scale):
+    return softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
+
+
+def _visible(tq, tk, causal, device):
+    """[tq, tk] keys each query row sees (bottom-right causal)."""
+    visible = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    return torch.tril(visible, diagonal=tk - tq) if causal else visible
 
 
 def softmax_pv(s, visible, v):
@@ -46,17 +79,72 @@ def softmax_pv(s, visible, v):
 
 
 def flash_attention_reference(q, k, v, causal=True, softmax_scale=None):
-    """Plain PyTorch version of the kernel: q ``[B, H, Tq, D]``, k/v
-    ``[B, H, Tk, D]``. Scores are exact fp32 products of the inputs (a
+    """Plain PyTorch version of the forward kernel: q ``[B, H, Tq, D]``,
+    k/v ``[B, H, Tk, D]``. Scores are exact fp32 products of the inputs (a
     product of two bf16 values is exact in fp32), summed in fp32."""
-    tq, tk, d = q.shape[-2], k.shape[-2], q.shape[-1]
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    visible = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
-    if causal:
-        visible = torch.tril(visible, diagonal=tk - tq)
-    o, lse = softmax_pv(s, visible, v)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        * _scale(q, softmax_scale)
+    o, lse = softmax_pv(s, _visible(q.shape[-2], k.shape[-2], causal,
+                                    q.device), v)
     return o.to(q.dtype), lse
+
+
+def _probs_ds(q, k, v, do, lse, delta, causal, scale):
+    """The backward kernels' p = exp(s - lse) (0 where masked, also in
+    fully masked rows whose lse is NEG_INF) and ds = p * (dp - delta) *
+    scale rounded to the input dtype (the TPU kernels' ``ds.astype``), in
+    fp32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    visible = _visible(q.shape[-2], k.shape[-2], causal, q.device)
+    p = torch.exp(s - lse.unsqueeze(-1)).masked_fill(~visible, 0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta.unsqueeze(-1)) * scale).to(q.dtype).float()
+    return p, ds
+
+
+def flash_attention_backward_dq_reference(q, k, v, do, lse, delta,
+                                          causal=True, softmax_scale=None):
+    """Plain PyTorch version of the dQ kernel: ``ds · K`` in fp32."""
+    _, ds = _probs_ds(q, k, v, do, lse, delta, causal,
+                      _scale(q, softmax_scale))
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_attention_backward_dkv_reference(q, k, v, do, lse, delta,
+                                           causal=True, softmax_scale=None):
+    """Plain PyTorch version of the dK/dV kernel: ``dsᵀ · Q`` and ``pᵀ ·
+    dO`` in fp32, with p rounded to dO's dtype first (``p.astype``)."""
+    p, ds = _probs_ds(q, k, v, do, lse, delta, causal,
+                      _scale(q, softmax_scale))
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(do, o):
+    """``delta = rowsum(dO * O)`` in fp32, ``[B, H, Tq]`` contiguous (the
+    TPU wrapper computes it outside the kernels, ``:323``)."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, causal=True,
+                                       softmax_scale=None):
+    """Plain PyTorch version of the whole backward (``_flash_backward``):
+    ``(dq, dk, dv)`` from the forward's residuals and the cotangent."""
+    delta = attention_delta(do, o)
+    dq = flash_attention_backward_dq_reference(q, k, v, do, lse, delta,
+                                               causal, softmax_scale)
+    dk, dv = flash_attention_backward_dkv_reference(q, k, v, do, lse, delta,
+                                                    causal, softmax_scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# checks and kernel launches
+# ---------------------------------------------------------------------------
+def _require_cuda(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, got {t.device}")
 
 
 def _check(q, k, v):
@@ -82,35 +170,45 @@ def _check(q, k, v):
                          f"{_MAX_GRID_Y}")
 
 
-def flash_attention(q, k, v, causal=True, softmax_scale=None):
-    """Flash attention forward: ``(O, lse)`` with O ``[B, H, Tq, D]`` in
-    q's dtype and lse ``[B, H, Tq]`` fp32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, softmax_scale)
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention backward (TPU kernels _bwd_dq_kernel / "
-            "_bwd_dkv_kernel) is not ported yet: it comes with the training "
-            "slice of the PyTorch port; call under torch.no_grad()")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                         f"{q.device}")
+def _check_bwd(q, k, v, do, lse, delta):
     _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1 \
+            or do.device != q.device:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} strides "
+                         f"{do.stride()} must match q {tuple(q.shape)} "
+                         f"{q.dtype} with a contiguous last dim")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous fp32 "
+                             f"{tuple(q.shape[:3])}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+
+
+def _strides(*tensors):
+    """(batch, head, token) element strides of each tensor, as the host
+    int64 array the backward kernels copy into their parameters."""
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd_launch(q, k, v, causal, scale):
+    """Launch ``csrc/flash_fwd.cu``: ``(o, lse)``, o in q's layout."""
     b, h, tq, d = q.shape
-    tk = k.shape[2]
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    o = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
+    o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if tq == 0:
         return o, lse
-    lib = load("flash_fwd", _SIG)
+    lib = load("flash_fwd", _SIG_FWD)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     err = lib.ds_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, tq, tk, d,
-        *strides, float(scale), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, tq,
+        k.shape[2], d, *strides, float(scale), int(causal), _stream(q))
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -118,5 +216,140 @@ def flash_attention(q, k, v, causal=True, softmax_scale=None):
     return o, lse
 
 
-# kernel launches by this wrapper (chip_smoke.py zeroes and reads it)
+def _dq_launch(q, k, v, do, lse, delta, causal, scale):
+    """Launch ``csrc/flash_bwd_dq.cu``: dq in q's layout."""
+    b, h, tq, d = q.shape
+    dq = torch.empty_like(q)
+    if tq == 0 or k.shape[2] == 0:
+        return dq.zero_()
+    lib = load("flash_bwd_dq", _SIG_DQ)
+    err = lib.ds_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, h, tq, k.shape[2], d,
+        _strides(q, k, v, do, dq), float(scale), int(causal), _stream(q))
+    if err:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_backward.launches += 1
+    return dq
+
+
+def _dkv_launch(q, k, v, do, lse, delta, causal, scale):
+    """Launch ``csrc/flash_bwd_dkv.cu``: (dk, dv) in k's and v's layout."""
+    b, h, tq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if tq == 0 or k.shape[2] == 0:
+        return dk.zero_(), dv.zero_()
+    lib = load("flash_bwd_dkv", _SIG_DKV)
+    err = lib.ds_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, h, tq, k.shape[2], d,
+        _strides(q, k, v, do, dk, dv), float(scale), int(causal), _stream(q))
+    if err:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_backward_dkv.launches += 1
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the forward as a custom op (selective checkpointing saves it by op)
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("deepspeed_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """``(o, lse)``: the plain version on the CPU, the kernel on the card
+    (callers check the device first)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, scale)
+    return _fwd_launch(q, k, v, causal, scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """O = flash(q, k, v) with the flash backward: saves q, k, v, O and
+    lse (``_fa_fwd``), and in backward computes ``delta`` in fp32 and runs
+    the dQ and dK/dV wrappers (``_fa_bwd``). Returns ``(o, lse)``; lse
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_fwd_op(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = attention_delta(do, o)
+        dq = flash_attention_backward(q, k, v, do, lse, delta, ctx.causal,
+                                      ctx.scale)
+        dk, dv = flash_attention_backward_dkv(q, k, v, do, lse, delta,
+                                              ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
+# public wrappers
+# ---------------------------------------------------------------------------
+def flash_attention(q, k, v, causal=True, softmax_scale=None):
+    """Flash attention: ``(O, lse)`` with O ``[B, H, Tq, D]`` in q's dtype
+    and lse ``[B, H, Tq]`` fp32, differentiable in q, k and v. CPU tensors
+    take the plain versions; CUDA tensors launch the kernels or raise."""
+    if q.device.type != "cpu":
+        _require_cuda(q, "flash_attention")
+        _check(q, k, v)
+    return FlashAttentionFunction.apply(q, k, v, causal,
+                                        float(_scale(q, softmax_scale)))
+
+
+def flash_attention_bthd(q, k, v, causal=True, softmax_scale=None):
+    """Flash attention over the projection-natural ``[B, T, H, D]``
+    layout, returning O in the same layout: the kernels read and write
+    transposed views through their strides, so no copy is made."""
+    o, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal, softmax_scale)
+    return o.transpose(1, 2)
+
+
+def flash_attention_backward(q, k, v, do, lse, delta, causal=True,
+                             softmax_scale=None):
+    """dQ of flash attention (TPU kernel ``_bwd_dq_kernel``) from the
+    forward's lse and ``delta = rowsum(dO * O)``; dq in q's layout."""
+    scale = _scale(q, softmax_scale)
+    if q.device.type == "cpu":
+        return flash_attention_backward_dq_reference(q, k, v, do, lse, delta,
+                                                     causal, scale)
+    _require_cuda(q, "flash_attention_backward")
+    _check_bwd(q, k, v, do, lse, delta)
+    return _dq_launch(q, k, v, do, lse, delta, causal, scale)
+
+
+def flash_attention_backward_dkv(q, k, v, do, lse, delta, causal=True,
+                                 softmax_scale=None):
+    """(dK, dV) of flash attention (TPU kernel ``_bwd_dkv_kernel``), in
+    k's and v's layout."""
+    scale = _scale(q, softmax_scale)
+    if q.device.type == "cpu":
+        return flash_attention_backward_dkv_reference(q, k, v, do, lse,
+                                                      delta, causal, scale)
+    _require_cuda(q, "flash_attention_backward_dkv")
+    _check_bwd(q, k, v, do, lse, delta)
+    return _dkv_launch(q, k, v, do, lse, delta, causal, scale)
+
+
+# kernel launches by each wrapper (chip_smoke.py zeroes and reads them)
 flash_attention.launches = 0
+flash_attention_backward.launches = 0
+flash_attention_backward_dkv.launches = 0

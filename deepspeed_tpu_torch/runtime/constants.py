@@ -1,0 +1,26 @@
+"""Config keys and defaults the training engine reads (the subset of
+``deepspeed_tpu/runtime/constants.py`` this slice implements)."""
+
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+
+OPTIMIZER = "optimizer"
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+
+SCHEDULER = "scheduler"
+SCHEDULER_PARAMS = "params"
+
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+FP16 = "fp16"
+BF16 = "bf16"
+BFLOAT16 = "bfloat16"  # accepted alias of "bf16"
+
+ZERO_OPTIMIZATION = "zero_optimization"
+FUSED_STEP = "fused_step"

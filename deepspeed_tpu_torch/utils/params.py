@@ -13,6 +13,9 @@ drive it:
   ``[out, in]``; LayerNorm ``scale`` is the ``weight``.
 
 No JAX import: the tree is plain nested dicts of numpy arrays.
+:func:`training_model_from_jax` builds the port's
+:class:`~deepspeed_tpu_torch.models.gpt2.GPT2ForTraining` on those weights
+(the JAX training engine's ``GPT2ForTraining`` has the same tree).
 """
 
 import numpy as np
@@ -59,3 +62,13 @@ def params_from_jax(tree, config) -> dict:
             sd[f"h.{i}.{name}.weight"] = t(layer[name]["scale"])
             sd[f"h.{i}.{name}.bias"] = t(layer[name]["bias"])
     return sd
+
+
+def training_model_from_jax(tree, config):
+    """The port's ``GPT2ForTraining(config)`` holding the JAX model's
+    weights (fp32, on the CPU; the engine moves them to its device)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForTraining
+
+    model = GPT2ForTraining(config, device="meta")
+    model.model.load_state_dict(params_from_jax(tree, config), assign=True)
+    return model

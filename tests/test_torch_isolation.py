@@ -20,10 +20,13 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2ForTraining,
+                                             GPT2LMHeadModel)
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_paged)
-from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward, flash_attention_backward_dkv,
+    flash_attention_bthd)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deepspeed_tpu_torch")
@@ -78,6 +81,10 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
     model = GPT2LMHeadModel(GPT2Config.tiny(), device="meta")
     with pytest.raises(RuntimeError, match="cuda"):
         deepspeed_tpu_torch.init_inference(model)  # default device: card
+    with pytest.raises(RuntimeError, match="cuda"):
+        deepspeed_tpu_torch.initialize(  # the training engine: the card
+            model=GPT2ForTraining(GPT2Config.tiny(), device="meta"),
+            config={"train_batch_size": 1})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -87,6 +94,12 @@ def test_wrappers_never_fall_back_off_the_cpu():
     q = torch.empty((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_bthd(q, q, q)
+    lse = torch.empty((1, 2, 8), device="meta")
+    for backward in (flash_attention_backward, flash_attention_backward_dkv):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            backward(q, q, q, q, lse, lse)
     q4 = torch.empty((1, 1, 2, 16), device="meta")
     idx = torch.empty((), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -8,6 +8,7 @@ Tolerance: float32 on both sides, 1e-5 absolute and relative (the same
 math summed in another order).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ from deepspeed_tpu.ops import decode_attention as jax_decode
 from deepspeed_tpu.ops.attention import (
     attention_reference as jax_attention_reference)
 from deepspeed_tpu.models import decode_utils as jax_decode_utils
-from deepspeed_tpu.ops.flash_attention import _flash_forward
+from deepspeed_tpu.ops import flash_attention as jax_flash
+from deepspeed_tpu.ops.flash_attention import _flash_backward, _flash_forward
 from deepspeed_tpu.utils.compat import tpu_interpret_mode
 from deepspeed_tpu_torch.models.decode_utils import (cache_attn_mask,
                                                      paged_positions,
@@ -26,7 +28,10 @@ from deepspeed_tpu_torch.ops.attention import attention, attention_reference
 from deepspeed_tpu_torch.ops.decode_attention import (
     GARBAGE_BLOCK, decode_attention, decode_attention_paged,
     gather_paged_cache)
-from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.flash_attention import (
+    attention_delta, flash_attention, flash_attention_backward,
+    flash_attention_backward_dkv, flash_attention_backward_reference,
+    flash_attention_bthd)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -76,6 +81,91 @@ def test_dispatch_cpu_takes_the_reference():
         _close(attention(*t, causal=causal),
                jax_attention_reference(*map(jnp.asarray, (q, k, v)),
                                        causal=causal))
+
+
+# ---------------------------------------------------------------------------
+# flash backward (TPU kernels _bwd_dq_kernel, _bwd_dkv_kernel) and the
+# autograd function around the forward and backward
+# ---------------------------------------------------------------------------
+BWD_CASES = [
+    (24, 24, 8, True),    # several query/key tiles, diagonal masking
+    (8, 24, 8, True),     # Tq < Tk: bottom-right causal offset
+    (24, 8, 8, True),     # Tq > Tk: fully masked rows get no gradient
+    (13, 13, 13, True),   # a length no power of two divides
+    (16, 24, 8, False),
+]
+
+
+@pytest.mark.parametrize("tq,tk,block,causal", BWD_CASES)
+def test_flash_backward_matches_pallas(tq, tk, block, causal):
+    rng = np.random.default_rng(tq * 100 + tk + 7)
+    q = rng.normal(size=(2, 2, tq, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 2, tk, 16)).astype(np.float32)
+            for _ in range(2))
+    do = rng.normal(size=(2, 2, tq, 16)).astype(np.float32)
+    with tpu_interpret_mode():
+        o, lse = _flash_forward(*map(jnp.asarray, (q, k, v)), 0.25, causal,
+                                block, block)
+        ref = _flash_backward((*map(jnp.asarray, (q, k, v)), o, lse),
+                              jnp.asarray(do), 0.25, causal, block, block)
+    t = [torch.from_numpy(np.array(x)) for x in (q, k, v, o, lse, do)]
+    got = flash_attention_backward_reference(*t, causal=causal,
+                                             softmax_scale=0.25)
+    for g, r in zip(got, ref):
+        _close(g, r)
+    # the two CPU wrappers take the same plain versions
+    qt, kt, vt, ot, lt, dot = t
+    delta = attention_delta(dot, ot)
+    _close(flash_attention_backward(qt, kt, vt, dot, lt, delta, causal,
+                                    0.25), ref[0])
+    for g, r in zip(flash_attention_backward_dkv(qt, kt, vt, dot, lt, delta,
+                                                 causal, 0.25), ref[1:]):
+        _close(g, r)
+
+
+def _grads_of(fn, arrays, weight):
+    """Gradients of sum(fn(q, k, v) * weight) w.r.t. q, k and v."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    (fn(*leaves) * torch.from_numpy(weight)).sum().backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_flash_autograd_matches_jax_grad(layout):
+    """The autograd function (forward and backward plain versions on the
+    CPU) against ``jax.grad`` of the JAX package's custom-vjp flash
+    attention, Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(11)
+    shape = (2, 2, 16, 16) if layout == "bhtd" else (2, 16, 2, 16)
+    q, k, v, w = (rng.normal(size=shape).astype(np.float32)
+                  for _ in range(4))
+    if layout == "bhtd":
+        jax_fn, port_fn = jax_flash.flash_attention, (
+            lambda *a: flash_attention(*a, causal=True)[0])
+    else:
+        jax_fn, port_fn = jax_flash.flash_attention_bthd, (
+            lambda *a: flash_attention_bthd(*a, causal=True))
+
+    def loss(q_, k_, v_):
+        return (jax_fn(q_, k_, v_, True, None, 8, 8) * w).sum()
+
+    with tpu_interpret_mode():
+        ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray,
+                                                     (q, k, v)))
+    for g, r in zip(_grads_of(port_fn, (q, k, v), w), ref):
+        _close(g, r)
+
+
+def test_attention_gradients_match_dense_reference():
+    """attention() is differentiable on the CPU through the flash
+    function; its gradients equal the dense reference's autograd."""
+    rng = np.random.default_rng(5)
+    arrays = [rng.normal(size=(1, 2, 10, 16)).astype(np.float32)
+              for _ in range(4)]
+    got = _grads_of(attention, arrays[:3], arrays[3])
+    want = _grads_of(attention_reference, arrays[:3], arrays[3])
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), **TOL)
 
 
 # ---------------------------------------------------------------------------
