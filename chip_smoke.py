@@ -5,12 +5,14 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the five CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one
+1. build the six CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and print the card;
 2. hold each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at ragged ones, in bf16 and
    fp32 — the flash kernels also on ``[B, T, H, D]`` views through
-   ``flash_attention_bthd`` — and time kernel, plain version and (where
+   ``flash_attention_bthd``, the paged kernels (bf16/fp32 and int8 pools)
+   also at the verify (T_q = 5) and prefill-chunk (T_q = 256) shapes — and
+   time kernel, plain version and (where
    one exists) the PyTorch library call computing the same function,
    beside the least time the card could take (bound). ``ms``,
    ``plain_ms`` and ``library_ms`` are device times (CUDA events around
@@ -33,11 +35,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the first token and first decode-step logits agree with the same
    engine run with the plain versions on the card;
 5. ``init_inference(model).generate`` on a 2 x 128 prompt through the
-   append-decode kernel, with the same logits check.
+   append-decode kernel, with the same logits check;
+6. the serving fast path on the same model. Leg A
+   (``tools/profile_serving.py``'s ``FAST_SERVING``: prefix cache,
+   256-token prefill chunks, int8 KV, 8 slots) serves 8 requests sharing
+   a 384-token system prompt, the first alone to fill the cache: every
+   request finishes with its tokens, requests 2-8 hit at least the
+   system prompt, one copies a block on write, the int8 paged kernel ran
+   with T_q > 1 (chunks), and prefill / first-decode logits agree with
+   the plain-version run as in phase 4; then, for information, the
+   stream without the prefix cache (TTFT) and over bf16 pools (token
+   agreement, pool bytes). Leg B (speculative decoding, prompt lookup,
+   k = 4, bf16 pools, 4 slots) serves tiled-motif prompts: every emitted
+   token is within 0.05 of the largest logit at its position in one
+   teacher-forced causal forward (flash kernel), and the prefill logits
+   and every valid row of each request's first verify step agree with
+   the plain-version run; tokens per verify step, acceptance and tokens/s
+   against the stream without speculation are printed. With chunking on
+   every prompt takes the chunk path, so leg
+   A launches no flash forward; leg B's whole-prompt prefills do.
 
-Phases 3, 4 and 5 are the three main paths: each sets every launch count
-to 0 just before it runs and reads the counts just after, before its
-comparison run with the plain versions.
+Phases 3, 4, 5 and 6 are the main paths (6 in two legs): each sets every
+launch count to 0 just before it runs and reads the counts just after,
+before its comparison runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
 the card's name and power limit (``nvidia-smi``), and before that one
@@ -56,10 +76,17 @@ from unittest import mock
 import numpy as np
 
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                  "decode_append", "decode_paged")
+                  "decode_append", "decode_paged", "decode_paged_int8")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the paged checks (bf16/fp32 and int8 pools): 4 slots, block size 16, 64
+# blocks a row; (lengths, T_q) — ragged lengths with an empty row, decode
+# (T_q=1), verify at k=4 (T_q=5: one full group of 4 query rows and a
+# partial one; the last row's table full), and one 256-row prefill chunk
+# at length 512
+PAGED_CASES = (([0, 137, 602, 1000], 1), ([0, 137, 602, 1019], 5),
+               ([512], 256))
 # Tolerances of kernel vs plain version on the same inputs:
 # fp32 — the same math in another summation order (and exp per key or
 #   per tile instead of per row): 1e-4 absolute and relative;
@@ -78,10 +105,11 @@ REPEATS = 20
 SPIN_CYCLES = 20_000_000
 # the row of each kernel's checks reported in the {"kernels": ...} line:
 # the flash kernels at the training shape (B=16 H=12 T=1024 D=64), append
-# decode at idx=1000 T_q=1, paged decode at T_q=1; and the flash kernels'
-# training-shape row through the [B, T, H, D] entry
+# decode at idx=1000 T_q=1, the paged kernels (bf16 and int8 pools) at
+# T_q=1; and the flash kernels' training-shape row through the [B, T, H, D]
+# entry
 MAIN_ROW = {"flash_fwd": 3, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "decode_append": 2, "decode_paged": 0}
+            "decode_append": 2, "decode_paged": 0, "decode_paged_int8": 0}
 BTHD_ROW = {"flash_fwd": 4, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 TRAIN_STEPS = 10
 # GPT-2 125M training, kernel path vs plain-version path from the same
@@ -165,13 +193,16 @@ def times(kernel, plain, library=None):
             "wrapper_ms": wrapper_ms(kernel)}
 
 
-def bound_ms(nbytes, flops, dtype):
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
-
-
-def bound_by(nbytes, flops, dtype):
-    return ("bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / PEAK_FLOPS[dtype] else "operations")
+def bound(nbytes, flops):
+    """The ``bound_ms`` and ``bound_by`` keys of a function that moves
+    ``nbytes`` and does ``flops`` = {type: operations}. Each product is
+    priced at the peak of the narrowest type that holds both of its
+    operands exactly (bf16 q times int8 codes: bf16), whatever unit the
+    kernel itself uses."""
+    byte_s = nbytes / HBM_BYTES_PER_S
+    op_s = sum(n / PEAK_FLOPS[dt] for dt, n in flops.items())
+    return {"bound_ms": 1e3 * max(byte_s, op_s),
+            "bound_by": "bytes" if byte_s >= op_s else "operations"}
 
 
 def compare(name, got, want, dtype):
@@ -273,8 +304,7 @@ def check_flash(dtype, gen):
             **times(kernel, lambda: flash_attention_reference(q, k, v),
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=True)),
-            "bound_ms": bound_ms(nbytes, flops, dt),
-            "bound_by": bound_by(nbytes, flops, dt)})
+            **bound(nbytes, {dt: flops})})
     return rows
 
 
@@ -333,14 +363,11 @@ def check_flash_bwd(dtype, gen):
         io = B * H * D * esize
         stats = B * H * Tq * 4 * 2  # lse and delta
         dq_row = {"shape": name, "max_abs_err": errs[0],
-                  "bound_ms": None, "bound_by": None}
+                  **bound(io * (3 * Tq + 2 * Tk) + stats,
+                          {dt: 6 * D * n_pairs})}
         dkv_row = {"shape": name, "max_abs_err": max(errs[1:]),
-                   "bound_ms": None, "bound_by": None}
-        for row, nbytes, flops in (
-                (dq_row, io * (3 * Tq + 2 * Tk) + stats, 6 * D * n_pairs),
-                (dkv_row, io * (2 * Tq + 4 * Tk) + stats, 8 * D * n_pairs)):
-            row["bound_ms"] = bound_ms(nbytes, flops, dt)
-            row["bound_by"] = bound_by(nbytes, flops, dt)
+                   **bound(io * (2 * Tq + 4 * Tk) + stats,
+                           {dt: 8 * D * n_pairs})}
         if Tq == 1024:  # the training shape: time it
             lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
             lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
@@ -398,54 +425,78 @@ def check_append(dtype, gen):
                     lambda: F.scaled_dot_product_attention(
                         q.transpose(1, 2), kc.transpose(1, 2),
                         vc.transpose(1, 2), attn_mask=mask)),
-            "bound_ms": bound_ms(nbytes, flops, str(dtype)[6:]),
-            "bound_by": bound_by(nbytes, flops, str(dtype)[6:])})
+            **bound(nbytes, {str(dtype)[6:]: flops})})
     return rows
 
 
-def check_paged(dtype, gen, rng):
+def _paged_tables(lengths, tq, bs, mb, nb, rng):
+    """Per-row permuted block tables covering each row's ``length +
+    T_q`` positions; unallocated entries name the garbage block."""
     import torch
 
-    from deepspeed_tpu_torch.ops.decode_attention import (
-        GARBAGE_BLOCK, decode_attention_paged,
-        decode_attention_paged_reference)
+    from deepspeed_tpu_torch.ops.decode_attention import GARBAGE_BLOCK
 
-    slots, bs, mb, H, D = 4, 16, 64, 12, 64
-    nb = 1 + slots * mb
-    lengths = [0, 137, 602, 1000]  # ragged across 0...1000
+    tables = np.full((len(lengths), mb), GARBAGE_BLOCK, np.int32)
+    free = list(rng.permutation(np.arange(1, nb)))
+    for b, ln in enumerate(lengths):
+        need = -(-(ln + tq) // bs)
+        tables[b, :need] = [free.pop() for _ in range(need)]
+    return (torch.tensor(tables, device="cuda"),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def check_paged(dtype, gen, rng, int8=False):
+    """The paged kernel against its plain version at PAGED_CASES: over
+    pools of q's dtype, or (``int8``) over int8 pools with fp32 scales
+    quantized row-wise from random K/V. The int8 kernel's P.V is fp32
+    whatever q's dtype (p stays fp32), and so is its bound's."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops.quantizer import quantize_rowwise
+
+    kernel, plain = ((da.decode_attention_paged_int8,
+                      da.decode_attention_paged_int8_reference) if int8 else
+                     (da.decode_attention_paged,
+                      da.decode_attention_paged_reference))
+    bs, mb, H, D = 16, 64, 12, 64
+    nb = 1 + 4 * mb
+    dt, name = str(dtype)[6:], "paged int8" if int8 else "paged"
     rows = []
-    for tq in (1, 3):
-        kp, vp = (torch.randn((nb, bs, H, D), generator=gen, device="cuda")
-                  .to(dtype) for _ in range(2))
-        kp[GARBAGE_BLOCK] = 1e4   # the garbage sink never contributes
-        vp[GARBAGE_BLOCK] = float("nan")
-        tables = np.full((slots, mb), GARBAGE_BLOCK, np.int32)
-        free = list(rng.permutation(np.arange(1, nb)))
-        for b, ln in enumerate(lengths):
-            need = -(-(ln + tq) // bs)
-            tables[b, :need] = [free.pop() for _ in range(need)]
-        tables = torch.tensor(tables, device="cuda")
-        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        q = torch.randn((slots, tq, H, D), generator=gen,
+    for lengths, tq in PAGED_CASES:
+        k, v = (torch.randn((nb, bs, H, D), generator=gen, device="cuda")
+                for _ in range(2))
+        if int8:
+            (kp, ks), (vp, vs) = quantize_rowwise(k), quantize_rowwise(v)
+            kp[da.GARBAGE_BLOCK] = 127   # the garbage sink never contributes
+            ks[da.GARBAGE_BLOCK] = vs[da.GARBAGE_BLOCK] = float("nan")
+            pools, key_bytes = (kp, vp, ks, vs), H * (2 * D + 2 * 4)
+        else:
+            kp, vp = k.to(dtype), v.to(dtype)
+            kp[da.GARBAGE_BLOCK] = 1e4   # the garbage sink never contributes
+            vp[da.GARBAGE_BLOCK] = float("nan")
+            pools, key_bytes = (kp, vp), 2 * H * D * kp.element_size()
+        tables, lens = _paged_tables(lengths, tq, bs, mb, nb, rng)
+        q = torch.randn((len(lengths), tq, H, D), generator=gen,
                         device="cuda").to(dtype)
-        got = decode_attention_paged(q, kp, vp, tables, lens)
-        want = decode_attention_paged_reference(q, kp, vp, tables, lens)
+        args = (q, *pools, tables, lens)
+        got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
-        err = compare(f"paged tq={tq} {dtype}", got, want, str(dtype)[6:])
-        esize = q.element_size()
-        keys = sum(ln + tq for ln in lengths)
-        nbytes = (2 * keys * H * D * esize + 2 * q.numel() * esize
-                  + tables.numel() * 4 + slots * 4)
-        flops = 4 * D * H * sum(ln + r + 1 for ln in lengths
-                                for r in range(tq))
+        err = compare(f"{name} {lengths} tq={tq} {dtype}", got, want, dt)
+        keys = sum(min(ln + tq, mb * bs) for ln in lengths)
+        nbytes = (keys * key_bytes + 2 * q.numel() * q.element_size()
+                  + tables.numel() * 4 + len(lengths) * 4)
+        # q.K and P.V: 2 D operations a visible (query, key) pair each
+        half = 2 * D * H * sum(ln + r + 1 for ln in lengths
+                               for r in range(tq))
+        flops = {dt: half}
+        pv_dt = "float32" if int8 else dt
+        flops[pv_dt] = flops.get(pv_dt, 0) + half
         rows.append({
-            "shape": f"slots={slots} bs={bs} MB={mb} lengths={lengths} "
-                     f"T_q={tq}", "max_abs_err": err,
-            **times(lambda: decode_attention_paged(q, kp, vp, tables, lens),
-                    lambda: decode_attention_paged_reference(
-                        q, kp, vp, tables, lens)),
-            "bound_ms": bound_ms(nbytes, flops, str(dtype)[6:]),
-            "bound_by": bound_by(nbytes, flops, str(dtype)[6:])})
+            "shape": f"slots={len(lengths)} bs={bs} MB={mb} "
+                     f"lengths={lengths} T_q={tq}", "max_abs_err": err,
+            **times(lambda: kernel(*args), lambda: plain(*args)),
+            **bound(nbytes, flops)})
     return rows
 
 
@@ -462,7 +513,8 @@ def phase_kernels(seed):
         res = {"flash_fwd": check_flash(dtype, gen),
                "flash_bwd_dq": dq_rows, "flash_bwd_dkv": dkv_rows,
                "decode_append": check_append(dtype, gen),
-               "decode_paged": check_paged(dtype, gen, rng)}
+               "decode_paged": check_paged(dtype, gen, rng),
+               "decode_paged_int8": check_paged(dtype, gen, rng, int8=True)}
         for name, rows in res.items():
             for row in rows:
                 log(f"kernel {name} {dtype} {json.dumps(row)}")
@@ -490,7 +542,10 @@ def plain_versions():
                        da.decode_attention_reference), \
             mock.patch("deepspeed_tpu_torch.models.gpt2."
                        "decode_attention_paged",
-                       da.decode_attention_paged_reference):
+                       da.decode_attention_paged_reference), \
+            mock.patch("deepspeed_tpu_torch.models.gpt2."
+                       "decode_attention_paged_int8",
+                       da.decode_attention_paged_int8_reference):
         yield
 
 
@@ -498,13 +553,14 @@ def kernel_wrappers():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_paged)
+        decode_attention, decode_attention_paged, decode_attention_paged_int8)
 
     return {"flash_fwd": fa.flash_attention,
             "flash_bwd_dq": fa.flash_attention_backward,
             "flash_bwd_dkv": fa.flash_attention_backward_dkv,
             "decode_append": decode_attention,
-            "decode_paged": decode_attention_paged}
+            "decode_paged": decode_attention_paged,
+            "decode_paged_int8": decode_attention_paged_int8}
 
 
 def launch_counts():
@@ -516,42 +572,87 @@ def reset_launch_counts():
         fn.launches = 0
 
 
-def serve(srv, prompts, max_new):
-    """Serve ``prompts`` through the fresh ServingEngine ``srv``, recording
-    the logits of every prefill and decode step. Returns (requests,
-    seconds, stats, prefill_logits {rid: row}, first_decode_logits {rid:
-    row})."""
+def submit_all(prompts, max_new):
+    """The serving workload's order: every prompt at once, then drain."""
+    def run(srv):
+        reqs = [srv.submit(p, max_new_tokens=max_new, request_id=f"r{i}")
+                for i, p in enumerate(prompts)]
+        srv.drain()
+        return reqs
+
+    return run
+
+
+def serve(srv, run):
+    """Serve through the fresh ServingEngine ``srv`` (``run(srv)`` submits
+    and drains, returning the requests), recording the logits of every
+    prefill (the whole-prompt call, or the final chunk) and of each
+    request's first decode step. Returns (requests, seconds, stats,
+    prefill_logits {rid: row}, first_decode_logits {rid: rows}): a decode
+    step's one row, or a verify step's k + 1 rows."""
     import torch
 
     prefill_logits, first_decode = {}, {}
     current = {"rid": None}
-    sample, prefill = srv._sample, srv._prefill
+    sample, prefill, chunk = srv._sample, srv._prefill, srv._chunk_call
 
     def record(logits):
         rows = logits.float().cpu()
         if current["rid"] is not None:
             prefill_logits[current["rid"]] = rows[0]
         else:
+            rows = rows.reshape(srv.config.decode_slots, -1, rows.shape[-1])
             for slot, req in srv.sched.running():
-                first_decode.setdefault(req.request_id, rows[slot])
+                if slot not in srv._prefilling:
+                    first_decode.setdefault(req.request_id, rows[slot])
         return sample(logits)
 
-    def prefill_of(slot, req, table, done):
-        current["rid"] = req.request_id
-        try:
-            prefill(slot, req, table, done)
-        finally:
-            current["rid"] = None
+    def tracked(fn):
+        def call(*args):
+            req = next(a for a in args if hasattr(a, "request_id"))
+            current["rid"] = req.request_id
+            try:
+                return fn(*args)
+            finally:
+                current["rid"] = None
+        return call
 
-    srv._sample, srv._prefill = record, prefill_of
+    srv._sample = record
+    srv._prefill, srv._chunk_call = tracked(prefill), tracked(chunk)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = [srv.submit(p, max_new_tokens=max_new, request_id=f"r{i}")
-            for i, p in enumerate(prompts)]
-    srv.drain()
+    reqs = run(srv)
     torch.cuda.synchronize()
     return (reqs, time.perf_counter() - t0, srv.stats(), prefill_logits,
             first_decode)
+
+
+def against_plain(what, reqs, pf, fd, ref_reqs, ref_pf, ref_fd):
+    """Hold a kernel-path run against the plain-version run of the same
+    stream: prefill logits within LOGITS_ATOL; first-decode logits too
+    where the first tokens agree, else the two first tokens must be a
+    near tie in the plain run's own prefill logits. Returns (first tokens
+    agreeing, all tokens agreeing, max prefill and first-decode error)."""
+    agree = sum(a == b for r, q in zip(reqs, ref_reqs)
+                for a, b in zip(r.tokens, q.tokens))
+    first_agree = 0
+    pf_err = fd_err = 0.0
+    for r, q in zip(reqs, ref_reqs):
+        rid = r.request_id
+        pf_err = max(pf_err, check_logits(f"{what} {rid} prefill", pf[rid],
+                                          ref_pf[rid]))
+        if r.tokens[0] == q.tokens[0]:
+            first_agree += 1
+            fd_err = max(fd_err, check_logits(f"{what} {rid} first decode",
+                                              fd[rid], ref_fd[rid]))
+        else:  # a near tie: the plain run's own logits of the two tokens
+            z = ref_pf[rid]
+            gap = abs(float(z[r.tokens[0]] - z[q.tokens[0]]))
+            if gap > LOGITS_ATOL:
+                raise AssertionError(f"{what} {rid}: first tokens differ "
+                                     f"({r.tokens[0]} vs {q.tokens[0]}) "
+                                     f"with logit gap {gap}")
+    return first_agree, agree, pf_err, fd_err
 
 
 def check_logits(what, got, want):
@@ -601,7 +702,7 @@ def phase_serving(model, seed, card):
     lens = [len(p) for p in prompts]
     srv = init_serving(model, serving=SERVING)
     reset_launch_counts()
-    reqs, secs, stats, pf, fd = serve(srv, prompts, max_new)
+    reqs, secs, stats, pf, fd = serve(srv, submit_all(prompts, max_new))
     counts = launch_counts()
     for r, n in zip(reqs, lens):
         if r.state != "finished" or len(r.tokens) != max_new:
@@ -624,26 +725,9 @@ def phase_serving(model, seed, card):
 
     with plain_versions():
         ref_reqs, ref_secs, _, ref_pf, ref_fd = serve(
-            init_serving(srv.engine), prompts, max_new)
-    agree = sum(a == b for r, q in zip(reqs, ref_reqs)
-                for a, b in zip(r.tokens, q.tokens))
-    first_agree = 0
-    pf_err = fd_err = 0.0
-    for r, q in zip(reqs, ref_reqs):
-        rid = r.request_id
-        pf_err = max(pf_err, check_logits(f"{rid} prefill", pf[rid],
-                                          ref_pf[rid]))
-        if r.tokens[0] == q.tokens[0]:
-            first_agree += 1
-            fd_err = max(fd_err, check_logits(f"{rid} first decode",
-                                              fd[rid], ref_fd[rid]))
-        else:  # a near tie: the plain run's own logits of the two tokens
-            z = ref_pf[rid]
-            gap = abs(float(z[r.tokens[0]] - z[q.tokens[0]]))
-            if gap > LOGITS_ATOL:
-                raise AssertionError(f"{rid}: first tokens differ "
-                                     f"({r.tokens[0]} vs {q.tokens[0]}) "
-                                     f"with logit gap {gap}")
+            init_serving(srv.engine), submit_all(prompts, max_new))
+    first_agree, agree, pf_err, fd_err = against_plain(
+        "serving", reqs, pf, fd, ref_reqs, ref_pf, ref_fd)
     log(f"serving vs plain versions: first tokens agree {first_agree}/"
         f"{len(reqs)}, all tokens agree {agree}/{len(reqs) * max_new} "
         f"({agree / (len(reqs) * max_new):.3f}), max |logit diff| prefill "
@@ -702,6 +786,223 @@ def phase_generate(model, seed, card):
         f"{agree:.3f}, max |logit diff| {err:.4g}, launches {counts} "
         f"[{card}]")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving fast path
+# ---------------------------------------------------------------------------
+# leg B: speculative decoding with the prompt-lookup proposer over bf16
+# pools; prompts tile one motif each (lengths SPEC_MOTIFS) to ~SPEC_LEN
+# tokens
+SPEC_SERVING = {"block_size": 16, "decode_slots": 4,
+                "speculative": {"num_speculative_tokens": 4}}
+SPEC_MOTIFS = (3, 5, 8, 13, 2, 6)
+SPEC_LEN = 200
+
+
+def spec_prompts(vocab_size, seed):
+    rng = np.random.default_rng(seed + 11)
+    return [np.tile(rng.integers(1, vocab_size, n), -(-SPEC_LEN // n))
+            for n in SPEC_MOTIFS]
+
+
+def pool_bytes(srv):
+    return sum(t.numel() * t.element_size() for t in srv.cache.pools())
+
+
+def add_counts(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def leg_prefix_chunk_int8(model, seed, card):
+    """Leg A: prefix cache, 256-token chunks and int8 KV together on the
+    stream of ``tools/profile_serving.py --fast-path``. Returns its
+    launch counts."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference, init_serving
+    from deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    from deepspeed_tpu_torch.tools.profile_serving import (
+        FAST_SERVING, MAX_NEW_TOKENS, SYSTEM_LEN, fast_path_prompts,
+        serve_fast_path)
+
+    max_new = MAX_NEW_TOKENS
+    prompts = fast_path_prompts(model.config.vocab_size, seed)
+
+    def stream(srv):
+        return serve_fast_path(srv, prompts, max_new)
+
+    def engine(**change):
+        return init_inference(model, serving={**FAST_SERVING, **change})
+
+    int8 = engine()
+    serve(init_serving(int8), stream)  # warm-up: uncounted, untimed
+    rows_seen = []
+    int8_kernel = gpt2_mod.decode_attention_paged_int8
+
+    def spy(q, *args, **kwargs):
+        rows_seen.append(q.shape[1])
+        return int8_kernel(q, *args, **kwargs)
+
+    srv = init_serving(int8)
+    with mock.patch.object(gpt2_mod, "decode_attention_paged_int8", spy):
+        reset_launch_counts()
+        reqs, secs, stats, pf, fd = serve(srv, stream)
+        counts = launch_counts()
+    for r in reqs:
+        if r.state != "finished" or len(r.tokens) != max_new:
+            raise AssertionError(f"fast path {r.request_id}: state "
+                                 f"{r.state} reason {r.finish_reason}, "
+                                 f"{len(r.tokens)} tokens")
+        if r is not reqs[0] and r.prefix_hit_tokens < SYSTEM_LEN:
+            raise AssertionError(f"fast path {r.request_id}: prefix hit "
+                                 f"{r.prefix_hit_tokens} < {SYSTEM_LEN}")
+    if not any(r.cow is not None for r in reqs):
+        raise AssertionError("fast path: no request copied a block on write")
+    for rows in (pf, fd):
+        for rid, row in rows.items():
+            if not torch.isfinite(row).all():
+                raise AssertionError(f"fast path {rid}: non-finite logits")
+    chunk_calls = sum(t > 1 for t in rows_seen)
+    if counts["decode_paged_int8"] <= 0 or not chunk_calls:
+        raise AssertionError(f"fast path leg A did not launch the int8 "
+                             f"kernel with T_q > 1: {counts}, T_q seen "
+                             f"{sorted(set(rows_seen))}")
+    tokens = sum(len(r.tokens) for r in reqs)
+    log(f"fast path A (prefix cache + 256-token chunks + int8 KV, 8 slots):"
+        f" {len(reqs)} requests (prompts {[len(p) for p in prompts]}), "
+        f"{tokens} tokens in {secs:.3f} s ({tokens / secs:.1f} tokens/s), "
+        f"p50 TTFT {stats['ttft_ms_p50']:.3f} ms, p95 "
+        f"{stats['ttft_ms_p95']:.3f} ms, decode steps "
+        f"{stats['decode_steps']}; prefix hits "
+        f"{[r.prefix_hit_tokens for r in reqs]}, chunks "
+        f"{[r.prefill_chunks for r in reqs]}, cow "
+        f"{[r.cow is not None for r in reqs]}; int8 kernel calls by T_q "
+        f"{ {t: rows_seen.count(t) for t in sorted(set(rows_seen))} }; "
+        f"launches {counts} [{card}]")
+
+    with plain_versions():
+        ref_reqs, ref_secs, _, ref_pf, ref_fd = serve(init_serving(int8),
+                                                      stream)
+    first_agree, agree, pf_err, fd_err = against_plain(
+        "fast path", reqs, pf, fd, ref_reqs, ref_pf, ref_fd)
+    log(f"fast path A vs plain versions: first tokens agree {first_agree}/"
+        f"{len(reqs)}, all tokens agree {agree}/{tokens}, max |logit diff| "
+        f"prefill {pf_err:.4g}, first decode {fd_err:.4g} (tolerance "
+        f"{LOGITS_ATOL}); plain run took {ref_secs:.3f} s")
+
+    # for information: the same stream without the prefix cache, and over
+    # bf16 pools
+    off_srv = init_serving(engine(prefix_cache=False))
+    _, off_secs, off_stats, _, _ = serve(off_srv, stream)
+    bf16_srv = init_serving(engine(kv_cache_dtype=""))
+    bf16_reqs, bf16_secs, _, _, _ = serve(bf16_srv, stream)
+    same = sum(a == b for r, q in zip(reqs, bf16_reqs)
+               for a, b in zip(r.tokens, q.tokens))
+    log(f"fast path A, prefix cache off: p50 TTFT "
+        f"{off_stats['ttft_ms_p50']:.3f} ms, p95 "
+        f"{off_stats['ttft_ms_p95']:.3f} ms in {off_secs:.3f} s (on: "
+        f"{stats['ttft_ms_p50']:.3f} / {stats['ttft_ms_p95']:.3f} ms in "
+        f"{secs:.3f} s); bf16 pools: tokens agree with int8 {same}/{tokens}"
+        f" in {bf16_secs:.3f} s; pool bytes int8 {pool_bytes(srv)} (scales "
+        f"included) vs bf16 {pool_bytes(bf16_srv)} [{card}]")
+    return counts
+
+
+def leg_speculative(model, seed, card):
+    """Leg B: speculative decoding (prompt lookup, k = 4) over bf16
+    pools. Every emitted token must be within LOGITS_ATOL of the largest
+    logit at its position in one teacher-forced causal forward (flash
+    kernel) of prompt + tokens. Returns its launch counts."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference, init_serving
+    from deepspeed_tpu_torch.tools.profile_serving import MAX_NEW_TOKENS
+
+    max_new = MAX_NEW_TOKENS
+    prompts = spec_prompts(model.config.vocab_size, seed)
+    stream = submit_all(prompts, max_new)
+    spec = init_inference(model, serving=SPEC_SERVING)
+
+    def verify_stream(srv):
+        """serve() with each request's first verify logits cut to its
+        valid rows: the pending token and that step's drafts (the rest
+        pad the step against the garbage block)."""
+        drafts, propose = {}, srv._proposer.propose
+
+        def spy(req, k):
+            out = propose(req, k)
+            drafts.setdefault(req.request_id, len(out[:k]))
+            return out
+
+        srv._proposer.propose = spy
+        reqs, secs, stats, pf, fd = serve(srv, stream)
+        return (reqs, secs, stats, pf,
+                {rid: rows[:1 + drafts[rid]] for rid, rows in fd.items()})
+
+    serve(init_serving(spec), stream)  # warm-up: uncounted, untimed
+    reset_launch_counts()
+    reqs, secs, stats, pf, fd = verify_stream(init_serving(spec))
+    counts = launch_counts()
+    if counts["flash_fwd"] <= 0 or counts["decode_paged"] <= 0:
+        raise AssertionError(f"fast path leg B did not launch the kernels: "
+                             f"{counts}")
+    worst = 0.0
+    for r in reqs:
+        if r.state != "finished" or len(r.tokens) != max_new:
+            raise AssertionError(f"speculative {r.request_id}: state "
+                                 f"{r.state}, {len(r.tokens)} tokens")
+        ids = list(r.prompt) + r.tokens[:-1]
+        logits = spec.forward(torch.tensor(ids, device=spec.device))[0]
+        at = logits[len(r.prompt) - 1:].float()
+        gap = (at.max(dim=-1).values
+               - at.gather(1, torch.tensor(r.tokens, device=at.device)[:, None]
+                           )[:, 0])
+        worst = max(worst, gap.max().item())
+        if not torch.isfinite(at).all() or gap.max().item() > LOGITS_ATOL:
+            raise AssertionError(f"speculative {r.request_id}: a token "
+                                 f"{gap.max().item()} below its position's "
+                                 f"largest teacher-forced logit")
+    with plain_versions():
+        ref_reqs, ref_secs, _, ref_pf, ref_fd = verify_stream(
+            init_serving(spec))
+    first_agree, agree, pf_err, fd_err = against_plain(
+        "speculative", reqs, pf, fd, ref_reqs, ref_pf, ref_fd)
+    plain = init_serving(init_inference(model, serving={
+        k: v for k, v in SPEC_SERVING.items() if k != "speculative"}))
+    base_reqs, base_secs, base_stats, _, _ = serve(plain, stream)
+    tokens = sum(len(r.tokens) for r in reqs)
+    sp = stats["speculative"]
+    decode_tokens = tokens - len(reqs)
+    slot_steps = decode_tokens - sp["accepted_tokens"]
+    same = sum(a == b for r, q in zip(reqs, base_reqs)
+               for a, b in zip(r.tokens, q.tokens))
+    log(f"fast path B (speculative, prompt lookup k=4, bf16 pools, 4 slots):"
+        f" {len(reqs)} requests, {tokens} tokens in {secs:.3f} s "
+        f"({tokens / secs:.1f} tokens/s) vs {base_secs:.3f} s "
+        f"({tokens / base_secs:.1f} tokens/s) without speculation; verify "
+        f"steps {stats['decode_steps']} vs decode steps "
+        f"{base_stats['decode_steps']}; drafts {sp['draft_tokens']}, "
+        f"accepted {sp['accepted_tokens']} (rate {sp['acceptance_rate']}), "
+        f"{decode_tokens / max(1, slot_steps):.3f} tokens per slot verify "
+        f"step, {sp['accepted_tokens_per_step']} accepted per verify step; "
+        f"worst teacher-forced logit gap {worst:.4g} (limit {LOGITS_ATOL});"
+        f" tokens equal to non-speculative decode {same}/{tokens}; launches"
+        f" {counts} [{card}]")
+    log(f"fast path B vs plain versions: first tokens agree {first_agree}/"
+        f"{len(reqs)}, all tokens agree {agree}/{tokens}, max |logit diff| "
+        f"prefill {pf_err:.4g}, first verify step (every valid row) "
+        f"{fd_err:.4g} (tolerance {LOGITS_ATOL}); plain run took "
+        f"{ref_secs:.3f} s")
+    return counts
+
+
+def phase_fast_path(model, seed, card):
+    """The serving fast path: leg A then leg B, each with the launch
+    counts zeroed just before its counted run and read just after.
+    Returns the two legs' counts summed."""
+    return add_counts(leg_prefix_chunk_int8(model, seed, card),
+                      leg_speculative(model, seed, card))
 
 
 def first_grads(engine, batch):
@@ -845,6 +1146,9 @@ def main():
     t0 = time.perf_counter()
     by_path["generate"] = phase_generate(model, args.seed, card)
     log(f"phase 5: generate in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["fast_path"] = phase_fast_path(model, args.seed, card)
+    log(f"phase 6: serving fast path in {time.perf_counter() - t0:.1f} s")
 
     # name: (source, TPU kernel it replaces, the path that needs it;
     # "launches" is that path's count, "launches_by_path" every path's)
@@ -862,7 +1166,11 @@ def main():
                                  "generate"),
                "decode_paged": ("deepspeed_tpu_torch/csrc/decode_paged.cu",
                                 "deepspeed_tpu/ops/decode_attention.py:194",
-                                "serving")}
+                                "serving"),
+               "decode_paged_int8": (
+                   "deepspeed_tpu_torch/csrc/decode_paged_int8.cu",
+                   "deepspeed_tpu/ops/decode_attention.py:319",
+                   "fast_path")}
     kernels = []
     for name, (source, replaces, path) in sources.items():
         row = kernel_rows[name][MAIN_ROW[name]]
@@ -877,6 +1185,10 @@ def main():
             "library_ms": row["library_ms"],
             "wrapper_ms": row["wrapper_ms"], "shape": row["shape"],
             "dtype": "bfloat16"})
+        if name.startswith("decode_paged"):  # every checked shape
+            kernels[-1]["rows"] = [{k: r[k] for k in (
+                "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                "bound_by")} for r in kernel_rows[name]]
         if name in BTHD_ROW:  # the same kernel through the [B, T, H, D] entry
             bthd = kernel_rows[name][BTHD_ROW[name]]
             kernels[-1]["bthd"] = {k: bthd[k] for k in (

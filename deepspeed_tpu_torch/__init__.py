@@ -5,7 +5,9 @@ It mirrors the JAX package's module paths, imports ``torch`` and never
 passes ``device="cpu"``. It holds the serving path (GPT-2 with
 hand-written flash-prefill and decode-attention kernels for Hopper in
 ``csrc/``, the inference engine's ``generate()`` and the
-continuous-batching serving engine) and the one-card training path
+continuous-batching serving engine with its fast path: prefix cache,
+chunked prefill, speculative decoding and int8 paged KV) and the
+one-card training path
 (:func:`initialize`, the training engine with the fused step, AdamW/SGD/
 LAMB, and the flash-attention backward kernels).
 """
@@ -54,13 +56,17 @@ def init_inference(model, config=None, **kwargs):
     return InferenceEngine(model, config=config, **kwargs)
 
 
-def init_serving(model, config=None, **kwargs):
+def init_serving(model, config=None, draft_model=None, **kwargs):
     """Build the continuous-batching serving engine (paged KV cache +
     request scheduler) over an inference engine: ``model`` is a model
     (a fresh engine is built from ``config``/``kwargs``, which must carry
     a ``serving`` block) or an existing InferenceEngine whose config has
-    one. The multi-replica router, fleet and gateway blocks come with the
+    one. ``draft_model`` is the draft of ``serving.speculative``'s
+    ``"draft_model"`` proposer: a callable ``(context, k) -> tokens`` or
+    an engine with ``.generate`` (e.g. a small InferenceEngine). The
+    multi-replica router, fleet and gateway blocks come with the
     multi-GPU serving slice and raise at config time."""
     from deepspeed_tpu_torch.serving.engine import ServingEngine
 
-    return ServingEngine(model, config=config, **kwargs)
+    return ServingEngine(model, config=config, draft_model=draft_model,
+                         **kwargs)

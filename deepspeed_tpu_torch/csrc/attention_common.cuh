@@ -1,5 +1,6 @@
 // Shared helpers of the port's attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu, decode_append.cu, decode_paged.cu):
+// flash_bwd_dq.cu, flash_bwd_dkv.cu, decode_append.cu, decode_paged.cu,
+// decode_paged_int8.cu):
 // element conversions, the rounding point of the TPU kernels, strides
 // passed by value, and vector loads.
 #pragma once

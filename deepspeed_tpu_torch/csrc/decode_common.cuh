@@ -1,4 +1,5 @@
-// The decode-attention block shared by decode_append.cu and decode_paged.cu:
+// The decode-attention block shared by decode_append.cu and decode_paged.cu
+// (decode_paged_int8.cu takes its constants and its structure):
 // up to DEC_ROWS query rows of one (batch row, head) attend the keys at
 // logical positions [0, n_keys), query row r seeing keys j <= base + r.
 //

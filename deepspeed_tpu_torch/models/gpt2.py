@@ -8,7 +8,8 @@ checkpointing), with learned positions, tanh-GELU MLP, sequential residual
 blocks and the tied LM head. Attention routes through
 ``deepspeed_tpu_torch.ops``: the flash kernels (forward and backward) for
 causal self-attention, the append and paged decode kernels for cached
-steps — their plain versions on the CPU.
+steps (the int8 paged kernel over int8 pools) — their plain versions on
+the CPU.
 
 Parameters are fp32 (the masters); every product runs in the config's
 compute dtype, casting the weights at each use, so gradients reach the
@@ -35,8 +36,9 @@ from deepspeed_tpu_torch.models.decode_utils import (paged_positions,
 from deepspeed_tpu_torch.models.remat_utils import (REMAT_POLICIES,
                                                     checkpointed)
 from deepspeed_tpu_torch.ops.attention import attention, attention_reference
-from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
-                                                      decode_attention_paged)
+from deepspeed_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_paged, decode_attention_paged_int8)
+from deepspeed_tpu_torch.ops.quantizer import quantize_rowwise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,11 @@ class GPT2Config:
     paged: bool = False
     paged_num_blocks: int = 0
     paged_block_size: int = 0
+    # paged-KV pool dtype: "" stores blocks in the compute dtype; "int8"
+    # quantizes K/V per pool row (ops.quantizer.quantize_rowwise — one
+    # fp32 scale per token x head in a side pool indexed by the same
+    # block table)
+    paged_kv_dtype: str = ""
     # training: per-block activation checkpointing ("full" recomputes the
     # block in backward, "dots" saves matmul and flash outputs and
     # recomputes the elementwise chains — models/remat_utils.py)
@@ -79,6 +86,9 @@ class GPT2Config:
                 "GPT2Config.pld (progressive layer drop) is not ported yet: "
                 "it comes with the training-features slice of the PyTorch "
                 "port")
+        if self.paged_kv_dtype not in ("", "int8"):
+            raise ValueError(f"paged_kv_dtype must be '' or 'int8', got "
+                             f"{self.paged_kv_dtype!r}")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {self.remat_policy!r} not in "
                              f"{REMAT_POLICIES}")
@@ -90,13 +100,17 @@ class GPT2Config:
     def for_decode(self):
         return dataclasses.replace(self, decode=True)
 
-    def for_paged_decode(self, num_blocks: int, block_size: int):
+    def for_paged_decode(self, num_blocks: int, block_size: int,
+                         kv_dtype: str = ""):
         """Serving variant: decode mode whose KV cache is a shared block
         pool (block 0 reserved as the garbage sink — see
-        ``ops.decode_attention.GARBAGE_BLOCK``)."""
+        ``ops.decode_attention.GARBAGE_BLOCK``); ``kv_dtype="int8"``
+        stores the pool quantized per row with a scale side pool (the
+        serving ``kv_cache_dtype`` knob)."""
         return dataclasses.replace(self, decode=True, paged=True,
                                    paged_num_blocks=int(num_blocks),
-                                   paged_block_size=int(block_size))
+                                   paged_block_size=int(block_size),
+                                   paged_kv_dtype=str(kv_dtype))
 
     @staticmethod
     def gpt2_125m(**kw):
@@ -129,7 +143,10 @@ class KVCache:
 
 class PagedKVCache:
     """Paged KV pools of the serving engine: per-layer ``[num_blocks,
-    block_size, H, D]`` key/value pools shared by every sequence."""
+    block_size, H, D]`` key/value pools shared by every sequence, in the
+    compute dtype or (``paged_kv_dtype="int8"``) as int8 codes with
+    per-layer ``[num_blocks, block_size, H, 1]`` fp32 ``key_scales`` /
+    ``value_scales`` side pools (empty lists otherwise)."""
 
     def __init__(self, config: GPT2Config, device):
         if config.paged_num_blocks <= 1 or config.paged_block_size <= 0:
@@ -140,9 +157,20 @@ class PagedKVCache:
                 f"{config.paged_block_size})")
         shape = (config.paged_num_blocks, config.paged_block_size,
                  config.n_head, config.head_dim)
-        self.keys = [torch.zeros(shape, dtype=config.dtype, device=device)
+        quant = config.paged_kv_dtype == "int8"
+        dtype = torch.int8 if quant else config.dtype
+        self.keys = [torch.zeros(shape, dtype=dtype, device=device)
                      for _ in range(config.n_layer)]
         self.values = [torch.zeros_like(k) for k in self.keys]
+        scale_shape = shape[:3] + (1,)
+        self.key_scales = [torch.zeros(scale_shape, dtype=torch.float32,
+                                       device=device)
+                           for _ in range(config.n_layer)] if quant else []
+        self.value_scales = [torch.zeros_like(s) for s in self.key_scales]
+
+    def pools(self):
+        """Every pool tensor: keys, values and (int8) their scales."""
+        return self.keys + self.values + self.key_scales + self.value_scales
 
 
 def _dense(layer: nn.Linear, x, dtype):
@@ -163,10 +191,12 @@ class CausalSelfAttention(nn.Module):
                                 device=device)
         self.c_proj = nn.Linear(config.n_embd, config.n_embd, device=device)
 
-    def forward(self, x, keys=None, values=None, step=None):
+    def forward(self, x, keys=None, values=None, step=None, scales=None):
         """``keys``/``values``: this layer's cache buffers (decode mode);
-        ``step``: the per-call cache addressing the model computed once
-        for all layers (see :meth:`GPT2LMHeadModel.forward`)."""
+        ``scales``: its ``(key_scales, value_scales)`` side pools (int8
+        paged KV); ``step``: the per-call cache addressing the model
+        computed once for all layers (see
+        :meth:`GPT2LMHeadModel.forward`)."""
         cfg = self.config
         B, T, C = x.shape
         H, D = cfg.n_head, cfg.head_dim
@@ -175,15 +205,30 @@ class CausalSelfAttention(nn.Module):
         y4 = None
         if cfg.decode and cfg.paged:
             # scatter this step's KV into the shared pools, in place; pad
-            # tokens land in the garbage block (paged_write_rows)
+            # tokens land in the garbage block (paged_write_rows). int8
+            # pools take the row-quantized codes and their scales through
+            # the same rows
             rows = step["write_rows"]
-            keys.view(-1, H, D).index_copy_(0, rows, k4.reshape(B * T, H, D))
-            values.view(-1, H, D).index_copy_(0, rows,
-                                              v4.reshape(B * T, H, D))
+            if scales is None:
+                writes = ((keys, k4), (values, v4))
+            else:
+                (kq, ks), (vq, vs) = (quantize_rowwise(t) for t in (k4, v4))
+                writes = ((keys, kq), (values, vq), (scales[0], ks),
+                          (scales[1], vs))
+            for pool, t in writes:
+                pool.view(-1, H, t.shape[-1]).index_copy_(
+                    0, rows, t.reshape(B * T, H, t.shape[-1]))
+            # a whole-prompt prefill attends its own unquantized keys
+            # below; every other call attends the pool
             if not step["prefill"]:
-                y4 = decode_attention_paged(
-                    q4.contiguous(), keys, values, step["block_tables"],
-                    step["lengths"])
+                if scales is None:
+                    y4 = decode_attention_paged(
+                        q4.contiguous(), keys, values, step["block_tables"],
+                        step["lengths"])
+                else:
+                    y4 = decode_attention_paged_int8(
+                        q4.contiguous(), keys, values, scales[0], scales[1],
+                        step["block_tables"], step["lengths"])
         elif cfg.decode:
             # append cache: rows [index, index + T), in place
             keys.index_copy_(1, step["write_rows"], k4)
@@ -227,9 +272,10 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(config.n_embd, eps=eps, device=device)
         self.mlp = MLP(config, device=device)
 
-    def forward(self, x, keys=None, values=None, step=None):
+    def forward(self, x, keys=None, values=None, step=None, scales=None):
         dt = self.config.dtype
-        x = x + self.attn(_layer_norm(self.ln_1, x, dt), keys, values, step)
+        x = x + self.attn(_layer_norm(self.ln_1, x, dt), keys, values, step,
+                          scales)
         return x + self.mlp(_layer_norm(self.ln_2, x, dt))
 
 
@@ -333,7 +379,9 @@ class GPT2LMHeadModel(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
             if cfg.decode:
-                x = block(x, cache.keys[i], cache.values[i], step)
+                scales = ((cache.key_scales[i], cache.value_scales[i])
+                          if cfg.paged_kv_dtype == "int8" else None)
+                x = block(x, cache.keys[i], cache.values[i], step, scales)
             elif remat:
                 x = checkpointed(block, x, policy=cfg.remat_policy)
             else:

@@ -10,12 +10,15 @@ Two hand-written CUDA kernels replace the TPU kernels of that module:
 - :func:`decode_attention_paged` — ``csrc/decode_paged.cu``, replacing
   ``_paged_kernel`` (``decode_attention.py:194``, launched at ``:300``):
   the same through per-row block tables and lengths over a shared block
-  pool (the serving engine's decode step).
+  pool (the serving engine's decode, chunk and verify steps);
+- :func:`decode_attention_paged_int8` — ``csrc/decode_paged_int8.cu``,
+  replacing ``_paged_int8_kernel`` (``decode_attention.py:319``,
+  launched at ``:425``): the paged step over int8 pools with fp32
+  per-(token, head) scale side pools (``kv_cache_dtype: "int8"``).
 
 Each has its plain PyTorch version beside it; a CPU tensor takes it, a
-CUDA tensor launches the kernel or raises. The int8 paged kernel comes
-with the serving fast-path slice; the tensor-parallel wrappers with the
-multi-GPU slice.
+CUDA tensor launches the kernel or raises. The tensor-parallel wrappers
+come with the multi-GPU slice.
 """
 
 import ctypes
@@ -38,6 +41,8 @@ _APPEND_SIG = {"ds_decode_append": (
     [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P], _I)}
 _PAGED_SIG = {"ds_decode_paged": (
     [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P], _I)}
+_PAGED_INT8_SIG = {"ds_decode_paged_int8": (
+    [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I)}
 
 
 def _attend(q, k, v, visible, scale):
@@ -75,29 +80,67 @@ def gather_paged_cache(pool, block_tables):
     return pool[block_tables.long()].reshape(b, mb * bs, heads, d)
 
 
+def gather_paged_cache_int8(pool, scales, block_tables,
+                            dtype=torch.float32):
+    """The dense ``[B, MB*bs, H, D]`` logical window of an int8 pool,
+    dequantized (``int8 x scale`` in fp32) through the block table;
+    ``scales`` is the ``[nb, bs, H, 1]`` fp32 side pool."""
+    b, mb = block_tables.shape
+    _, bs, heads, d = pool.shape
+    idx = block_tables.long()
+    codes = pool[idx].reshape(b, mb * bs, heads, d).float()
+    return (codes * scales[idx].reshape(b, mb * bs, heads, 1)).to(dtype)
+
+
+def _paged_window(q, block_tables, lengths, nb, bs):
+    """``(real [B, S], visible [B, T_q, S])`` of a paged step: the window
+    positions whose table entry is a real pool block, and each query row's
+    keys ``<= lengths[b] + r`` among them."""
+    tables = block_tables.long()
+    real = ((tables > GARBAGE_BLOCK) & (tables < nb)).repeat_interleave(
+        bs, dim=1)
+    visible = cache_attn_mask(real.shape[1], lengths.long(),
+                              q.shape[1])[:, 0] & real[:, None, :]
+    return real, visible
+
+
 def decode_attention_paged_reference(q, k_pool, v_pool, block_tables,
                                      lengths, softmax_scale=None):
     """Plain version of :func:`decode_attention_paged`: gather the window,
     then mask each row to keys ``<= lengths[b] + r`` whose table entry is
     a real pool block."""
-    b, tq, _, d = q.shape
-    bs = k_pool.shape[1]
+    d = q.shape[-1]
+    nb, bs = k_pool.shape[:2]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    real = ((block_tables.long() > GARBAGE_BLOCK)
-            & (block_tables.long() < k_pool.shape[0])).repeat_interleave(
-        bs, dim=1)                                               # [B, S]
-    visible = cache_attn_mask(real.shape[1], lengths.long(), tq)[:, 0] \
-        & real[:, None, :]
+    real, visible = _paged_window(q, block_tables, lengths, nb, bs)
     # rows of the garbage block are zeroed, not just masked: the kernel
     # never reads them, so not even a NaN there may reach the output
     k, v = (torch.where(real[:, :, None, None],
                         gather_paged_cache(pool, block_tables.clamp(
-                            0, k_pool.shape[0] - 1)), 0)
+                            0, nb - 1)), 0)
             for pool in (k_pool, v_pool))
     return _attend(q, k, v, visible, scale)
 
 
-def _check_common(q, pools, name):
+def decode_attention_paged_int8_reference(q, k_pool, v_pool, k_scale,
+                                          v_scale, block_tables, lengths,
+                                          softmax_scale=None):
+    """Plain version of :func:`decode_attention_paged_int8`: dequantize
+    the window to fp32 (:func:`gather_paged_cache_int8`), then the masked
+    fp32 softmax of :func:`decode_attention_paged_reference`; p is not
+    rounded before P·V (V is fp32)."""
+    d = q.shape[-1]
+    nb, bs = k_pool.shape[:2]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    real, visible = _paged_window(q, block_tables, lengths, nb, bs)
+    tables = block_tables.clamp(0, nb - 1)
+    k, v = (torch.where(real[:, :, None, None],
+                        gather_paged_cache_int8(pool, sc, tables), 0)
+            for pool, sc in ((k_pool, k_scale), (v_pool, v_scale)))
+    return _attend(q, k, v, visible, scale)
+
+
+def _check_query(q, name):
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
     if q.requires_grad:
@@ -111,19 +154,40 @@ def _check_common(q, pools, name):
     if q.shape[3] not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[3]} not in "
                          f"{SUPPORTED_HEAD_DIMS}")
-    for t in (q, *pools):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name}: every tensor must be {q.dtype} on "
-                             f"{q.device}, got {t.dtype} on {t.device}")
+
+
+def _check_buffers(name, device, dtype, tail, tensors):
+    """Each tensor: ``dtype`` on ``device``, a contiguous 16-byte aligned
+    4-d tensor whose last two dims are ``tail``."""
+    for t in tensors:
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} on {device}, got "
+                             f"{t.dtype} on {t.device}")
         if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"{name}: q and the caches must be contiguous "
-                             f"4-d tensors, got {tuple(t.shape)} strides "
-                             f"{t.stride()}")
+            raise ValueError(f"{name}: q, caches and scales must be "
+                             f"contiguous 4-d tensors, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
-        if t.shape[2:] != q.shape[2:]:
+        if tuple(t.shape[2:]) != tuple(tail):
             raise ValueError(f"{name}: heads/dim {tuple(t.shape[2:])} != "
-                             f"query {tuple(q.shape[2:])}")
+                             f"{tuple(tail)}")
+
+
+def _check_common(q, pools, name):
+    _check_query(q, name)
+    _check_buffers(name, q.device, q.dtype, q.shape[2:], (q, *pools))
+
+
+def _check_paging(q, block_tables, lengths):
+    _int32_on(block_tables, q.device, "block_tables")
+    _int32_on(lengths, q.device, "lengths")
+    b = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"lengths {tuple(lengths.shape)} do not match "
+                         f"batch {b}")
 
 
 def _int32_on(t, device, name):
@@ -186,14 +250,8 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
     if k_pool.shape != v_pool.shape:
         raise ValueError(f"pool shapes differ: {tuple(k_pool.shape)} vs "
                          f"{tuple(v_pool.shape)}")
-    _int32_on(block_tables, q.device, "block_tables")
-    _int32_on(lengths, q.device, "lengths")
+    _check_paging(q, block_tables, lengths)
     b, tq, h, d = q.shape
-    if block_tables.dim() != 2 or block_tables.shape[0] != b \
-            or lengths.shape != (b,):
-        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
-                         f"lengths {tuple(lengths.shape)} do not match "
-                         f"batch {b}")
     nb, bs = k_pool.shape[:2]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     out = torch.empty_like(q)
@@ -211,6 +269,56 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
     return out
 
 
+def decode_attention_paged_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                block_tables, lengths, softmax_scale=None):
+    """Attend a decode, chunk or verify step against an int8 paged cache.
+
+    The contract of :func:`decode_attention_paged` (query row r of batch
+    row b sees keys ``<= lengths[b] + r``), except that ``k_pool`` /
+    ``v_pool`` are ``[num_blocks, block_size, H, D]`` int8 and ``k_scale``
+    / ``v_scale`` their ``[num_blocks, block_size, H, 1]`` fp32 per-row
+    scales (:func:`~deepspeed_tpu_torch.ops.quantizer.quantize_rowwise`).
+    q is bf16 or fp32; the output is in q's dtype. The kernel dequantizes
+    K and V to fp32, runs an fp32 online softmax, and keeps p in fp32
+    for P·V."""
+    if q.device.type == "cpu":
+        return decode_attention_paged_int8_reference(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+            softmax_scale)
+    name = "decode_attention_paged_int8"
+    _check_query(q, name)
+    _check_buffers(name, q.device, q.dtype, q.shape[2:], (q,))
+    _check_buffers(name, q.device, torch.int8, q.shape[2:],
+                   (k_pool, v_pool))
+    _check_buffers(name, q.device, torch.float32, (q.shape[2], 1),
+                   (k_scale, v_scale))
+    if k_pool.shape != v_pool.shape or (
+            k_scale.shape != v_scale.shape
+            or k_scale.shape[:2] != k_pool.shape[:2]):
+        raise ValueError(f"{name}: pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} and scales "
+                         f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)} "
+                         f"do not match")
+    _check_paging(q, block_tables, lengths)
+    b, tq, h, d = q.shape
+    nb, bs = k_pool.shape[:2]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    lib = load("decode_paged_int8", _PAGED_INT8_SIG)
+    err = lib.ds_decode_paged_int8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
+        b, tq, h, d, nb, bs, block_tables.shape[1], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_paged_int8 kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention_paged_int8.launches += 1
+    return out
+
+
 # kernel launches by each wrapper (chip_smoke.py zeroes and reads them)
 decode_attention.launches = 0
 decode_attention_paged.launches = 0
+decode_attention_paged_int8.launches = 0

@@ -53,15 +53,20 @@ class Request:
     finish_ts: float = 0.0
     slot: int = -1
     length: int = 0                   # tokens currently in the KV cache
-    # ---- prefix-cache / chunked-prefill accounting (the record's
-    # schema; only prefill_chunks moves in this slice) ----
+    # ---- prefix-cache / chunked-prefill accounting (set at admit by
+    # the scheduler, advanced by the engine's prefill path) ----
+    cached_len: int = 0               # prompt tokens already in the pool
     prefix_hit_tokens: int = 0        # matched cached prefix length
     blocks_shared: int = 0            # physical blocks mapped read-only
-    prefill_chunks: int = 0           # chunk-program calls this prefill
+    prefill_chunks: int = 0           # prefill / chunk calls this prefill
+    # (src, dst) pool blocks: dst must receive a device copy of src's
+    # rows before any append (partial-tail copy-on-write), or None
+    cow: Optional[tuple] = None
     # ---- speculative-decoding accounting (advanced by the engine's
     # verify step; zero when speculation is off or never proposed) ----
     draft_tokens: int = 0             # proposer tokens sent to verify
     accepted_tokens: int = 0          # drafts the target model agreed with
+
     @property
     def prompt_len(self) -> int:
         return len(self.prompt)

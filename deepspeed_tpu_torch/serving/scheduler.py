@@ -15,11 +15,15 @@ request runs *where* and *when*:
   decode steps: expired requests are shed from the head, block-pool
   backpressure defers admission (never drops — blocks free as running
   sequences finish), and each admitted request gets its block table.
+  With a prefix cache attached, admission first matches the longest
+  cached prefix: matched full blocks map read-only into the table
+  (refcount++, nothing prefills twice), a matched partial tail is
+  scheduled for copy-on-write, and the request carries how many prompt
+  tokens its prefill may skip (``cached_len``).
 - ``finish`` returns capacity (slot, blocks, token budget) immediately.
 
-The JAX scheduler's prefix-cache matching, speculative budget, cancel,
-load gauges, migration seams and span tracing come with later slices of
-the port.
+The JAX scheduler's cancel, load gauges, migration seams and span
+tracing come with later slices of the port.
 """
 
 import time
@@ -35,9 +39,12 @@ from deepspeed_tpu_torch.serving.config import (QUEUE, ServingConfig,
 class ContinuousBatchingScheduler:
     def __init__(self, config: ServingConfig, blocks: BlockManager,
                  max_len: int, buckets: Optional[List[int]] = None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, prefix_cache=None):
         self.config = config
         self.blocks = blocks
+        # optional PrefixCache: admission matches cached prompt prefixes
+        # and maps their blocks in read-only instead of re-prefilling
+        self.prefix = prefix_cache
         self.max_len = int(max_len)
         self.buckets = buckets if buckets is not None else resolve_buckets(
             config.prompt_buckets, self.max_len, floor=config.block_size)
@@ -69,6 +76,17 @@ class ContinuousBatchingScheduler:
     def expired(self, req: rq.Request, now: float) -> bool:
         dl = self._deadline_secs(req)
         return bool(dl) and (now - req.submit_ts) > dl
+
+    def speculative_budget(self, req: rq.Request, k: int) -> int:
+        """How many draft tokens a verify step may propose for ``req``:
+        ``k`` capped by (a) the emit budget — a verify step always emits
+        at least one non-speculative token, so only ``max_new - emitted
+        - 1`` drafts can ever be kept — and (b) the model window, so the
+        speculative write extent ``[length, length + n_p]`` never leaves
+        the admission-reserved block coverage."""
+        remaining = req.max_new_tokens - len(req.tokens)
+        window = self.max_len - req.length - 1
+        return max(0, min(int(k), remaining - 1, window))
 
     @property
     def pending(self) -> bool:
@@ -156,10 +174,24 @@ class ContinuousBatchingScheduler:
                 if running_tokens + self._cost(req) > cap:
                     self.queue.appendleft(req)  # defer, keep FIFO order
                     break
-            if not self.blocks.can_allocate(self._cost(req)):
+            shared, cow_src, matched = [], None, 0
+            if self.prefix is not None:
+                shared, cow_src, matched = self.prefix.match(req.prompt)
+            if not self.blocks.can_allocate_shared(self._cost(req), shared,
+                                                   cow_src):
                 self.queue.appendleft(req)  # pool backpressure: wait
                 break
-            table = self.blocks.allocate(req.request_id, self._cost(req))
+            table = self.blocks.allocate(req.request_id, self._cost(req),
+                                         shared=shared, cow_src=cow_src)
+            req.prefix_hit_tokens = matched
+            req.blocks_shared = len(shared) + (1 if cow_src is not None
+                                               else 0)
+            req.cached_len = matched
+            # the engine copies cow_src's rows into the first fresh block
+            # (logical index len(shared)) before any append, then calls
+            # blocks.cow_done() to unpin the source
+            req.cow = ((int(cow_src), int(table[len(shared)]))
+                       if cow_src is not None else None)
             req.state = rq.RUNNING
             req.slot = slot
             req.admit_ts = now

@@ -22,8 +22,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2ForTraining,
                                              GPT2LMHeadModel)
-from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
-                                                      decode_attention_paged)
+from deepspeed_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_paged, decode_attention_paged_int8)
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_dkv,
     flash_attention_bthd)
@@ -106,6 +106,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
         decode_attention(q4, q4, q4, idx)
     with pytest.raises(ValueError, match="cuda or cpu"):
         decode_attention_paged(q4, q4, q4, idx, idx)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention_paged_int8(q4, q4, q4, q4, q4, idx, idx)
 
 
 @pytest.mark.parametrize("alone", [False, True])

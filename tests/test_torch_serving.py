@@ -5,7 +5,8 @@
   request (tiny model, float32, same weights).
 - The port's host layer (block manager + scheduler) makes the same
   decisions as the JAX one on the same request stream.
-- Every serving knob this slice does not port raises, naming its slice.
+- Every serving knob the port does not have yet raises, naming its
+  slice (the fast-path knobs: ``tests/test_torch_serving_fast.py``).
 """
 
 import jax.numpy as jnp
@@ -57,13 +58,21 @@ def test_staggered_serving_matches_jax_generate():
     assert stats["ttft_ms_p50"] is not None
 
 
-def _drive(sched_cls, mgr_cls, cfg_cls, req_cls, seed):
+def _drive(sched_cls, mgr_cls, cfg_cls, req_cls, seed, prefix_cls=None):
     """A random stream of submits, admissions and finishes; returns every
-    decision the host layer made."""
+    decision the host layer made. With ``prefix_cls`` (a PrefixCache
+    class) admission matches cached prefixes (the prompts
+    ``range(n)`` share theirs), every admitted prompt is indexed and its
+    copy-on-write confirmed as the engine does, and random speculative
+    windows open, commit and drop on running requests; the log then also
+    holds the match results, the grants and drops, and the pool's
+    refcounts, free and cached counts after every step."""
     cfg = cfg_cls(block_size=4, decode_slots=3, max_queue_depth=4,
                   num_blocks=14, max_inflight_tokens=80)
     mgr = mgr_cls(14, 4, 8)
-    sched = sched_cls(cfg, mgr, 32, clock=lambda: 0.0)
+    prefix = prefix_cls(mgr) if prefix_cls is not None else None
+    kw = {"prefix_cache": prefix} if prefix is not None else {}
+    sched = sched_cls(cfg, mgr, 32, clock=lambda: 0.0, **kw)
     rng = np.random.default_rng(seed)
     log = []
     for i in range(40):
@@ -75,15 +84,43 @@ def _drive(sched_cls, mgr_cls, cfg_cls, req_cls, seed):
         admitted, shed = sched.admit()
         log += [("admit", slot, r.request_id, table.tolist())
                 for slot, r, table in admitted]
+        if prefix is not None:
+            for slot, r, table in admitted:
+                log.append(("match", r.request_id, r.prefix_hit_tokens,
+                            r.blocks_shared, r.cached_len, r.cow,
+                            sched.speculative_budget(r, 3)))
+                mgr.cow_done(r.request_id)
+                log.append(("insert", prefix.insert(r.prompt, table)))
+            running = sched.running()
+            if running and rng.random() < 0.5:
+                _, req = running[int(rng.integers(len(running)))]
+                n = int(rng.integers(1, 33))
+                try:
+                    log.append(("speculate", req.request_id,
+                                mgr.speculate(req.request_id, n)))
+                except (RuntimeError, ValueError) as e:
+                    log.append(("speculate", req.request_id, type(e)))
+                keep = int(rng.integers(0, n + 1))
+                log.append(("commit", req.request_id,
+                            mgr.commit_speculative(req.request_id, keep)
+                            if rng.random() < 0.7
+                            else mgr.drop_speculative(req.request_id),
+                            mgr.owned(req.request_id)))
         running = sched.running()
         if running and rng.random() < 0.5:
             slot, req = running[int(rng.integers(len(running)))]
             sched.finish(req, "max_tokens")
             log.append(("finish", slot, req.request_id, mgr.num_free))
+        if prefix is not None:
+            log.append(("pool", mgr.num_free, mgr.num_cached,
+                        sorted(mgr._ref.items()), list(mgr._evictable),
+                        mgr.evictions))
     # the JAX scheduler also counts migrations (a later slice of the port)
     stats = {k: v for k, v in sched.stats.items()
              if not k.startswith("migrated")}
     log.append(("end", len(sched.queue), sched.committed_tokens, stats))
+    if prefix is not None:
+        log.append(("prefix", prefix.stats, len(prefix)))
     return log
 
 
@@ -105,10 +142,9 @@ def test_sampled_request_sheds_like_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    {"prefix_cache": True}, {"prefill_chunk_tokens": 32},
-    {"kv_cache_dtype": "int8"}, {"speculative": {}}, {"sampling": {}},
-    {"router": {"replicas": 2}}, {"fleet": {}}, {"gateway": {}},
-    {"migration": {}}, {"replay": {}}, {"bucket_legacy_generate": True},
+    {"sampling": {}}, {"router": {"replicas": 2}}, {"fleet": {}},
+    {"gateway": {}}, {"migration": {}}, {"replay": {}},
+    {"bucket_legacy_generate": True},
 ])
 def test_unported_serving_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -118,9 +154,9 @@ def test_unported_serving_knobs_raise(knob):
 def test_unported_knob_raises_through_init_serving():
     model = deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel(
         deepspeed_tpu_torch.models.gpt2.GPT2Config.tiny())
-    with pytest.raises(NotImplementedError, match="serving fast-path"):
+    with pytest.raises(NotImplementedError, match="keyed-sampling"):
         deepspeed_tpu_torch.init_serving(
-            model, device="cpu", serving={**_SERVING, "prefix_cache": True})
+            model, device="cpu", serving={**_SERVING, "sampling": {}})
 
 
 @pytest.mark.parametrize("key,value", [
