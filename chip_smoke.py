@@ -5,21 +5,24 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the six CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one
+1. build the nine CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and print the card;
 2. hold each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at ragged ones, in bf16 and
    fp32 — the flash kernels also on ``[B, T, H, D]`` views through
-   ``flash_attention_bthd``, the paged kernels (bf16/fp32 and int8 pools)
-   also at the verify (T_q = 5) and prefill-chunk (T_q = 256) shapes — and
-   time kernel, plain version and (where
-   one exists) the PyTorch library call computing the same function,
-   beside the least time the card could take (bound). ``ms``,
-   ``plain_ms`` and ``library_ms`` are device times (CUDA events around
-   calls the host queued ahead of the device, see :func:`device_ms`);
-   ``wrapper_ms`` is the time of back-to-back wrapper calls on CUDA
-   events, which the host's launch rate sets for the microsecond decode
-   kernels;
+   ``flash_attention_bthd`` and non-causal at BERT's dense shape, the
+   paged kernels (bf16/fp32 and int8 pools) also at the verify (T_q = 5)
+   and prefill-chunk (T_q = 256) shapes, the block-sparse kernels at the
+   BERT slice's shape (fixed per-head layout, block 128, 2 x 16 x 4096)
+   and at bench_sparse.py's BigBird one (block 256, 1 x 12 x 8192) — and
+   time kernel, plain version and (where one exists) the PyTorch library
+   call computing the same function (for block-sparse attention SDPA with
+   the layout expanded to a boolean mask), beside the least time the card
+   could take (bound). ``ms``, ``plain_ms`` and ``library_ms`` are device
+   times (CUDA events around calls the host queued ahead of the device,
+   see :func:`device_ms`); ``wrapper_ms`` is the time of back-to-back
+   wrapper calls on CUDA events, which the host's launch rate sets for
+   the microsecond decode kernels;
 3. train GPT-2 125M at full width with ``bench.py``'s configuration
    (batch 16 x 1024, bf16 over fp32 masters, dots remat, fused AdamW
    step, clip 1.0) through ``deepspeed_tpu_torch.initialize``: one
@@ -53,16 +56,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the plain-version run; tokens per verify step, acceptance and tokens/s
    against the stream without speculation are printed. With chunking on
    every prompt takes the chunk path, so leg
-   A launches no flash forward; leg B's whole-prompt prefills do.
+   A launches no flash forward; leg B's whole-prompt prefills do;
+7. "bert_sparse": BERT-large MLM at full width and depth through
+   ``deepspeed_tpu_torch.initialize`` with ``bench_bert.py``'s keys (Adam,
+   clip 1.0, bf16, fused step; ZeRO 0) and the reference's documented
+   ``sparse_attention`` section at block 128 (``tools/profile_training.py``
+   ``BERT_SPARSE``), 2 x 4096 tokens, dots remat: 3 warm-up and 5 timed
+   steps, the first loss within 0.3 of ln V and falling, each block-sparse
+   kernel launched 24 times a step (the dots policy saves the forward)
+   and no flash kernel; then at 4 of the 24 layers (widths and sequence
+   unchanged) the first 3 losses and the step-1 gradients against the
+   plain versions; then the dense leg ("bert_dense": bench_bert.py's 64 x
+   128, no section, 3 steps) through the non-causal flash kernels.
 
-Phases 3, 4, 5 and 6 are the main paths (6 in two legs): each sets every
-launch count to 0 just before it runs and reads the counts just after,
-before its comparison runs.
+Phases 3, 4, 5, 6 and 7 are the main paths (6 and 7 in two legs each):
+each sets every launch count to 0 just before it runs and reads the counts
+just after, before its comparison runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
 the card's name and power limit (``nvidia-smi``), and before that one
-JSON object with every kernel's launches on each path, error, times and
-bound. Without a card (``torch.cuda.is_available()`` false) it exits 2.
+JSON object with the twelve CUDA-backed rows of the kernel table (TPU
+kernels 1-12): each one's launches on each path, error, times and bound.
+Without a card (``torch.cuda.is_available()`` false) it exits 2.
 """
 
 import argparse
@@ -76,7 +91,9 @@ from unittest import mock
 import numpy as np
 
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                  "decode_append", "decode_paged", "decode_paged_int8")
+                  "decode_append", "decode_paged", "decode_paged_int8",
+                  "block_sparse_fwd", "block_sparse_bwd_dq",
+                  "block_sparse_bwd_dkv")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -103,14 +120,6 @@ REPEATS = 20
 # device_ms holds the device in a spin of this many clock cycles (~10 ms
 # at the H100's 1.98 GHz boost clock) while the host queues the calls
 SPIN_CYCLES = 20_000_000
-# the row of each kernel's checks reported in the {"kernels": ...} line:
-# the flash kernels at the training shape (B=16 H=12 T=1024 D=64), append
-# decode at idx=1000 T_q=1, the paged kernels (bf16 and int8 pools) at
-# T_q=1; and the flash kernels' training-shape row through the [B, T, H, D]
-# entry
-MAIN_ROW = {"flash_fwd": 3, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "decode_append": 2, "decode_paged": 0, "decode_paged_int8": 0}
-BTHD_ROW = {"flash_fwd": 4, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 TRAIN_STEPS = 10
 # GPT-2 125M training, kernel path vs plain-version path from the same
 # seed, bf16: the first losses agree to the bf16 noise of the forward
@@ -246,10 +255,15 @@ def shape_name(b, h, tq, tk, d, layout, causal=True):
 
 
 # flash forward: serving prefill shapes (B=1), the training shape (B=16)
-# in both layouts, and a ragged [B, T, H, D] case; (B, H, T, layout)
-FWD_SHAPES = ((1, 12, 16, "bhtd"), (1, 12, 100, "bhtd"),
-              (1, 12, 1024, "bhtd"), (16, 12, 1024, "bhtd"),
-              (16, 12, 1024, "bthd"), (2, 12, 100, "bthd"))
+# in both layouts, a ragged [B, T, H, D] case, and BERT's dense leg
+# (bench_bert.py: B=64 T=128, 16 heads, non-causal); (B, H, T, layout,
+# causal)
+FWD_SHAPES = ((1, 12, 16, "bhtd", True), (1, 12, 100, "bhtd", True),
+              (1, 12, 1024, "bhtd", True), (16, 12, 1024, "bhtd", True),
+              (16, 12, 1024, "bthd", True), (2, 12, 100, "bthd", True),
+              (64, 16, 128, "bthd", False))
+# the flash shapes that are timed: GPT-2 training's and BERT's dense leg
+TIMED_FLASH = ((16, 12, 1024), (64, 16, 128))
 # flash backward: the training shape in both layouts (timed), then ragged
 # and offset cases and the other head dims; (B, H, Tq, Tk, D, layout,
 # causal)
@@ -262,7 +276,8 @@ BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (2, 4, 64, 100, 64, "bhtd", False),
               (1, 2, 77, 77, 16, "bhtd", True),
               (1, 2, 77, 77, 32, "bthd", True),
-              (1, 2, 77, 77, 128, "bhtd", True))
+              (1, 2, 77, 77, 128, "bhtd", True),
+              (64, 16, 128, 128, 64, "bthd", False))
 
 
 def check_flash(dtype, gen):
@@ -274,21 +289,21 @@ def check_flash(dtype, gen):
 
     D, dt = 64, str(dtype)[6:]
     rows = []
-    for B, H, T, layout in FWD_SHAPES:
+    for B, H, T, layout, causal in FWD_SHAPES:
         q, k, v = (rand_heads(B, H, T, D, layout, dtype, gen)
                    for _ in range(3))
-        name = shape_name(B, H, T, T, D, layout)
-        ro, rlse = flash_attention_reference(q, k, v, causal=True)
+        name = shape_name(B, H, T, T, D, layout, causal)
+        ro, rlse = flash_attention_reference(q, k, v, causal=causal)
         if layout == "bthd":  # through the [B, T, H, D] entry
             qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
 
             def kernel():
-                return flash_attention_bthd(qb, kb, vb)
+                return flash_attention_bthd(qb, kb, vb, causal=causal)
 
             o = kernel().transpose(1, 2)
         else:
             def kernel():
-                return flash_attention(q, k, v)
+                return flash_attention(q, k, v, causal=causal)
 
             o, lse = kernel()
             torch.cuda.synchronize()
@@ -298,12 +313,13 @@ def check_flash(dtype, gen):
         torch.cuda.synchronize()
         err = compare(f"flash {name} {dtype}", o, ro, dt)
         nbytes = 4 * B * H * T * D * q.element_size() + B * H * T * 4
-        flops = 4 * D * B * H * pairs(T, T, True)
+        flops = 4 * D * B * H * pairs(T, T, causal)
         rows.append({
             "shape": name, "max_abs_err": err,
-            **times(kernel, lambda: flash_attention_reference(q, k, v),
+            **times(kernel,
+                    lambda: flash_attention_reference(q, k, v, causal),
                     lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True)),
+                        q, k, v, is_causal=causal)),
             **bound(nbytes, {dt: flops})})
     return rows
 
@@ -368,7 +384,7 @@ def check_flash_bwd(dtype, gen):
         dkv_row = {"shape": name, "max_abs_err": max(errs[1:]),
                    **bound(io * (2 * Tq + 4 * Tk) + stats,
                            {dt: 8 * D * n_pairs})}
-        if Tq == 1024:  # the training shape: time it
+        if (B, H, Tq) in TIMED_FLASH:  # a training path's shape
             lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
             lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
 
@@ -388,6 +404,145 @@ def check_flash_bwd(dtype, gen):
         dq_rows.append(dq_row)
         dkv_rows.append(dkv_row)
     return dq_rows, dkv_rows
+
+
+# the block-sparse checks: (B, H, S, sparse_attention section) — the BERT
+# slice's fixed per-head layout (block 128) and bench_sparse.py:47-68's
+# BigBird layout (1 random, 3 window, 1 global block; one layout for every
+# head, block 256)
+SPARSE_CASES = (
+    (2, 16, 4096, "BERT_SPARSE"),
+    (1, 12, 8192, {"mode": "bigbird", "block": 256, "num_random_blocks": 1,
+                   "num_sliding_window_blocks": 3, "num_global_blocks": 1}),
+)
+
+
+def sparse_layout(section, heads, seq):
+    """The numpy bool layout of a ``sparse_attention`` section, as BERT's
+    shared SparseSelfAttention draws it (bidirectional)."""
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
+        sparsity_config_from_dict)
+    from deepspeed_tpu_torch.tools.profile_training import BERT_SPARSE
+
+    section = dict(BERT_SPARSE if section == "BERT_SPARSE" else section)
+    section.setdefault("attention", "bidirectional")
+    return sparsity_config_from_dict(section, heads).make_layout(seq) \
+        .astype(bool)
+
+
+def check_block_sparse(dtype, gen):
+    """The three block-sparse kernels against their plain versions on the
+    same inputs (the forward kernel's O and lse feed the backward ones), on
+    ``[B, H, S, D]`` views of ``[B, S, H, D]`` tensors as BERT hands them
+    over; then the autograd path, checked to launch each kernel once and to
+    give the plain versions' gradients. Times kernel, plain version and
+    the library yardstick (SDPA with the layout expanded to a boolean
+    ``[1, H, S, S]`` mask: its forward for the forward row, its backward
+    for the backward rows, and forward + backward beside them). Returns
+    (fwd rows, dq rows, dkv rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
+
+    D, dt = 64, str(dtype)[6:]
+    fwd_rows, dq_rows, dkv_rows = [], [], []
+    for B, H, S, section in SPARSE_CASES:
+        layout = sparse_layout(section, H, S)
+        block = S // layout.shape[1]
+        name = (f"B={B} H={H} S={S} D={D} block={block} "
+                f"{'per-head' if (layout != layout[:1]).any() else 'shared'}"
+                f" layout density={layout.mean():.4f}")
+        q, k, v, do = (rand_heads(B, H, S, D, "bthd", dtype, gen)
+                       for _ in range(4))
+        o, lse = bs.block_sparse_attention_with_lse(q, k, v, layout)
+        ro, rlse = bs.block_sparse_attention_reference(q, k, v, layout)
+        torch.cuda.synchronize()
+        err = compare(f"block-sparse fwd {name} {dtype}", o, ro, dt)
+        lse_err = (lse - rlse).abs().max().item()
+        if lse_err > 1e-3:
+            raise AssertionError(f"block-sparse {name} lse error {lse_err}")
+        delta = fa.attention_delta(do, o)
+        args = (q, k, v, do, lse, delta, layout)
+        got = [bs.block_sparse_backward_dq(*args),
+               *bs.block_sparse_backward_dkv(*args)]
+        want = [bs.block_sparse_backward_dq_reference(*args),
+                *bs.block_sparse_backward_dkv_reference(*args)]
+        torch.cuda.synchronize()
+        errs = [compare(f"block-sparse bwd {n} {name} {dtype}", g, w, dt)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+
+        # the autograd path: one launch of each kernel, the same gradients
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = launch_counts()
+        bs.block_sparse_attention(*leaves, layout).backward(do)
+        after = launch_counts()
+        for kname in ("block_sparse_fwd", "block_sparse_bwd_dq",
+                      "block_sparse_bwd_dkv"):
+            if after[kname] - before[kname] != 1:
+                raise AssertionError(f"block_sparse_attention {name}: "
+                                     f"{kname} launched "
+                                     f"{after[kname] - before[kname]} times")
+        for n, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+            compare(f"block-sparse autograd {n} {name} {dtype}", leaf.grad,
+                    w, dt)
+
+        # bounds: each input read once, each output written once, and 4 /
+        # 6 / 8 D operations a visible pair; the lists are int32
+        n_pairs = B * int(layout.sum()) * block * block
+        io = B * H * S * D * q.element_size()
+        stats = B * H * S * 4
+        lists = bs.block_lists(layout, q.device)
+        # the plain versions are timed on the cached device layout (a
+        # numpy one is uploaded by a blocking copy on every call)
+        plain_args = (*args[:-1], lists.layout)
+        csr = 4 * (lists.row_ptr.numel() + lists.col_idx.numel())
+        csc = 4 * (lists.col_ptr.numel() + lists.row_idx.numel())
+        mask = bs._token_mask(layout, S, S, q.device)[None]
+        lq, lk, lv = leaves
+        lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        def lib_bwd():
+            return torch.autograd.grad(lo, leaves, do, retain_graph=True)
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=mask), leaves, do)
+
+        fwd_bwd_ms = device_ms(lib_fwd_bwd, REPEATS)
+        fwd_rows.append({
+            "shape": name, "max_abs_err": err,
+            **times(lambda: bs.block_sparse_attention_with_lse(q, k, v,
+                                                               layout),
+                    lambda: bs.block_sparse_attention_reference(
+                        q, k, v, lists.layout),
+                    lib_fwd),
+            "library_fwd_bwd_ms": fwd_bwd_ms,
+            **bound(4 * io + stats + csr, {dt: 4 * D * n_pairs})})
+        dq_rows.append({
+            "shape": name, "max_abs_err": errs[0],
+            **times(lambda: bs.block_sparse_backward_dq(*args),
+                    lambda: bs.block_sparse_backward_dq_reference(
+                        *plain_args),
+                    lib_bwd),
+            "library_fwd_bwd_ms": fwd_bwd_ms,
+            **bound(5 * io + 2 * stats + csr, {dt: 6 * D * n_pairs})})
+        dkv_rows.append({
+            "shape": name, "max_abs_err": max(errs[1:]),
+            **times(lambda: bs.block_sparse_backward_dkv(*args),
+                    lambda: bs.block_sparse_backward_dkv_reference(
+                        *plain_args),
+                    lib_bwd),
+            "library_fwd_bwd_ms": fwd_bwd_ms,
+            **bound(6 * io + 2 * stats + csc, {dt: 8 * D * n_pairs})})
+        del lo, mask
+        torch.cuda.empty_cache()
+    return fwd_rows, dq_rows, dkv_rows
 
 
 def check_append(dtype, gen):
@@ -510,11 +665,14 @@ def phase_kernels(seed):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         dq_rows, dkv_rows = check_flash_bwd(dtype, gen)
+        sp_fwd, sp_dq, sp_dkv = check_block_sparse(dtype, gen)
         res = {"flash_fwd": check_flash(dtype, gen),
                "flash_bwd_dq": dq_rows, "flash_bwd_dkv": dkv_rows,
                "decode_append": check_append(dtype, gen),
                "decode_paged": check_paged(dtype, gen, rng),
-               "decode_paged_int8": check_paged(dtype, gen, rng, int8=True)}
+               "decode_paged_int8": check_paged(dtype, gen, rng, int8=True),
+               "block_sparse_fwd": sp_fwd, "block_sparse_bwd_dq": sp_dq,
+               "block_sparse_bwd_dkv": sp_dkv}
         for name, rows in res.items():
             for row in rows:
                 log(f"kernel {name} {dtype} {json.dumps(row)}")
@@ -532,8 +690,25 @@ def plain_versions():
     PyTorch version, on the card (the comparison run)."""
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
 
-    with mock.patch.object(fa, "_fwd_launch", fa.flash_attention_reference), \
+    def sparse_fwd(q, k, v, layout, row_ptr, col_idx, scale):
+        return bs.block_sparse_attention_reference(q, k, v, layout, scale)
+
+    def sparse_dq(q, k, v, do, lse, delta, lists, scale):
+        return bs.block_sparse_backward_dq_reference(q, k, v, do, lse, delta,
+                                                     lists.layout, scale)
+
+    def sparse_dkv(q, k, v, do, lse, delta, lists, scale):
+        return bs.block_sparse_backward_dkv_reference(q, k, v, do, lse,
+                                                      delta, lists.layout,
+                                                      scale)
+
+    with mock.patch.object(bs, "_fwd_launch", sparse_fwd), \
+            mock.patch.object(bs, "_dq_launch", sparse_dq), \
+            mock.patch.object(bs, "_dkv_launch", sparse_dkv), \
+            mock.patch.object(fa, "_fwd_launch", fa.flash_attention_reference), \
             mock.patch.object(fa, "_dq_launch",
                               fa.flash_attention_backward_dq_reference), \
             mock.patch.object(fa, "_dkv_launch",
@@ -554,13 +729,18 @@ def kernel_wrappers():
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_paged, decode_attention_paged_int8)
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
 
     return {"flash_fwd": fa.flash_attention,
             "flash_bwd_dq": fa.flash_attention_backward,
             "flash_bwd_dkv": fa.flash_attention_backward_dkv,
             "decode_append": decode_attention,
             "decode_paged": decode_attention_paged,
-            "decode_paged_int8": decode_attention_paged_int8}
+            "decode_paged_int8": decode_attention_paged_int8,
+            "block_sparse_fwd": bs.block_sparse_attention,
+            "block_sparse_bwd_dq": bs.block_sparse_backward_dq,
+            "block_sparse_bwd_dkv": bs.block_sparse_backward_dkv}
 
 
 def launch_counts():
@@ -1096,6 +1276,260 @@ def phase_training(seed, card):
     return counts
 
 
+# phase 7: BERT-large MLM with the sparse_attention section. 3 warm-up and
+# 5 timed steps of the sparse workload (every launch count per step:
+# forward, dQ and dK/dV once a layer, the forward saved by the dots policy,
+# no flash); the kernel-vs-plain comparison at BERT_PLAIN_LAYERS of the 24
+# layers (widths and sequence unchanged: the plain versions' [B, H, S, S]
+# fp32 scores take 2.1 GB a tensor); 3 steps of the dense leg
+BERT_WARMUP, BERT_STEPS, BERT_DENSE_STEPS = 3, 5, 3
+BERT_PLAIN_LAYERS = 4
+# the largest key-bias gradient norm, in either path, as a share of the
+# same layer's query-bias gradient norm in the plain path: the key biases'
+# exact gradient is zero, and bf16 rounding of ds leaves a few percent
+# (0.0391 on the H100, PERF.md); the limit is about three times that. The
+# control beside it reads the share from above: the plain path with delta
+# zeroed, so that no dS row sums to zero, must read above the limit
+KEY_BIAS_NOISE = 0.12
+
+
+def check_losses(what, losses, log_v):
+    """First loss within 0.3 of ln V (random weights), falling on the
+    repeated batch."""
+    if not all(np.isfinite(losses)) or abs(losses[0] - log_v) > 0.3:
+        raise AssertionError(f"{what}: first loss {losses[0]} not within 0.3"
+                             f" of ln V = {log_v}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+
+
+def check_per_step(what, counts, steps, want):
+    """Each kernel of ``want`` launched ``want[name]`` times a step."""
+    for name, n in want.items():
+        if counts[name] != steps * n:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times in {steps} steps, not {n} a step")
+
+
+def key_bias_shares(grads, ref):
+    """Each layer's key-bias gradient norm in ``grads`` over its
+    query-bias gradient norm in ``ref``."""
+    return {name: (grads[name].float().norm() / ref[name.replace(
+                "key.bias", "query.bias")].float().norm()).item()
+            for name in grads if name.endswith("attention.self.key.bias")}
+
+
+def phase_bert(seed, card):
+    """BERT-large MLM training through ``deepspeed_tpu_torch.initialize``
+    with bench_bert.py's keys: the sparse workload (``sparse_attention``
+    section, 2 x 4096) at full width and depth, its kernel path against
+    the plain versions at reduced depth, and the dense leg (64 x 128, no
+    section). Returns the launch counts of the sparse and dense legs."""
+    import torch
+
+    from deepspeed_tpu_torch.tools.profile_training import (
+        BERT_DENSE_SHAPE, BERT_SPARSE_SHAPE, PEAK_BF16_FLOPS, bert_batch,
+        bert_engine, bert_flops_per_token, bert_model, sparse_density,
+        timed_steps, train_steps)
+
+    engine = bert_engine(bert_model(seed))
+    cfg = engine.module.config
+    n_layer, log_v = cfg.num_hidden_layers, float(np.log(cfg.vocab_size))
+    batch = bert_batch(cfg.vocab_size, seed, engine.device)
+    warm, _ = timed_steps(engine, batch, BERT_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs = timed_steps(engine, batch, BERT_STEPS)
+    sparse_counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = warm + losses
+    check_losses("bert sparse", losses, log_v)
+    check_per_step("bert sparse", sparse_counts, BERT_STEPS, {
+        "block_sparse_fwd": n_layer, "block_sparse_bwd_dq": n_layer,
+        "block_sparse_bwd_dkv": n_layer, "flash_fwd": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0})
+    tokens = BERT_SPARSE_SHAPE[0] * BERT_SPARSE_SHAPE[1]
+    density = sparse_density(BERT_SPARSE_SHAPE[1])
+    tokens_per_s = BERT_STEPS * tokens / secs
+    mfu = tokens_per_s * bert_flops_per_token(
+        engine.module, BERT_SPARSE_SHAPE[1], density) / PEAK_BF16_FLOPS
+    log(f"bert sparse: BERT-large, batch {BERT_SPARSE_SHAPE[0]} x "
+        f"{BERT_SPARSE_SHAPE[1]}, fixed per-head layout block 128 (density "
+        f"{density:.4f}), bf16, dots remat, fused Adam step; {BERT_STEPS} "
+        f"steps in {secs:.3f} s ({1e3 * secs / BERT_STEPS:.1f} ms/step, "
+        f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} of 989 TF/s), peak "
+        f"memory {peak_gb:.2f} GB; losses {[round(x, 4) for x in losses]} "
+        f"(ln V = {log_v:.4f}); launches per step "
+        f"{ {k: v / BERT_STEPS for k, v in sparse_counts.items() if v} } "
+        f"[{card}]")
+    del engine
+    torch.cuda.empty_cache()
+
+    # kernels against plain versions at reduced depth, the same batch
+    kernel = bert_engine(bert_model(seed, layers=BERT_PLAIN_LAYERS))
+    kernel_grads = first_grads(kernel, batch)
+    kernel_losses = [float(x) for x in train_steps(kernel, batch, 3)]
+    del kernel
+    torch.cuda.empty_cache()
+    with plain_versions():
+        plain = bert_engine(bert_model(seed, layers=BERT_PLAIN_LAYERS))
+        plain_grads = first_grads(plain, batch)
+        plain_losses = [float(x) for x in train_steps(plain, batch, 3)]
+    del plain
+    torch.cuda.empty_cache()
+    # the control: the plain path with delta = rowsum(dO * O) zeroed
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bs
+    with plain_versions(), mock.patch.object(
+            bs, "attention_delta",
+            lambda do, o: torch.zeros(o.shape[:-1], dtype=torch.float32,
+                                      device=o.device)):
+        faulty = bert_engine(bert_model(seed, layers=BERT_PLAIN_LAYERS))
+        faulty_grads = first_grads(faulty, batch)
+    del faulty
+    torch.cuda.empty_cache()
+    # the key biases' exact gradient is zero: a bias shared by every key
+    # of a row shifts all its scores alike, and softmax ignores the shift.
+    # Both paths give rounding noise there (bf16 ds), which is held below
+    # KEY_BIAS_NOISE of the same layer's query-bias gradient in each path
+    # instead of to the other path's noise
+    kernel_kb = key_bias_shares(kernel_grads, plain_grads)
+    plain_kb = key_bias_shares(plain_grads, plain_grads)
+    key_bias = {name: max(kernel_kb[name], plain_kb[name])
+                for name in kernel_kb}
+    control = min(key_bias_shares(faulty_grads, plain_grads).values())
+    if not control > KEY_BIAS_NOISE:
+        raise AssertionError(
+            f"bert sparse: with delta zeroed the key-bias gradients read "
+            f"{control} of their query bias's, not above the limit "
+            f"{KEY_BIAS_NOISE}: the key-bias check cannot see that fault")
+    grad_err = {name: ((g.float() - plain_grads[name].float()).norm()
+                       / plain_grads[name].float().norm().clamp_min(1e-30)
+                       ).item() for name, g in kernel_grads.items()
+                if name not in key_bias}
+    worst = max(grad_err, key=grad_err.get)
+    noisiest = max(key_bias, key=key_bias.get)
+    loss_err = max(abs(a - b) for a, b in zip(kernel_losses, plain_losses))
+    if loss_err > TRAIN_LOSS_ATOL or grad_err[worst] > TRAIN_GRAD_RTOL \
+            or key_bias[noisiest] > KEY_BIAS_NOISE:
+        raise AssertionError(
+            f"bert sparse kernels vs plain versions ({BERT_PLAIN_LAYERS} "
+            f"layers): losses {kernel_losses} vs {plain_losses} (max diff "
+            f"{loss_err}, limit {TRAIN_LOSS_ATOL}); worst gradient {worst} "
+            f"relative L2 {grad_err[worst]} (limit {TRAIN_GRAD_RTOL}); "
+            f"largest key-bias gradient {noisiest} {key_bias[noisiest]} of "
+            f"its query bias's (limit {KEY_BIAS_NOISE})")
+    log(f"bert sparse vs plain versions ({BERT_PLAIN_LAYERS} of {n_layer} "
+        f"layers, full width and sequence): losses "
+        f"{[round(x, 4) for x in kernel_losses]} vs "
+        f"{[round(x, 4) for x in plain_losses]}, max |diff| {loss_err:.3g} "
+        f"(limit {TRAIN_LOSS_ATOL}); step-1 gradients relative L2 max "
+        f"{grad_err[worst]:.3g} at {worst}, median "
+        f"{float(np.median(list(grad_err.values()))):.3g} (limit "
+        f"{TRAIN_GRAD_RTOL}); key-bias gradients (exactly zero in exact "
+        f"arithmetic) at most {key_bias[noisiest]:.3g} of their layer's "
+        f"query-bias gradient, {noisiest} (limit {KEY_BIAS_NOISE}; with "
+        f"delta zeroed in the plain path at least {control:.3g})")
+
+    # the dense leg: bench_bert.py's shape, no sparse_attention section
+    dense = bert_engine(bert_model(seed, sparse=False), sparse=False)
+    dense_batch = bert_batch(cfg.vocab_size, seed, dense.device,
+                             sparse=False)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    dense_losses, dense_secs = timed_steps(dense, dense_batch,
+                                           BERT_DENSE_STEPS)
+    dense_counts = launch_counts()
+    check_losses("bert dense", dense_losses, log_v)
+    check_per_step("bert dense", dense_counts, BERT_DENSE_STEPS, {
+        "flash_fwd": n_layer, "flash_bwd_dq": n_layer,
+        "flash_bwd_dkv": n_layer, "block_sparse_fwd": 0,
+        "block_sparse_bwd_dq": 0, "block_sparse_bwd_dkv": 0})
+    log(f"bert dense: BERT-large, batch {BERT_DENSE_SHAPE[0]} x "
+        f"{BERT_DENSE_SHAPE[1]}, non-causal flash kernels; "
+        f"{BERT_DENSE_STEPS} steps (the first one warm-up included) in "
+        f"{dense_secs:.3f} s; losses {[round(x, 4) for x in dense_losses]}; "
+        f"launches per step "
+        f"{ {k: v / BERT_DENSE_STEPS for k, v in dense_counts.items() if v} }"
+        f" [{card}]")
+    del dense
+    torch.cuda.empty_cache()
+    return sparse_counts, dense_counts
+
+
+# the twelve TPU kernels with a CUDA port, rows 1-12 of PERF.md's table:
+# name: (source, TPU kernel it replaces, the path whose count is
+# "launches", the port kernel's name in the checks and in the counts, the
+# row of its checks reported: the flash kernels at GPT-2's training shape
+# (B=16 H=12 T=1024 D=64), append decode at idx=1000 T_q=1, the paged
+# kernels at T_q=1, the block-sparse kernels at the BERT slice's shape).
+# Rows 4-6 are kernels 1-3 through the [B, T, H, D] views every training
+# path hands them (one wrapper and count serve both layouts); the
+# non-causal rows of kernels 1-3 are BERT's dense leg
+_FLASH = "deepspeed_tpu/ops/flash_attention.py"
+_DECODE = "deepspeed_tpu/ops/decode_attention.py"
+_SPARSE = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
+KERNEL_TABLE = {
+    "flash_fwd": ("flash_fwd.cu", f"{_FLASH}:77", "training", "flash_fwd",
+                  3),
+    "flash_bwd_dq": ("flash_bwd_dq.cu", f"{_FLASH}:196", "training",
+                     "flash_bwd_dq", 0),
+    "flash_bwd_dkv": ("flash_bwd_dkv.cu", f"{_FLASH}:252", "training",
+                      "flash_bwd_dkv", 0),
+    "flash_fwd_bthd": ("flash_fwd.cu", f"{_FLASH}:504", "training",
+                       "flash_fwd", 4),
+    "flash_bwd_dq_bthd": ("flash_bwd_dq.cu", f"{_FLASH}:509", "training",
+                          "flash_bwd_dq", 1),
+    "flash_bwd_dkv_bthd": ("flash_bwd_dkv.cu", f"{_FLASH}:516", "training",
+                           "flash_bwd_dkv", 1),
+    "decode_append": ("decode_append.cu", f"{_DECODE}:39", "generate",
+                      "decode_append", 2),
+    "decode_paged": ("decode_paged.cu", f"{_DECODE}:194", "serving",
+                     "decode_paged", 0),
+    "decode_paged_int8": ("decode_paged_int8.cu", f"{_DECODE}:319",
+                          "fast_path", "decode_paged_int8", 0),
+    "block_sparse_fwd": ("block_sparse_fwd.cu", f"{_SPARSE}:79",
+                         "bert_sparse", "block_sparse_fwd", 0),
+    "block_sparse_bwd_dq": ("block_sparse_bwd_dq.cu", f"{_SPARSE}:175",
+                            "bert_sparse", "block_sparse_bwd_dq", 0),
+    "block_sparse_bwd_dkv": ("block_sparse_bwd_dkv.cu", f"{_SPARSE}:214",
+                             "bert_sparse", "block_sparse_bwd_dkv", 0),
+}
+# the flash kernels' non-causal row (BERT's dense leg, bench_bert.py's
+# shape): the last row of their checks
+NONCAUSAL_ROW = -1
+
+
+def kernel_line(kernel_rows, by_path):
+    """The ``{"kernels": [...]}`` entries: every CUDA-backed row of the
+    kernel table with its launches on its path and on every path, its
+    largest error over all checked shapes, and the times and bound of its
+    reported row (bf16)."""
+    keys = ("shape", "ms", "wrapper_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+    out = []
+    for name, (source, replaces, path, port, row_i) in KERNEL_TABLE.items():
+        rows = kernel_rows[port]
+        row = rows[row_i]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"deepspeed_tpu_torch/csrc/{source}",
+            "replaces": replaces, "path": path,
+            "launches": by_path[path][port],
+            "launches_by_path": {p: c[port] for p, c in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: row[k] for k in keys if k != "shape"},
+            "shape": row["shape"], "dtype": "bfloat16"}
+        if name.startswith("decode_paged") or name.startswith("block_sp"):
+            entry["rows"] = [{k: r[k] for k in keys if k in r}
+                             for r in rows if "ms" in r]
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            nc = rows[NONCAUSAL_ROW]
+            entry["noncausal"] = {k: nc[k] for k in keys}
+        out.append(entry)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1149,52 +1583,15 @@ def main():
     t0 = time.perf_counter()
     by_path["fast_path"] = phase_fast_path(model, args.seed, card)
     log(f"phase 6: serving fast path in {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["bert_sparse"], by_path["bert_dense"] = phase_bert(args.seed,
+                                                               card)
+    log(f"phase 7: BERT-large sparse and dense training in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    # name: (source, TPU kernel it replaces, the path that needs it;
-    # "launches" is that path's count, "launches_by_path" every path's)
-    sources = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
-                             "deepspeed_tpu/ops/flash_attention.py:77",
-                             "training"),
-               "flash_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_bwd_dq.cu",
-                                "deepspeed_tpu/ops/flash_attention.py:196",
-                                "training"),
-               "flash_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_bwd_dkv.cu",
-                                 "deepspeed_tpu/ops/flash_attention.py:252",
-                                 "training"),
-               "decode_append": ("deepspeed_tpu_torch/csrc/decode_append.cu",
-                                 "deepspeed_tpu/ops/decode_attention.py:39",
-                                 "generate"),
-               "decode_paged": ("deepspeed_tpu_torch/csrc/decode_paged.cu",
-                                "deepspeed_tpu/ops/decode_attention.py:194",
-                                "serving"),
-               "decode_paged_int8": (
-                   "deepspeed_tpu_torch/csrc/decode_paged_int8.cu",
-                   "deepspeed_tpu/ops/decode_attention.py:319",
-                   "fast_path")}
-    kernels = []
-    for name, (source, replaces, path) in sources.items():
-        row = kernel_rows[name][MAIN_ROW[name]]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "path": path,
-            "launches": by_path[path][name],
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-            "wrapper_ms": row["wrapper_ms"], "shape": row["shape"],
-            "dtype": "bfloat16"})
-        if name.startswith("decode_paged"):  # every checked shape
-            kernels[-1]["rows"] = [{k: r[k] for k in (
-                "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-                "bound_by")} for r in kernel_rows[name]]
-        if name in BTHD_ROW:  # the same kernel through the [B, T, H, D] entry
-            bthd = kernel_rows[name][BTHD_ROW[name]]
-            kernels[-1]["bthd"] = {k: bthd[k] for k in (
-                "shape", "ms", "plain_ms", "library_ms", "wrapper_ms",
-                "bound_ms")}
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernel_line(kernel_rows, by_path)}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

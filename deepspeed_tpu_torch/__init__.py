@@ -9,7 +9,13 @@ continuous-batching serving engine with its fast path: prefix cache,
 chunked prefill, speculative decoding and int8 paged KV) and the
 one-card training path
 (:func:`initialize`, the training engine with the fused step, AdamW/SGD/
-LAMB, and the flash-attention backward kernels).
+LAMB, and the flash-attention backward kernels) for GPT-2 and for BERT,
+whose ``sparse_attention`` config section routes attention through the
+block-sparse layout zoo and its kernels (``ops/sparse_attention``).
+
+``DeepSpeedEngine``, ``InferenceEngine``, ``SparseSelfAttention`` and
+``SparseAttentionUtils`` resolve lazily from the package, as in the JAX
+package (whose ``deepspeed.ops.sparse_attention`` path the port keeps).
 """
 
 
@@ -19,7 +25,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                config_params=None, device=None):
     """Build a training engine around ``model`` (an ``nn.Module`` whose
     ``forward(batch)`` returns the loss, e.g. ``models.gpt2.
-    GPT2ForTraining``) on the card (``device=None``) or the CPU.
+    GPT2ForTraining`` or ``models.bert.BertForTraining``) on the card
+    (``device=None``) or the CPU. A ``sparse_attention`` config section
+    goes to the model's ``with_sparse_attention`` hook.
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
     the dataloader is None. ``mesh`` comes with the multi-GPU slice and
@@ -70,3 +78,24 @@ def init_serving(model, config=None, draft_model=None, **kwargs):
 
     return ServingEngine(model, config=config, draft_model=draft_model,
                          **kwargs)
+
+
+def __getattr__(name):
+    """Lazy top-level classes (the JAX package's ``__getattr__``), resolved
+    on first touch so importing the package stays light."""
+    lazy = {
+        "DeepSpeedEngine": ("deepspeed_tpu_torch.runtime.engine",
+                            "DeepSpeedEngine"),
+        "InferenceEngine": ("deepspeed_tpu_torch.inference.engine",
+                            "InferenceEngine"),
+        "SparseSelfAttention": ("deepspeed_tpu_torch.ops.sparse_attention",
+                                "SparseSelfAttention"),
+        "SparseAttentionUtils": ("deepspeed_tpu_torch.ops.sparse_attention",
+                                 "SparseAttentionUtils"),
+    }
+    if name in lazy:
+        import importlib
+
+        mod, sym = lazy[name]
+        return getattr(importlib.import_module(mod), sym)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,6 +1,7 @@
 // Shared helpers of the port's attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu, decode_append.cu, decode_paged.cu,
-// decode_paged_int8.cu):
+// decode_paged_int8.cu, block_sparse_fwd.cu, block_sparse_bwd_dq.cu,
+// block_sparse_bwd_dkv.cu):
 // element conversions, the rounding point of the TPU kernels, strides
 // passed by value, and vector loads.
 #pragma once
@@ -48,6 +49,13 @@ inline Strides<N> load_strides(const void* host) {
   const long long* p = static_cast<const long long*>(host);
   for (int i = 0; i < N; ++i) s.v[i] = p[i];
   return s;
+}
+
+// the block-sparse kernels' shapes (block_sparse_*.cu): head dim D, square
+// blocks that are a multiple of 16 in [16, 256] and divide both lengths
+inline bool sparse_shape_ok(int head_dim, int D, int block, int Sq, int Sk) {
+  return head_dim == D && block >= 16 && block <= 256 && block % 16 == 0 &&
+         Sq % block == 0 && Sk % block == 0;
 }
 
 // 8 consecutive elements starting at p (16-byte aligned for bf16,

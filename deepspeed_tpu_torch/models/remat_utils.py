@@ -6,12 +6,17 @@ Two policies, as in the JAX model:
 
 - ``"full"``: ``torch.utils.checkpoint`` (non-reentrant) around each
   block; backward re-runs the whole block, flash forward included;
-- ``"dots"``: selective checkpointing. The JAX model saves the matmul
+- ``"dots"``: selective checkpointing. The JAX GPT-2 saves the matmul
   outputs (``checkpoint_dots``) and the flash residuals named
   ``flash_*`` and recomputes the elementwise chains (LayerNorm, GELU,
   residual adds, casts). Here :func:`dots_policy` saves the outputs of the
-  aten matrix products and of the ``deepspeed_tpu_torch::flash_fwd`` op
-  (O and lse), so backward launches no second flash forward.
+  aten matrix products and of the attention kernels' forward ops,
+  ``deepspeed_tpu_torch::flash_fwd`` and ``::block_sparse_fwd`` (O and
+  lse), so backward launches no second attention forward. The JAX BERT's
+  "dots" is ``checkpoint_dots`` alone and runs its sparse forward kernel
+  again in backward; saving O and lse (a ``[B, S, C]`` tensor and ``[B, H,
+  S]`` fp32 a layer) is the port's choice, since that forward is a
+  kernel's whole run.
 
 The host-offload (``cpu_checkpointing``) and ``partition_activations``
 knobs of the JAX helpers come with the offload and multi-GPU slices.
@@ -23,8 +28,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-# registers the deepspeed_tpu_torch::flash_fwd op
+# register the deepspeed_tpu_torch::flash_fwd and ::block_sparse_fwd ops
 import deepspeed_tpu_torch.ops.flash_attention  # noqa: F401
+import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel  # noqa
 
 REMAT_POLICIES = ("full", "dots")
 
@@ -32,11 +38,12 @@ _aten = torch.ops.aten
 SAVED_OPS = frozenset({
     _aten.mm.default, _aten.addmm.default, _aten.bmm.default,
     _aten.baddbmm.default, torch.ops.deepspeed_tpu_torch.flash_fwd.default,
+    torch.ops.deepspeed_tpu_torch.block_sparse_fwd.default,
 })
 
 
 def dots_policy(ctx, op, *args, **kwargs):
-    """Save matmul and flash-forward outputs; recompute everything else."""
+    """Save matmul and attention-forward outputs; recompute the rest."""
     return (CheckpointPolicy.MUST_SAVE if op in SAVED_OPS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 

@@ -1,12 +1,17 @@
 """Attention ops (counterpart of ``deepspeed_tpu/ops/attention.py``).
 
-:func:`attention_reference` is the plain dense attention; :func:`attention`
-goes through the flash autograd function (``ops/flash_attention.py``) on
-both devices: on a CPU tensor its forward and backward take their plain
+:func:`attention_reference` is the plain dense attention;
+:func:`attention` is the dispatching entry point with the JAX signature's
+``mask`` and ``use_flash``. Without a mask it goes through the flash
+autograd function (``ops/flash_attention.py``), causal or not, on both
+devices: on a CPU tensor its forward and backward take their plain
 versions, on a CUDA tensor they launch the flash kernels, which take any
-sequence length — there is no dense fallback on the card. The JAX entry
-point's mask, bias and dropout have no caller on the GPT-2 serving and
-training paths; sequence-parallel dispatch comes with the multi-GPU slice.
+sequence length. With a mask (BERT's padding mask) it takes the plain
+masked attention, as the JAX entry point does on its masked path. The JAX
+entry point's bias and dropout have no caller on the ported paths (the
+plain attention takes a bias, for ``SparseSelfAttention``'s relative
+position bias); sequence-parallel dispatch comes with the multi-GPU
+slice.
 """
 
 import torch
@@ -14,9 +19,12 @@ import torch
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
 
-def attention_reference(q, k, v, mask=None, causal=True, softmax_scale=None):
+def attention_reference(q, k, v, mask=None, causal=True, softmax_scale=None,
+                        bias=None):
     """Plain attention: q, k, v ``[batch, heads, seq, head_dim]``; ``mask``
-    a boolean broadcastable to ``[batch, heads, q, k]`` (True = visible).
+    a boolean broadcastable to ``[batch, heads, q, k]`` (True = visible);
+    ``bias`` an additive logits bias broadcastable to the same (a
+    relative-position bias).
 
     Softmax in fp32 whatever the input dtype; the probabilities are
     rounded to q's dtype before P·V."""
@@ -24,6 +32,8 @@ def attention_reference(q, k, v, mask=None, causal=True, softmax_scale=None):
     k_len = k.shape[-2]
     scale = softmax_scale if softmax_scale is not None else head_dim ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     neg = torch.finfo(torch.float32).min
     if causal:
         causal_mask = torch.tril(torch.ones((q_len, k_len), dtype=torch.bool,
@@ -36,9 +46,15 @@ def attention_reference(q, k, v, mask=None, causal=True, softmax_scale=None):
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
-def attention(q, k, v, causal=True, softmax_scale=None):
-    """Attention entry point (q, k, v ``[B, H, T, D]``), differentiable:
+def attention(q, k, v, mask=None, causal=True, softmax_scale=None,
+              use_flash=None):
+    """Attention entry point (q, k, v ``[B, H, T, D]``), differentiable.
+    ``mask`` (bool, broadcastable to ``[B, H, Tq, Tk]``, True = visible)
+    or ``use_flash=False`` take :func:`attention_reference`; otherwise
     flash attention, whose wrappers take their plain versions on the CPU
     and launch the kernels (or raise) on any other device."""
+    if mask is not None or use_flash is False:
+        return attention_reference(q, k, v, mask=mask, causal=causal,
+                                   softmax_scale=softmax_scale)
     return flash_attention(q, k, v, causal=causal,
                            softmax_scale=softmax_scale)[0]

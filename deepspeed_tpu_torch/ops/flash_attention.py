@@ -89,13 +89,13 @@ def flash_attention_reference(q, k, v, causal=True, softmax_scale=None):
     return o.to(q.dtype), lse
 
 
-def _probs_ds(q, k, v, do, lse, delta, causal, scale):
-    """The backward kernels' p = exp(s - lse) (0 where masked, also in
-    fully masked rows whose lse is NEG_INF) and ds = p * (dp - delta) *
-    scale rounded to the input dtype (the TPU kernels' ``ds.astype``), in
+def probs_ds(q, k, v, do, lse, delta, visible, scale):
+    """The backward kernels' p = exp(s - lse) (0 where ``visible``, a
+    boolean broadcastable to ``[..., q, k]``, is False, also in fully
+    masked rows whose lse is NEG_INF) and ds = p * (dp - delta) * scale
+    rounded to the input dtype (the TPU kernels' ``ds.astype``), in
     fp32."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    visible = _visible(q.shape[-2], k.shape[-2], causal, q.device)
     p = torch.exp(s - lse.unsqueeze(-1)).masked_fill(~visible, 0.0)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     ds = (p * (dp - delta.unsqueeze(-1)) * scale).to(q.dtype).float()
@@ -105,8 +105,9 @@ def _probs_ds(q, k, v, do, lse, delta, causal, scale):
 def flash_attention_backward_dq_reference(q, k, v, do, lse, delta,
                                           causal=True, softmax_scale=None):
     """Plain PyTorch version of the dQ kernel: ``ds · K`` in fp32."""
-    _, ds = _probs_ds(q, k, v, do, lse, delta, causal,
-                      _scale(q, softmax_scale))
+    _, ds = probs_ds(q, k, v, do, lse, delta,
+                     _visible(q.shape[-2], k.shape[-2], causal, q.device),
+                     _scale(q, softmax_scale))
     return torch.matmul(ds, k.float()).to(q.dtype)
 
 
@@ -114,8 +115,9 @@ def flash_attention_backward_dkv_reference(q, k, v, do, lse, delta,
                                            causal=True, softmax_scale=None):
     """Plain PyTorch version of the dK/dV kernel: ``dsᵀ · Q`` and ``pᵀ ·
     dO`` in fp32, with p rounded to dO's dtype first (``p.astype``)."""
-    p, ds = _probs_ds(q, k, v, do, lse, delta, causal,
-                      _scale(q, softmax_scale))
+    p, ds = probs_ds(q, k, v, do, lse, delta,
+                     _visible(q.shape[-2], k.shape[-2], causal, q.device),
+                     _scale(q, softmax_scale))
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)

@@ -3,11 +3,13 @@
 :class:`DeepSpeedConfig` parses the keys the training engine of this slice
 implements: the batch triangle, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``bf16``, ``fp16``, ``fused_step``,
-``zero_optimization.stage`` (0 only), ``gradient_accumulation_steps`` and
-``steps_per_print``. A key the JAX config accepts but this port does not
-implement yet raises :class:`NotImplementedError` naming the slice of the
-port that brings it, instead of being accepted and ignored; a key neither
-knows raises :class:`DeepSpeedConfigError`.
+``zero_optimization.stage`` (0 only), ``gradient_accumulation_steps``,
+``steps_per_print`` and the ``sparse_attention`` section (handed to the
+model's ``with_sparse_attention`` hook by the engine). A key the JAX
+config accepts but this port does not implement yet raises
+:class:`NotImplementedError` naming the slice of the port that brings it,
+instead of being accepted and ignored; a key neither knows raises
+:class:`DeepSpeedConfigError`.
 """
 
 import json
@@ -41,7 +43,6 @@ UNPORTED = {
     "compression_training": _TRAINING_FEATURES,
     "quantize_training": _TRAINING_FEATURES,
     "eigenvalue": _TRAINING_FEATURES,
-    "sparse_attention": "the sparse-attention work of the model-zoo slice",
     "flops_profiler": _TRAINING_FEATURES,
     "amp": _TRAINING_FEATURES, "data_types": _TRAINING_FEATURES,
     "wall_clock_breakdown": "the telemetry slice",
@@ -64,7 +65,7 @@ SUPPORTED = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     C.GRADIENT_ACCUMULATION_STEPS, C.OPTIMIZER, C.SCHEDULER,
     C.GRADIENT_CLIPPING, C.FP16, C.BF16, C.BFLOAT16, C.ZERO_OPTIMIZATION,
-    C.FUSED_STEP, C.STEPS_PER_PRINT})
+    C.FUSED_STEP, C.STEPS_PER_PRINT, C.SPARSE_ATTENTION})
 
 
 def _resolve_batch_triangle(train_batch, micro_batch, gas, dp_world_size):
@@ -181,6 +182,9 @@ class DeepSpeedConfig:
         # fuse forward, backward and the optimizer update into the
         # engine's forward call (gradient_accumulation_steps == 1 only)
         self.fused_step = bool(d.get(C.FUSED_STEP, False))
+        # block-sparse attention section (mode, block, ...): the engine
+        # hands it to the model's with_sparse_attention hook
+        self.sparse_attention = d.get(C.SPARSE_ATTENTION)
 
         self.world_size = world_size or 1
 

@@ -24,3 +24,4 @@ BFLOAT16 = "bfloat16"  # accepted alias of "bf16"
 
 ZERO_OPTIMIZATION = "zero_optimization"
 FUSED_STEP = "fused_step"
+SPARSE_ATTENTION = "sparse_attention"

@@ -20,6 +20,10 @@ gradients arrive in fp32; the model computes in its own compute dtype.
 Nothing in it reads a device value on the host unless fp16 loss scaling
 asks for the overflow flag.
 
+A ``sparse_attention`` section swaps the model onto block-sparse
+attention through its ``with_sparse_attention`` hook (``:244-258``),
+which keeps the model's parameters: here they exist before the hook runs.
+
 Offload, the 1-bit optimizers, compression, MoQ, curriculum, PLD,
 telemetry hooks and the flops profiler are config keys that raise at
 parse time (``runtime/config.py``), naming their slice.
@@ -52,6 +56,19 @@ class DeepSpeedEngine:
         self.device = resolve_device(device)
         self.fp16_enabled_ = self._config.fp16.enabled
         self.bf16_enabled_ = self._config.bf16.enabled
+
+        if self._config.sparse_attention:
+            if hasattr(model, "with_sparse_attention"):
+                # the model keeps its parameters and routes its attention
+                # through the block-sparse layout zoo
+                model = model.with_sparse_attention(
+                    self._config.sparse_attention)
+            else:
+                logger.warning(
+                    "sparse_attention is configured but "
+                    f"{type(model).__name__} exposes no "
+                    "with_sparse_attention hook — training runs DENSE "
+                    "attention (BertForTraining supports the section)")
 
         # the model's parameters are the fp32 masters
         self.module = model.to(self.device)

@@ -16,6 +16,15 @@ No JAX import: the tree is plain nested dicts of numpy arrays.
 :func:`training_model_from_jax` builds the port's
 :class:`~deepspeed_tpu_torch.models.gpt2.GPT2ForTraining` on those weights
 (the JAX training engine's ``GPT2ForTraining`` has the same tree).
+
+:func:`bert_params_from_jax` does the same for the JAX BERT family
+(``BertForMaskedLM``, which ``BertForTraining`` trains, and
+``BertForSequenceClassification``): encoder layers under
+``bert/encoder/layers/layer`` with a leading layer axis (scanned) or under
+``bert/encoder/layer_<i>``; every Dense (``query``/``key``/``value``,
+``output_dense``, ``intermediate``, ``output``, ``transform``, the pooler
+and the classifier) becomes an ``nn.Linear``, every LayerNorm an
+``nn.LayerNorm``, and the tables and ``decoder_bias`` stay as they are.
 """
 
 import numpy as np
@@ -71,4 +80,55 @@ def training_model_from_jax(tree, config):
 
     model = GPT2ForTraining(config, device="meta")
     model.model.load_state_dict(params_from_jax(tree, config), assign=True)
+    return model
+
+
+def _flax_modules(node, prefix, sd, t):
+    """State-dict entries of a flax sub-tree: a Dense (``kernel``,
+    ``bias``) becomes ``<prefix>.weight`` ``[out, in]`` and ``.bias``, a
+    LayerNorm (``scale``, ``bias``) ``.weight`` and ``.bias``; a bare
+    array keeps its name."""
+    if not isinstance(node, dict):
+        sd[prefix] = t(node)
+    elif "kernel" in node:
+        sd[f"{prefix}.weight"] = t(node["kernel"]).T.contiguous()
+        sd[f"{prefix}.bias"] = t(node["bias"])
+    elif "scale" in node:
+        sd[f"{prefix}.weight"] = t(node["scale"])
+        sd[f"{prefix}.bias"] = t(node["bias"])
+    else:
+        for name, child in node.items():
+            _flax_modules(child, f"{prefix}.{name}" if prefix else name, sd,
+                          t)
+
+
+def bert_params_from_jax(tree, config) -> dict:
+    """State dict of the port's ``BertForMaskedLM`` (or
+    ``BertForSequenceClassification``, whose tree has ``pooler`` and
+    ``classifier``) — fp32 tensors on the CPU — from the JAX model's flax
+    params (``{"params": ...}`` or the bare tree)."""
+    tree = dict(tree.get("params", tree))
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    bert = dict(tree.pop("bert"))
+    encoder = bert.pop("encoder")
+    sd = {}
+    _flax_modules({"bert": bert, **tree}, "", sd, t)
+    for i in range(config.num_hidden_layers):
+        layer = (_index(encoder["layers"]["layer"], i)
+                 if "layers" in encoder else encoder[f"layer_{i}"])
+        _flax_modules(layer, f"bert.encoder.layers.{i}", sd, t)
+    return sd
+
+
+def bert_training_model_from_jax(tree, config):
+    """The port's ``BertForTraining(config)`` holding the JAX model's
+    weights (fp32, on the CPU; the engine moves them to its device)."""
+    from deepspeed_tpu_torch.models.bert import BertForTraining
+
+    model = BertForTraining(config, device="meta")
+    model.model.load_state_dict(bert_params_from_jax(tree, config),
+                                assign=True)
     return model

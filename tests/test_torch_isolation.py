@@ -2,7 +2,8 @@
 
 - ``import deepspeed_tpu_torch`` (every module of it) leaves ``jax`` and
   ``deepspeed_tpu`` out of ``sys.modules``, checked in a fresh process;
-- no file under the package imports either;
+- no file under the package imports either (the block-sparse modules
+  keep their own copy of the numpy ``sparsity_config``);
 - asking for the card without one raises; a tensor on a device the
   wrappers do not run on raises instead of taking the plain version;
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card
@@ -24,9 +25,16 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2ForTraining,
                                              GPT2LMHeadModel)
 from deepspeed_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_paged, decode_attention_paged_int8)
+from deepspeed_tpu_torch.models.bert import BertConfig, BertForTraining
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_dkv,
     flash_attention_bthd)
+from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
+    block_sparse_attention, block_sparse_backward_dkv,
+    block_sparse_backward_dq)
+from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
+    FixedSparsityConfig)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deepspeed_tpu_torch")
@@ -85,6 +93,11 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         deepspeed_tpu_torch.initialize(  # the training engine: the card
             model=GPT2ForTraining(GPT2Config.tiny(), device="meta"),
             config={"train_batch_size": 1})
+    with pytest.raises(RuntimeError, match="cuda"):
+        deepspeed_tpu_torch.initialize(  # sparse BERT training: the card
+            model=BertForTraining(BertConfig.tiny(), device="meta"),
+            config={"train_batch_size": 1,
+                    "sparse_attention": {"mode": "fixed", "block": 16}})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -108,6 +121,18 @@ def test_wrappers_never_fall_back_off_the_cpu():
         decode_attention_paged(q4, q4, q4, idx, idx)
     with pytest.raises(ValueError, match="cuda or cpu"):
         decode_attention_paged_int8(q4, q4, q4, q4, q4, idx, idx)
+    # the block-sparse wrappers, and SparseSelfAttention's kernel path
+    qs = torch.empty((1, 4, 256, 64), device="meta")
+    lses = torch.empty((1, 4, 256), device="meta")
+    layout = FixedSparsityConfig(num_heads=4, block=128).make_layout(256)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        block_sparse_attention(qs, qs, qs, layout)
+    for backward in (block_sparse_backward_dq, block_sparse_backward_dkv):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            backward(qs, qs, qs, qs, lses, lses, layout)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        SparseSelfAttention(FixedSparsityConfig(num_heads=4, block=128),
+                            max_seq_length=256)(qs, qs, qs)
 
 
 @pytest.mark.parametrize("alone", [False, True])
