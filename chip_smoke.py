@@ -5,16 +5,26 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the nine CUDA kernels from ``deepspeed_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once) and print the card;
+1. build the eleven CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all at once), print the card, each kernel's ptxas
+   registers and spills, and the count of HGMMA (``wgmma``) instructions
+   in the tensor-core forward's SASS (``cuobjdump -sass``): there must be
+   some, and no spills;
 2. hold each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at ragged ones, in bf16 and
    fp32 — the flash kernels also on ``[B, T, H, D]`` views through
-   ``flash_attention_bthd`` and non-causal at BERT's dense shape, the
+   ``flash_attention_bthd`` and non-causal at BERT's dense shape (the
+   forward also at Tq != Tk and head dims 16, 32 and 128, O within the
+   dtype's tolerance and lse within 1e-3; bf16 runs on the tensor cores,
+   fp32 on the CUDA cores), the
    paged kernels (bf16/fp32 and int8 pools) also at the verify (T_q = 5)
    and prefill-chunk (T_q = 256) shapes, the block-sparse kernels at the
    BERT slice's shape (fixed per-head layout, block 128, 2 x 16 x 4096)
-   and at bench_sparse.py's BigBird one (block 256, 1 x 12 x 8192) — and
+   and at bench_sparse.py's BigBird one (block 256, 1 x 12 x 8192); the
+   stochastic int8 quantizer (fp32) bit for bit at two seeds on GPT-2
+   125M's gradient shapes, a ragged one and zeros, with its rounding
+   checked against its contract (floor or floor + 1, the share rounded up
+   within 5 sigma of the mean fraction) — and
    time kernel, plain version and (where one exists) the PyTorch library
    call computing the same function (for block-sparse attention SDPA with
    the layout expanded to a boolean mask), beside the least time the card
@@ -67,7 +77,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and no flash kernel; then at 4 of the 24 layers (widths and sequence
    unchanged) the first 3 losses and the step-1 gradients against the
    plain versions; then the dense leg ("bert_dense": bench_bert.py's 64 x
-   128, no section, 3 steps) through the non-causal flash kernels.
+   128, no section; one warm-up and 5 timed steps: ms/step, tokens/s,
+   MFU) through the non-causal flash kernels.
 
 Phases 3, 4, 5, 6 and 7 are the main paths (6 and 7 in two legs each):
 each sets every launch count to 0 just before it runs and reads the counts
@@ -75,14 +86,18 @@ just after, before its comparison runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
 the card's name and power limit (``nvidia-smi``), and before that one
-JSON object with the twelve CUDA-backed rows of the kernel table (TPU
-kernels 1-12): each one's launches on each path, error, times and bound.
+JSON object with the 13 rows of the kernel table (TPU kernels 1-13; no
+path calls kernel 13, the quantizer, so its launches are 0): each one's
+launches on each path, error, times and bound.
 Without a card (``torch.cuda.is_available()`` false) it exits 2.
 """
 
 import argparse
+import collections
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -90,10 +105,13 @@ from unittest import mock
 
 import numpy as np
 
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                  "decode_append", "decode_paged", "decode_paged_int8",
-                  "block_sparse_fwd", "block_sparse_bwd_dq",
-                  "block_sparse_bwd_dkv")
+KERNEL_SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq",
+                  "flash_bwd_dkv", "decode_append", "decode_paged",
+                  "decode_paged_int8", "block_sparse_fwd",
+                  "block_sparse_bwd_dq", "block_sparse_bwd_dkv",
+                  "stochastic_quantize")
+# the tensor-core kernels, whose SASS must hold wgmma (HGMMA) instructions
+WGMMA_SOURCES = ("flash_fwd_sm90",)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -255,13 +273,28 @@ def shape_name(b, h, tq, tk, d, layout, causal=True):
 
 
 # flash forward: serving prefill shapes (B=1), the training shape (B=16)
-# in both layouts, a ragged [B, T, H, D] case, and BERT's dense leg
-# (bench_bert.py: B=64 T=128, 16 heads, non-causal); (B, H, T, layout,
-# causal)
-FWD_SHAPES = ((1, 12, 16, "bhtd", True), (1, 12, 100, "bhtd", True),
-              (1, 12, 1024, "bhtd", True), (16, 12, 1024, "bhtd", True),
-              (16, 12, 1024, "bthd", True), (2, 12, 100, "bthd", True),
-              (64, 16, 128, "bthd", False))
+# in both layouts, a ragged [B, T, H, D] case, Tq != Tk both ways (rows
+# that see no key), head dims 16, 32 and 128 alone (64 query rows a CTA)
+# and with 128 rows a CTA (B * H * ceil(Tq / 128) >= 132; at Tq = 50 the
+# second warpgroup of each CTA has no row), and BERT's dense leg last
+# (bench_bert.py: B=64 T=128, 16 heads, non-causal); (B, H, Tq, Tk, D,
+# layout, causal)
+FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
+              (1, 12, 100, 100, 64, "bhtd", True),
+              (1, 12, 1024, 1024, 64, "bhtd", True),
+              (16, 12, 1024, 1024, 64, "bhtd", True),
+              (16, 12, 1024, 1024, 64, "bthd", True),
+              (2, 12, 100, 100, 64, "bthd", True),
+              (2, 4, 37, 100, 64, "bhtd", True),
+              (2, 4, 100, 37, 64, "bthd", True),
+              (1, 2, 77, 77, 16, "bhtd", True),
+              (1, 2, 77, 77, 32, "bthd", True),
+              (1, 2, 77, 77, 128, "bhtd", True),
+              (8, 8, 256, 200, 16, "bhtd", True),
+              (8, 8, 300, 300, 32, "bthd", True),
+              (4, 16, 512, 512, 128, "bhtd", True),
+              (16, 12, 50, 80, 64, "bthd", True),
+              (64, 16, 128, 128, 64, "bthd", False))
 # the flash shapes that are timed: GPT-2 training's and BERT's dense leg
 TIMED_FLASH = ((16, 12, 1024), (64, 16, 128))
 # flash backward: the training shape in both layouts (timed), then ragged
@@ -287,13 +320,15 @@ def check_flash(dtype, gen):
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bthd, flash_attention_reference)
 
-    D, dt = 64, str(dtype)[6:]
+    dt = str(dtype)[6:]
     rows = []
-    for B, H, T, layout, causal in FWD_SHAPES:
-        q, k, v = (rand_heads(B, H, T, D, layout, dtype, gen)
-                   for _ in range(3))
-        name = shape_name(B, H, T, T, D, layout, causal)
+    for B, H, Tq, Tk, D, layout, causal in FWD_SHAPES:
+        q = rand_heads(B, H, Tq, D, layout, dtype, gen)
+        k, v = (rand_heads(B, H, Tk, D, layout, dtype, gen)
+                for _ in range(2))
+        name = shape_name(B, H, Tq, Tk, D, layout, causal)
         ro, rlse = flash_attention_reference(q, k, v, causal=causal)
+        o, lse = flash_attention(q, k, v, causal=causal)
         if layout == "bthd":  # through the [B, T, H, D] entry
             qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -304,23 +339,126 @@ def check_flash(dtype, gen):
         else:
             def kernel():
                 return flash_attention(q, k, v, causal=causal)
-
-            o, lse = kernel()
-            torch.cuda.synchronize()
-            lse_err = (lse - rlse).abs().max().item()
-            if lse_err > 1e-3:
-                raise AssertionError(f"flash {name} lse error {lse_err}")
         torch.cuda.synchronize()
+        lse_err = (lse - rlse).abs().max().item()
+        if lse_err > 1e-3:
+            raise AssertionError(f"flash {name} {dtype} lse error {lse_err}")
         err = compare(f"flash {name} {dtype}", o, ro, dt)
-        nbytes = 4 * B * H * T * D * q.element_size() + B * H * T * 4
-        flops = 4 * D * B * H * pairs(T, T, causal)
+        nbytes = (2 * B * H * (Tq + Tk) * D * q.element_size()
+                  + B * H * Tq * 4)
+        flops = 4 * D * B * H * pairs(Tq, Tk, causal)
+        # SDPA's causal mask is top-left aligned: the same function only
+        # where Tq == Tk
+        library = (None if causal and Tq != Tk else
+                   lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=causal))
         rows.append({
-            "shape": name, "max_abs_err": err,
+            "shape": name, "max_abs_err": err, "lse_err": lse_err,
             **times(kernel,
                     lambda: flash_attention_reference(q, k, v, causal),
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=causal)),
+                    library),
             **bound(nbytes, {dt: flops})})
+    return rows
+
+
+# the stochastic quantizer: fp32 gradients of GPT-2 125M's shapes (an MLP
+# weight's, the embedding's), a ragged one, all zeros (scale 1, codes 0)
+# and one holding a NaN (scale NaN, codes 0, as max|x| gives), each at two
+# seeds
+QUANT_SHAPES = (((3072, 768), "randn"), ((50257, 768), "randn"),
+                ((1000, 3), "randn"), ((3072, 768), "zeros"),
+                ((1000, 3), "nan"))
+# QUANT_SHAPES' row reported in the kernel line: the embedding's gradient
+QUANT_ROW = 1
+
+
+def check_stochastic_quantize(gen, seed):
+    """The quantizer kernel against its plain version, bit for bit (codes
+    and scale; a NaN scale on both sides for the NaN input), at
+    QUANT_SHAPES and two seeds; the two seeds' codes differ; every code is
+    floor(x / scale) or one above it (inside the clip); the share rounded
+    up is within 5 sigma of the mean of frac(x / scale). No PyTorch call
+    computes this function: library_ms is null. The bound is 4 B read and
+    1 B written an element."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantizer as qz
+
+    seeds = (2 * seed + 101, 2 * seed + 102)
+    rows = []
+    for shape, kind in QUANT_SHAPES:
+        if kind == "zeros":
+            x = torch.zeros(shape, device="cuda")
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda")
+        if kind == "nan":  # one NaN, inside the kernel's 16-element groups
+            x.view(-1)[1234] = float("nan")
+        name = f"{list(shape)}{'' if kind == 'randn' else ' ' + kind} fp32"
+        codes, shares, err = [], [], 0.0
+        for s in seeds:
+            q, scale = qz.stochastic_quantize(x, s)
+            rq, rscale = qz.stochastic_quantize_reference(x, s)
+            torch.cuda.synchronize()
+            code_err = (q.int() - rq.int()).abs().max().item()
+            if kind == "nan":
+                scale_ok = scale.isnan().item() and rscale.isnan().item()
+                scale_err = 0.0 if scale_ok else float("inf")
+            else:
+                scale_ok = (scale.view(torch.int32).item() ==
+                            rscale.view(torch.int32).item())
+                scale_err = (scale - rscale).abs().item()
+            err = max(err, code_err, scale_err)
+            if code_err or not scale_ok:
+                raise AssertionError(
+                    f"stochastic_quantize {name} seed {s}: kernel differs "
+                    f"from the plain version ({int((q != rq).sum())} codes, "
+                    f"scale {scale.item()} vs {rscale.item()})")
+            if kind == "nan":
+                if q.any():
+                    raise AssertionError(f"stochastic_quantize {name}: "
+                                         f"scale {scale.item()}, codes not 0")
+                continue
+            ratio = x / scale
+            lo = torch.floor(ratio)
+            if not ((q == lo.clamp(-128, 127)) |
+                    (q == (lo + 1).clamp(-128, 127))).all():
+                raise AssertionError(f"stochastic_quantize {name}: a code "
+                                     f"is not floor(x / scale) or one above")
+            if kind == "zeros":
+                if scale.item() != 1.0 or q.any():
+                    raise AssertionError(f"stochastic_quantize {name}: "
+                                         f"scale {scale.item()}, codes not 0")
+                continue
+            frac = (ratio - lo).double()
+            up = (q.double() == lo.double() + 1).double().mean().item()
+            want = frac.mean().item()
+            sigma = (frac * (1 - frac)).sum().sqrt().item() / x.numel()
+            if abs(up - want) > 5 * sigma:
+                raise AssertionError(
+                    f"stochastic_quantize {name} seed {s}: {up} of the "
+                    f"codes rounded up, expected {want} (5 sigma = "
+                    f"{5 * sigma})")
+            shares.append((round(up, 6), round(want, 6)))
+            codes.append(q)
+        if len(codes) == 2 and torch.equal(codes[0], codes[1]):
+            raise AssertionError(f"stochastic_quantize {name}: seeds {seeds}"
+                                 f" gave the same codes")
+
+        def kernel():
+            return qz.stochastic_quantize(x, seeds[0])
+
+        rows.append({
+            "shape": name, "max_abs_err": err, "seeds": list(seeds),
+            "rounded_up_vs_expected": shares,
+            # the plain version launches ~130 elementwise kernels a call:
+            # 4 calls keep the host's queue of launches from filling while
+            # the device spins
+            "ms": device_ms(kernel), "wrapper_ms": wrapper_ms(kernel),
+            "plain_ms": device_ms(
+                lambda: qz.stochastic_quantize_reference(x, seeds[0]), 4),
+            "library_ms": None, **bound(5 * x.numel(), {})})
+        del x, codes
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -656,8 +794,9 @@ def check_paged(dtype, gen, rng, int8=False):
 
 
 def phase_kernels(seed):
-    """Every kernel against its plain version, bf16 and fp32. Returns
-    {kernel: rows} for bf16 (the serving dtype)."""
+    """Every kernel against its plain version, bf16 and fp32 (the
+    quantizer fp32 only). Returns {kernel: rows} for bf16 (the serving
+    dtype) and the quantizer."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -678,6 +817,9 @@ def phase_kernels(seed):
                 log(f"kernel {name} {dtype} {json.dumps(row)}")
         if dtype == torch.bfloat16:
             out = res
+    out["stochastic_quantize"] = check_stochastic_quantize(gen, seed)
+    for row in out["stochastic_quantize"]:
+        log(f"kernel stochastic_quantize torch.float32 {json.dumps(row)}")
     return out
 
 
@@ -729,6 +871,7 @@ def kernel_wrappers():
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_paged, decode_attention_paged_int8)
+    from deepspeed_tpu_torch.ops.quantizer import stochastic_quantize
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_kernel as bs
 
@@ -740,7 +883,8 @@ def kernel_wrappers():
             "decode_paged_int8": decode_attention_paged_int8,
             "block_sparse_fwd": bs.block_sparse_attention,
             "block_sparse_bwd_dq": bs.block_sparse_backward_dq,
-            "block_sparse_bwd_dkv": bs.block_sparse_backward_dkv}
+            "block_sparse_bwd_dkv": bs.block_sparse_backward_dkv,
+            "stochastic_quantize": stochastic_quantize}
 
 
 def launch_counts():
@@ -1281,8 +1425,9 @@ def phase_training(seed, card):
 # forward, dQ and dK/dV once a layer, the forward saved by the dots policy,
 # no flash); the kernel-vs-plain comparison at BERT_PLAIN_LAYERS of the 24
 # layers (widths and sequence unchanged: the plain versions' [B, H, S, S]
-# fp32 scores take 2.1 GB a tensor); 3 steps of the dense leg
-BERT_WARMUP, BERT_STEPS, BERT_DENSE_STEPS = 3, 5, 3
+# fp32 scores take 2.1 GB a tensor); one warm-up and 5 timed steps of the
+# dense leg
+BERT_WARMUP, BERT_STEPS, BERT_DENSE_STEPS = 3, 5, 5
 BERT_PLAIN_LAYERS = 4
 # the largest key-bias gradient norm, in either path, as a share of the
 # same layer's query-bias gradient norm in the plain path: the key biases'
@@ -1435,20 +1580,27 @@ def phase_bert(seed, card):
     dense = bert_engine(bert_model(seed, sparse=False), sparse=False)
     dense_batch = bert_batch(cfg.vocab_size, seed, dense.device,
                              sparse=False)
-    torch.cuda.synchronize()
+    dense_warm, _ = timed_steps(dense, dense_batch, 1)
     reset_launch_counts()
     dense_losses, dense_secs = timed_steps(dense, dense_batch,
                                            BERT_DENSE_STEPS)
     dense_counts = launch_counts()
+    dense_losses = dense_warm + dense_losses
     check_losses("bert dense", dense_losses, log_v)
     check_per_step("bert dense", dense_counts, BERT_DENSE_STEPS, {
         "flash_fwd": n_layer, "flash_bwd_dq": n_layer,
         "flash_bwd_dkv": n_layer, "block_sparse_fwd": 0,
         "block_sparse_bwd_dq": 0, "block_sparse_bwd_dkv": 0})
+    dense_tokens_per_s = (BERT_DENSE_STEPS * BERT_DENSE_SHAPE[0]
+                          * BERT_DENSE_SHAPE[1] / dense_secs)
+    dense_mfu = dense_tokens_per_s * bert_flops_per_token(
+        dense.module, BERT_DENSE_SHAPE[1], 1.0) / PEAK_BF16_FLOPS
     log(f"bert dense: BERT-large, batch {BERT_DENSE_SHAPE[0]} x "
-        f"{BERT_DENSE_SHAPE[1]}, non-causal flash kernels; "
-        f"{BERT_DENSE_STEPS} steps (the first one warm-up included) in "
-        f"{dense_secs:.3f} s; losses {[round(x, 4) for x in dense_losses]}; "
+        f"{BERT_DENSE_SHAPE[1]}, non-causal flash kernels; one warm-up "
+        f"step, then {BERT_DENSE_STEPS} steps in {dense_secs:.3f} s "
+        f"({1e3 * dense_secs / BERT_DENSE_STEPS:.1f} ms/step, "
+        f"{dense_tokens_per_s:.0f} tokens/s, MFU {dense_mfu:.4f} of 989 "
+        f"TF/s); losses {[round(x, 4) for x in dense_losses]}; "
         f"launches per step "
         f"{ {k: v / BERT_DENSE_STEPS for k, v in dense_counts.items() if v} }"
         f" [{card}]")
@@ -1457,77 +1609,119 @@ def phase_bert(seed, card):
     return sparse_counts, dense_counts
 
 
-# the twelve TPU kernels with a CUDA port, rows 1-12 of PERF.md's table:
-# name: (source, TPU kernel it replaces, the path whose count is
-# "launches", the port kernel's name in the checks and in the counts, the
-# row of its checks reported: the flash kernels at GPT-2's training shape
-# (B=16 H=12 T=1024 D=64), append decode at idx=1000 T_q=1, the paged
-# kernels at T_q=1, the block-sparse kernels at the BERT slice's shape).
-# Rows 4-6 are kernels 1-3 through the [B, T, H, D] views every training
-# path hands them (one wrapper and count serve both layouts); the
-# non-causal rows of kernels 1-3 are BERT's dense leg
+# the thirteen TPU kernels, rows 1-13 of PERF.md's table, each with: its
+# port source, the TPU kernel it replaces, the path whose count is
+# "launches" (None: no path calls it, and "launches" sums every path's),
+# the port kernel's name in the checks and in the counts, the row of its
+# checks reported (the flash kernels at GPT-2's training shape, B=16 H=12
+# T=1024 D=64; append decode at idx=1000 T_q=1; the paged kernels at
+# T_q=1; the block-sparse kernels at the BERT slice's shape; the quantizer
+# at the embedding gradient's), the dtype of that row, the row keys
+# listed for every timed row of its checks (None: no list), whether the
+# non-causal row (BERT's dense leg, the checks' last) is reported, and the
+# source of its fp32 variant where that differs. Rows 4-6 are kernels 1-3
+# through the [B, T, H, D] views every training path hands them (one
+# wrapper and count serve both layouts)
+Kernel = collections.namedtuple(
+    "Kernel", "source replaces path port row dtype rows noncausal "
+    "fp32_source", defaults=("bfloat16", None, False, None))
 _FLASH = "deepspeed_tpu/ops/flash_attention.py"
 _DECODE = "deepspeed_tpu/ops/decode_attention.py"
 _SPARSE = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
 KERNEL_TABLE = {
-    "flash_fwd": ("flash_fwd.cu", f"{_FLASH}:77", "training", "flash_fwd",
-                  3),
-    "flash_bwd_dq": ("flash_bwd_dq.cu", f"{_FLASH}:196", "training",
-                     "flash_bwd_dq", 0),
-    "flash_bwd_dkv": ("flash_bwd_dkv.cu", f"{_FLASH}:252", "training",
-                      "flash_bwd_dkv", 0),
-    "flash_fwd_bthd": ("flash_fwd.cu", f"{_FLASH}:504", "training",
-                       "flash_fwd", 4),
-    "flash_bwd_dq_bthd": ("flash_bwd_dq.cu", f"{_FLASH}:509", "training",
-                          "flash_bwd_dq", 1),
-    "flash_bwd_dkv_bthd": ("flash_bwd_dkv.cu", f"{_FLASH}:516", "training",
-                           "flash_bwd_dkv", 1),
-    "decode_append": ("decode_append.cu", f"{_DECODE}:39", "generate",
-                      "decode_append", 2),
-    "decode_paged": ("decode_paged.cu", f"{_DECODE}:194", "serving",
-                     "decode_paged", 0),
-    "decode_paged_int8": ("decode_paged_int8.cu", f"{_DECODE}:319",
-                          "fast_path", "decode_paged_int8", 0),
-    "block_sparse_fwd": ("block_sparse_fwd.cu", f"{_SPARSE}:79",
-                         "bert_sparse", "block_sparse_fwd", 0),
-    "block_sparse_bwd_dq": ("block_sparse_bwd_dq.cu", f"{_SPARSE}:175",
-                            "bert_sparse", "block_sparse_bwd_dq", 0),
-    "block_sparse_bwd_dkv": ("block_sparse_bwd_dkv.cu", f"{_SPARSE}:214",
-                             "bert_sparse", "block_sparse_bwd_dkv", 0),
+    "flash_fwd": Kernel("flash_fwd_sm90.cu", f"{_FLASH}:77", "training",
+                        "flash_fwd", 3, rows=("lse_err",), noncausal=True,
+                        fp32_source="flash_fwd.cu"),
+    "flash_bwd_dq": Kernel("flash_bwd_dq.cu", f"{_FLASH}:196", "training",
+                           "flash_bwd_dq", 0, noncausal=True),
+    "flash_bwd_dkv": Kernel("flash_bwd_dkv.cu", f"{_FLASH}:252", "training",
+                            "flash_bwd_dkv", 0, noncausal=True),
+    "flash_fwd_bthd": Kernel("flash_fwd_sm90.cu", f"{_FLASH}:504",
+                             "training", "flash_fwd", 4,
+                             fp32_source="flash_fwd.cu"),
+    "flash_bwd_dq_bthd": Kernel("flash_bwd_dq.cu", f"{_FLASH}:509",
+                                "training", "flash_bwd_dq", 1),
+    "flash_bwd_dkv_bthd": Kernel("flash_bwd_dkv.cu", f"{_FLASH}:516",
+                                 "training", "flash_bwd_dkv", 1),
+    "decode_append": Kernel("decode_append.cu", f"{_DECODE}:39", "generate",
+                            "decode_append", 2),
+    "decode_paged": Kernel("decode_paged.cu", f"{_DECODE}:194", "serving",
+                           "decode_paged", 0, rows=()),
+    "decode_paged_int8": Kernel("decode_paged_int8.cu", f"{_DECODE}:319",
+                                "fast_path", "decode_paged_int8", 0,
+                                rows=()),
+    "block_sparse_fwd": Kernel("block_sparse_fwd.cu", f"{_SPARSE}:79",
+                               "bert_sparse", "block_sparse_fwd", 0,
+                               rows=()),
+    "block_sparse_bwd_dq": Kernel("block_sparse_bwd_dq.cu", f"{_SPARSE}:175",
+                                  "bert_sparse", "block_sparse_bwd_dq", 0,
+                                  rows=()),
+    "block_sparse_bwd_dkv": Kernel("block_sparse_bwd_dkv.cu",
+                                   f"{_SPARSE}:214", "bert_sparse",
+                                   "block_sparse_bwd_dkv", 0, rows=()),
+    "stochastic_quantize": Kernel("stochastic_quantize.cu",
+                                  "deepspeed_tpu/ops/quantizer.py:141", None,
+                                  "stochastic_quantize", QUANT_ROW,
+                                  dtype="float32", rows=()),
 }
-# the flash kernels' non-causal row (BERT's dense leg, bench_bert.py's
-# shape): the last row of their checks
-NONCAUSAL_ROW = -1
 
 
 def kernel_line(kernel_rows, by_path):
-    """The ``{"kernels": [...]}`` entries: every CUDA-backed row of the
-    kernel table with its launches on its path and on every path, its
-    largest error over all checked shapes, and the times and bound of its
-    reported row (bf16)."""
+    """The ``{"kernels": [...]}`` entries: every row of the kernel table
+    with its launches on its path (summed over every path where no path
+    calls it) and on every path, its largest error over all checked
+    shapes, and the times and bound of its reported row, as
+    KERNEL_TABLE's columns ask."""
     keys = ("shape", "ms", "wrapper_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
+    src = "deepspeed_tpu_torch/csrc/"
     out = []
-    for name, (source, replaces, path, port, row_i) in KERNEL_TABLE.items():
-        rows = kernel_rows[port]
-        row = rows[row_i]
+    for name, k in KERNEL_TABLE.items():
+        rows = kernel_rows[k.port]
+        row = rows[k.row]
+        counts = {p: c[k.port] for p, c in by_path.items()}
         entry = {
-            "name": name, "route": "cuda",
-            "source": f"deepspeed_tpu_torch/csrc/{source}",
-            "replaces": replaces, "path": path,
-            "launches": by_path[path][port],
-            "launches_by_path": {p: c[port] for p, c in by_path.items()},
+            "name": name, "route": "cuda", "source": src + k.source,
+            "replaces": k.replaces, "path": k.path,
+            "launches": counts[k.path] if k.path else sum(counts.values()),
+            "launches_by_path": counts,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: row[k] for k in keys if k != "shape"},
-            "shape": row["shape"], "dtype": "bfloat16"}
-        if name.startswith("decode_paged") or name.startswith("block_sp"):
-            entry["rows"] = [{k: r[k] for k in keys if k in r}
-                             for r in rows if "ms" in r]
-        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            nc = rows[NONCAUSAL_ROW]
-            entry["noncausal"] = {k: nc[k] for k in keys}
+            **{key: row[key] for key in keys if key != "shape"},
+            "shape": row["shape"], "dtype": k.dtype}
+        if k.fp32_source:
+            entry["fp32_source"] = src + k.fp32_source
+        if k.noncausal:
+            entry["noncausal"] = {key: rows[-1][key] for key in keys}
+        if k.rows is not None:
+            entry["rows"] = [{key: r[key] for key in keys + k.rows
+                              if key in r} for r in rows if "ms" in r]
         out.append(entry)
     return out
+
+
+def check_builds(builder):
+    """Logs each kernel's ptxas registers and spills, and each
+    tensor-core kernel's count of HGMMA (wgmma) instructions in its SASS:
+    there must be some, and no spills."""
+    for name, out in builder.build_logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "setmaxnreg" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(builder.nvcc_path()),
+                             "cuobjdump")
+    for name in WGMMA_SOURCES:
+        sass = subprocess.run(
+            [cuobjdump, "-sass", builder.library_path(name)],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        log(f"  {name}: {hgmma} HGMMA instructions in the SASS")
+        if hgmma == 0:
+            raise AssertionError(f"{name}: no HGMMA instruction in the SASS")
+        spills = [line.strip() for line in
+                  builder.build_logs.get(name, "").splitlines()
+                  if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+        if spills:
+            raise AssertionError(f"{name}: ptxas spills: {spills}")
 
 
 def main():
@@ -1555,10 +1749,7 @@ def main():
     builder.build(KERNEL_SOURCES)
     log(f"phase 1: built {KERNEL_SOURCES} in "
         f"{time.perf_counter() - t0:.1f} s into {builder.BUILD_DIR}")
-    for name, out in builder.build_logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    check_builds(builder)
 
     t0 = time.perf_counter()
     kernel_rows = phase_kernels(args.seed)

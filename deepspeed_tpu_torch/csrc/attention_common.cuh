@@ -1,7 +1,7 @@
 // Shared helpers of the port's attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu, decode_append.cu, decode_paged.cu,
-// decode_paged_int8.cu, block_sparse_fwd.cu, block_sparse_bwd_dq.cu,
-// block_sparse_bwd_dkv.cu):
+// flash_fwd_sm90.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, decode_append.cu,
+// decode_paged.cu, decode_paged_int8.cu, block_sparse_fwd.cu,
+// block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu):
 // element conversions, the rounding point of the TPU kernels, strides
 // passed by value, and vector loads.
 #pragma once

@@ -1,24 +1,24 @@
-// Flash attention forward for Hopper (sm_90a), plain CUDA C++.
+// Flash attention forward for Hopper (sm_90a), plain CUDA C++, fp32.
 //
 // Replaces the TPU kernel _fwd_kernel (deepspeed_tpu/ops/flash_attention.py:77,
-// launched by _flash_forward at :174): causal online-softmax attention with
-// the bottom-right mask (row i sees keys <= i + Tk - Tq), fp32 running max m,
-// sum l and accumulator, O written in the input dtype and lse = m + log(l)
-// in fp32. Fully masked rows (Tk < Tq) get p = 0 and O = 0, and l == 0
-// divides safely, as the TPU kernel does.
+// launched by _flash_forward at :174) for fp32 inputs; bf16 runs on the
+// tensor cores in flash_fwd_sm90.cu, which would round fp32 operands to
+// TF32. Causal online-softmax attention with the bottom-right mask (row i
+// sees keys <= i + Tk - Tq), fp32 running max m, sum l and accumulator, O
+// written in the input dtype and lse = m + log(l) in fp32. Fully masked
+// rows (Tk < Tq) get p = 0 and O = 0, and l == 0 divides safely, as the
+// TPU kernel does.
 //
-// What bounds it on the H100: at serving prefill shapes (T <= 1024, D = 64)
-// the work is ~4*T*T*D/2 flops per (batch, head) against ~4*T*D*2 bytes, far
-// above the 295 flop/byte ridge, so the bound is the tensor cores' 989 TF/s.
-// This first version does the products on the fp32 CUDA cores from shared
-// memory, so shared-memory load bandwidth, not the tensor cores, limits it
-// (PERF.md carries its time beside the bound). Design: one block of 128
-// threads per (batch*head, 64-row query tile); it loops over 64-key tiles
-// up to the causal limit only, staging K transposed and V in shared memory
-// as fp32 so the inner loops read 16-byte vectors. A pair of threads owns
+// What bounds it on the H100: the fp32 products, at 67 TF/s outside the
+// tensor cores (GPT-2's training shape: 0.385 ms). This version does them
+// on the CUDA cores from shared memory, so shared-memory load bandwidth
+// limits it (PERF.md carries its time beside the bound). Design: one block
+// of 128 threads per (batch*head, 64-row query tile); it loops over 64-key
+// tiles up to the causal limit only, staging K transposed and V in shared
+// memory so the inner loops read 16-byte vectors. A pair of threads owns
 // one query row: each scores 32 keys of the tile, the pair exchanges its
 // row max and sum with one shuffle, and each accumulates half of the head
-// dim. wgmma/TMA tiling is the follow-up that moves it to the tensor cores.
+// dim.
 //
 // Takes any T (ragged tiles are masked) and explicit strides for q, k, v, o
 // (last dim contiguous), so the [B, T, H, D] layout (TPU kernel 4) can reuse
@@ -208,22 +208,19 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Returns the cudaGetLastError() code of the launch (0 = launched).
+// fp32 q, k, v, o; returns the cudaGetLastError() code of the launch (0 =
+// launched).
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int is_bf16, int B, int H,
-                            int Tq, int Tk, int D, long long q_sb,
-                            long long q_sh, long long q_st, long long k_sb,
-                            long long k_sh, long long k_st, long long v_sb,
-                            long long v_sh, long long v_st, long long o_sb,
-                            long long o_sh, long long o_st, float scale,
-                            int causal, void* stream) {
+                            void* o, void* lse, int B, int H, int Tq, int Tk,
+                            int D, long long q_sb, long long q_sh,
+                            long long q_st, long long k_sb, long long k_sh,
+                            long long k_st, long long v_sb, long long v_sh,
+                            long long v_st, long long o_sb, long long o_sh,
+                            long long o_st, float scale, int causal,
+                            void* stream) {
   const long long st[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
                             v_sb, v_sh, v_st, o_sb, o_sh, o_st};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, l, B, H, Tq, Tk, D, st,
-                                     scale, causal, s);
-  return dispatch_d<float>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, causal,
-                           s);
+  return dispatch_d<float>(q, k, v, o, static_cast<float*>(lse), B, H, Tq,
+                           Tk, D, st, scale, causal,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,16 @@
 """Flash attention forward and backward on the card (counterpart of
 ``deepspeed_tpu/ops/flash_attention.py``).
 
-Three hand-written CUDA kernels replace the TPU kernels of the JAX module:
+Hand-written CUDA kernels replace the TPU kernels of the JAX module:
 
-- ``csrc/flash_fwd.cu`` for ``_fwd_kernel`` (``:77``, launched at ``:174``):
-  causal online-softmax attention with the bottom-right mask ``off = Tk -
-  Tq``, returning O in the input dtype and the fp32 logsumexp;
+- for ``_fwd_kernel`` (``:77``, launched at ``:174``), causal or not
+  online-softmax attention with the bottom-right mask ``off = Tk - Tq``,
+  returning O in the input dtype and the fp32 logsumexp: bf16 runs on
+  the tensor cores (``csrc/flash_fwd_sm90.cu``: TMA loads, ``wgmma``,
+  warp-specialised; q, k and v reach it through tensor maps, so their
+  views must keep TMA's 16-byte rule, :func:`tma_view_error`), fp32 on
+  the CUDA cores (``csrc/flash_fwd.cu``: the tensor cores would round it
+  to TF32);
 - ``csrc/flash_bwd_dq.cu`` for ``_bwd_dq_kernel`` (``:196`` · ``:336``):
   dQ by query tiles;
 - ``csrc/flash_bwd_dkv.cu`` for ``_bwd_dkv_kernel`` (``:252`` · ``:355``):
@@ -41,11 +46,15 @@ from deepspeed_tpu_torch.ops.op_builder import load
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
+# ds_flash_fwd_sm90's return codes from here up: a tensor map that
+# cuTensorMapEncodeTiled refused (10000 + its CUresult)
+_TENSOR_MAP_ERROR = 10000
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIG_FWD = {"ds_flash_fwd": (
-    [_PTR] * 5 + [_INT] * 6 + [_I64] * 12 + [ctypes.c_float, _INT, _PTR],
-    _INT)}
+# the two forward kernels, ds_flash_fwd (fp32) and ds_flash_fwd_sm90
+# (bf16), take the same arguments
+_FWD_ARGS = ([_PTR] * 5 + [_INT] * 5 + [_I64] * 12
+             + [ctypes.c_float, _INT, _PTR], _INT)
 _SIG_DQ = {"ds_flash_bwd_dq": (
     [_PTR] * 7 + [_INT] * 6 + [_PTR, ctypes.c_float, _INT, _PTR], _INT)}
 _SIG_DKV = {"ds_flash_bwd_dkv": (
@@ -198,21 +207,65 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def tma_view_error(shape, strides, itemsize, data_ptr):
+    """Why TMA cannot address a ``[B, H, T, D]`` view, or None. A tensor
+    map needs a 16-byte aligned base, a contiguous last dim whose rows are
+    a multiple of 16 bytes, and every other stride a multiple of 16 bytes
+    (and below 2^40); a dim of size 1 is never stepped, so its stride does
+    not count. ``strides`` are in elements, as ``Tensor.stride()``."""
+    if strides[-1] != 1:
+        return f"last dim not contiguous (strides {tuple(strides)})"
+    if (shape[-1] * itemsize) % 16:
+        return f"rows of {shape[-1] * itemsize} bytes, not a multiple of 16"
+    if data_ptr % 16:
+        return f"base address {data_ptr:#x} not 16-byte aligned"
+    for size, stride in zip(shape[:-1], strides[:-1]):
+        nbytes = stride * itemsize
+        if size > 1 and (nbytes % 16 or not 0 < nbytes < 2 ** 40):
+            return (f"stride of {nbytes} bytes (strides {tuple(strides)}) not"
+                    f" a positive multiple of 16 below 2^40")
+    return None
+
+
+def _tma_strides(t):
+    """(batch, head, token) element strides of a TMA-checked view, each
+    dim of size 1 given its head-dim row (never stepped, but the tensor
+    map wants a multiple of 16 bytes)."""
+    return [st if n > 1 else t.shape[-1]
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
 def _fwd_launch(q, k, v, causal, scale):
-    """Launch ``csrc/flash_fwd.cu``: ``(o, lse)``, o in q's layout."""
+    """Launch the forward kernel, ``csrc/flash_fwd_sm90.cu`` for bf16 and
+    ``csrc/flash_fwd.cu`` for fp32: ``(o, lse)``, o in q's layout."""
     b, h, tq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if tq == 0:
         return o, lse
-    lib = load("flash_fwd", _SIG_FWD)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    err = lib.ds_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, tq,
-        k.shape[2], d, *strides, float(scale), int(causal), _stream(q))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            why = tma_view_error(t.shape, t.stride(), t.element_size(),
+                                 t.data_ptr())
+            if why is not None:
+                raise ValueError(f"flash forward (bf16, TMA): {name} view "
+                                 f"{tuple(t.shape)}: {why}")
+        source = "flash_fwd_sm90"
+        strides = ([s for t in (q, k, v) for s in _tma_strides(t)]
+                   + list(o.stride()[:3]))
+    else:
+        source = "flash_fwd"
+        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    fn = getattr(load(source, {f"ds_{source}": _FWD_ARGS}), f"ds_{source}")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), b, h, tq, k.shape[2], d, *strides, float(scale),
+             int(causal), _stream(q))
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{source}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (CUresult "
+                           f"{err - _TENSOR_MAP_ERROR})")
     if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention.launches += 1
     return o, lse

@@ -56,14 +56,15 @@ SYSTEM_LEN = 384
 FAST_TAILS = (8, 40, 100, 230, 400, 555)
 COW_EXTEND = (3, 5)
 # the port's kernels (csrc/*.cu), by kernel name
-OUR_KERNELS = ("flash_fwd_kernel", "decode_append_kernel",
-               "decode_paged_kernel", "decode_paged_int8_kernel")
+OUR_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
+               "decode_append_kernel", "decode_paged_kernel",
+               "decode_paged_int8_kernel")
 # kernel families of the fast path's device-time breakdown, by lower-case
 # fragment of the kernel name (the first family that matches takes it)
 FAMILIES = (
     ("decode_paged_int8_kernel", ("decode_paged_int8_kernel",)),
     ("decode_paged_kernel", ("decode_paged_kernel",)),
-    ("flash_fwd_kernel", ("flash_fwd_kernel",)),
+    ("flash_fwd_kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("quantize-on-write (abs, amax, ==, /, where, round, clamp)",
      ("absfunctor", "maxops", "compareeq", "divfunctor", "where_kernel",

@@ -88,7 +88,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense (NVIDIA data sheet)
 # kernel families of the device-time breakdown, by lower-case fragment of
 # the kernel name (the first family that matches takes the kernel)
 FAMILIES = (
-    ("flash forward", ("flash_fwd_kernel",)),
+    ("flash forward", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("flash dQ", ("flash_bwd_dq_kernel",)),
     ("flash dK/dV", ("flash_bwd_dkv_kernel",)),
     ("block-sparse forward", ("block_sparse_fwd_kernel",)),

@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.models.bert import BertConfig, BertForTraining
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_dkv,
     flash_attention_bthd)
+from deepspeed_tpu_torch.ops.quantizer import stochastic_quantize
 from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
     block_sparse_attention, block_sparse_backward_dkv,
@@ -133,6 +134,9 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="cuda or cpu"):
         SparseSelfAttention(FixedSparsityConfig(num_heads=4, block=128),
                             max_seq_length=256)(qs, qs, qs)
+    # the stochastic quantizer (a stand-alone op: no path calls it)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        stochastic_quantize(torch.empty((4, 4), device="meta"), 0)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -31,7 +31,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (
 from deepspeed_tpu_torch.ops.flash_attention import (
     attention_delta, flash_attention, flash_attention_backward,
     flash_attention_backward_dkv, flash_attention_backward_reference,
-    flash_attention_bthd)
+    flash_attention_bthd, tma_view_error)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -81,6 +81,47 @@ def test_dispatch_cpu_takes_the_reference():
         _close(attention(*t, causal=causal),
                jax_attention_reference(*map(jnp.asarray, (q, k, v)),
                                        causal=causal))
+
+
+def _views(kind):
+    """q, k, v as the port hands them to the bf16 forward kernel."""
+    B, H, T, D = 2, 3, 10, 64
+    if kind == "bhtd":
+        return [torch.empty((B, H, T, D), dtype=torch.bfloat16)
+                for _ in range(3)]
+    if kind == "bthd":  # flash_attention_bthd's transposed views
+        return [torch.empty((B, T, H, D), dtype=torch.bfloat16)
+                .transpose(1, 2) for _ in range(3)]
+    # GPT-2's fused projection: [B, T, 3C] split into q, k, v
+    fused = torch.empty((B, T, 3 * H * D), dtype=torch.bfloat16)
+    return [t.view(B, T, H, D).transpose(1, 2)
+            for t in fused.split(H * D, dim=-1)]
+
+
+@pytest.mark.parametrize("kind", ["bhtd", "bthd", "fused_qkv"])
+def test_tma_rule_accepts_the_ports_views(kind):
+    for t in _views(kind):
+        assert tma_view_error(t.shape, t.stride(), t.element_size(),
+                              t.data_ptr()) is None
+
+
+@pytest.mark.parametrize("case", ["row_stride", "base", "last_dim", "width"])
+def test_tma_rule_refuses_misaligned_views(case):
+    """A view TMA cannot address is refused with its reason: a token
+    stride of 65 elements (130 bytes), a base 2 bytes past alignment, a
+    strided last dim, rows of 4 bf16 values (8 bytes)."""
+    shape, strides, ptr = (2, 3, 10, 64), (3 * 10 * 64, 10 * 64, 64, 1), 0
+    if case == "row_stride":
+        strides = (3 * 10 * 65, 10 * 65, 65, 1)
+    elif case == "base":
+        ptr = 2
+    elif case == "last_dim":
+        strides = (2 * 3 * 10 * 64, 2 * 10 * 64, 2 * 64, 2)
+    else:
+        shape, strides = (2, 3, 10, 4), (120, 40, 4, 1)
+    assert tma_view_error(shape, strides, 2, ptr) is not None
+    # a dim of size 1 is never stepped: its stride does not count
+    assert tma_view_error((1, 3, 10, 64), (7, 640, 64, 1), 2, 0) is None
 
 
 # ---------------------------------------------------------------------------
