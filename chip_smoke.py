@@ -5,18 +5,21 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the eleven CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
+1. build the thirteen CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once), print the card, each kernel's ptxas
-   registers and spills, and the count of HGMMA (``wgmma``) instructions
-   in the tensor-core forward's SASS (``cuobjdump -sass``): there must be
-   some, and no spills;
+   registers and spills (for the three tensor-core sources, the bf16
+   flash forward, dQ and dK/dV, by template instance: head dim and
+   warpgroups), and the count of HGMMA (``wgmma``) instructions in each
+   tensor-core source's SASS (``cuobjdump -sass``): there must be some,
+   and no spills;
 2. hold each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at ragged ones, in bf16 and
    fp32 — the flash kernels also on ``[B, T, H, D]`` views through
    ``flash_attention_bthd`` and non-causal at BERT's dense shape (the
    forward also at Tq != Tk and head dims 16, 32 and 128, O within the
-   dtype's tolerance and lse within 1e-3; bf16 runs on the tensor cores,
-   fp32 on the CUDA cores), the
+   dtype's tolerance and lse within 1e-3; the backward also at B=1
+   (64 rows a CTA), D=128 over several tiles and T=16; in bf16 the three
+   flash kernels run on the tensor cores, in fp32 on the CUDA cores), the
    paged kernels (bf16/fp32 and int8 pools) also at the verify (T_q = 5)
    and prefill-chunk (T_q = 256) shapes, the block-sparse kernels at the
    BERT slice's shape (fixed per-head layout, block 128, 2 x 16 x 4096)
@@ -105,13 +108,13 @@ from unittest import mock
 
 import numpy as np
 
-KERNEL_SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq",
-                  "flash_bwd_dkv", "decode_append", "decode_paged",
-                  "decode_paged_int8", "block_sparse_fwd",
-                  "block_sparse_bwd_dq", "block_sparse_bwd_dkv",
-                  "stochastic_quantize")
+KERNEL_SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq_sm90",
+                  "flash_bwd_dq", "flash_bwd_dkv_sm90", "flash_bwd_dkv",
+                  "decode_append", "decode_paged", "decode_paged_int8",
+                  "block_sparse_fwd", "block_sparse_bwd_dq",
+                  "block_sparse_bwd_dkv", "stochastic_quantize")
 # the tensor-core kernels, whose SASS must hold wgmma (HGMMA) instructions
-WGMMA_SOURCES = ("flash_fwd_sm90",)
+WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -298,8 +301,10 @@ FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
 # the flash shapes that are timed: GPT-2 training's and BERT's dense leg
 TIMED_FLASH = ((16, 12, 1024), (64, 16, 128))
 # flash backward: the training shape in both layouts (timed), then ragged
-# and offset cases and the other head dims; (B, H, Tq, Tk, D, layout,
-# causal)
+# and offset cases, B=1 at T=1024 (64 rows a CTA on the tensor cores),
+# the other head dims (D=128 over several tiles with 128 rows a CTA), a
+# short causal case, and BERT's dense leg last (timed); (B, H, Tq, Tk, D,
+# layout, causal)
 BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (16, 12, 1024, 1024, 64, "bthd", True),
               (2, 12, 100, 100, 64, "bhtd", True),
@@ -307,9 +312,13 @@ BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (2, 4, 37, 100, 64, "bhtd", True),
               (2, 4, 100, 37, 64, "bhtd", True),
               (2, 4, 64, 100, 64, "bhtd", False),
+              (1, 12, 1024, 1024, 64, "bhtd", True),
               (1, 2, 77, 77, 16, "bhtd", True),
               (1, 2, 77, 77, 32, "bthd", True),
               (1, 2, 77, 77, 128, "bhtd", True),
+              (4, 16, 512, 512, 128, "bhtd", True),
+              (8, 8, 300, 300, 32, "bthd", True),
+              (1, 2, 16, 16, 64, "bhtd", True),
               (64, 16, 128, 128, 64, "bthd", False))
 
 
@@ -538,6 +547,10 @@ def check_flash_bwd(dtype, gen):
                 lambda: fa.flash_attention_backward_dkv(*args),
                 lambda: fa.flash_attention_backward_dkv_reference(*args),
                 library))
+            # like with like: SDPA's backward computes dQ, dK and dV at once
+            log(f"flash backward {name} {dtype}: dq + dkv "
+                f"{dq_row['ms'] + dkv_row['ms']:.4f} ms, SDPA backward "
+                f"{dkv_row['library_ms']:.4f} ms")
             del lo
         dq_rows.append(dq_row)
         dkv_rows.append(dkv_row)
@@ -1632,17 +1645,21 @@ KERNEL_TABLE = {
     "flash_fwd": Kernel("flash_fwd_sm90.cu", f"{_FLASH}:77", "training",
                         "flash_fwd", 3, rows=("lse_err",), noncausal=True,
                         fp32_source="flash_fwd.cu"),
-    "flash_bwd_dq": Kernel("flash_bwd_dq.cu", f"{_FLASH}:196", "training",
-                           "flash_bwd_dq", 0, noncausal=True),
-    "flash_bwd_dkv": Kernel("flash_bwd_dkv.cu", f"{_FLASH}:252", "training",
-                            "flash_bwd_dkv", 0, noncausal=True),
+    "flash_bwd_dq": Kernel("flash_bwd_dq_sm90.cu", f"{_FLASH}:196",
+                           "training", "flash_bwd_dq", 0, noncausal=True,
+                           fp32_source="flash_bwd_dq.cu"),
+    "flash_bwd_dkv": Kernel("flash_bwd_dkv_sm90.cu", f"{_FLASH}:252",
+                            "training", "flash_bwd_dkv", 0, noncausal=True,
+                            fp32_source="flash_bwd_dkv.cu"),
     "flash_fwd_bthd": Kernel("flash_fwd_sm90.cu", f"{_FLASH}:504",
                              "training", "flash_fwd", 4,
                              fp32_source="flash_fwd.cu"),
-    "flash_bwd_dq_bthd": Kernel("flash_bwd_dq.cu", f"{_FLASH}:509",
-                                "training", "flash_bwd_dq", 1),
-    "flash_bwd_dkv_bthd": Kernel("flash_bwd_dkv.cu", f"{_FLASH}:516",
-                                 "training", "flash_bwd_dkv", 1),
+    "flash_bwd_dq_bthd": Kernel("flash_bwd_dq_sm90.cu", f"{_FLASH}:509",
+                                "training", "flash_bwd_dq", 1,
+                                fp32_source="flash_bwd_dq.cu"),
+    "flash_bwd_dkv_bthd": Kernel("flash_bwd_dkv_sm90.cu", f"{_FLASH}:516",
+                                 "training", "flash_bwd_dkv", 1,
+                                 fp32_source="flash_bwd_dkv.cu"),
     "decode_append": Kernel("decode_append.cu", f"{_DECODE}:39", "generate",
                             "decode_append", 2),
     "decode_paged": Kernel("decode_paged.cu", f"{_DECODE}:194", "serving",
@@ -1699,17 +1716,48 @@ def kernel_line(kernel_rows, by_path):
     return out
 
 
+def ptxas_instances(out):
+    """``{function: (registers, spill bytes)}`` from ptxas's ``-v``
+    output, each template instance of a kernel named by its ``<D, NWG>``
+    arguments (``D=64 NWG=2``)."""
+    found, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            fn = m.group(1)
+            args = re.search(r"kernelILi(\d+)ELi(\d+)E", fn)
+            if args:
+                fn = f"D={args.group(1)} NWG={args.group(2)}"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            regs = found.get(fn, (None, 0))[0]
+            found[fn] = (regs, int(m.group(1)) + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            found[fn] = (int(m.group(1)), found.get(fn, (None, 0))[1])
+    return found
+
+
 def check_builds(builder):
-    """Logs each kernel's ptxas registers and spills, and each
-    tensor-core kernel's count of HGMMA (wgmma) instructions in its SASS:
-    there must be some, and no spills."""
+    """Logs each kernel's ptxas registers and spills (the tensor-core
+    kernels' by template instance) and each tensor-core kernel's count of
+    HGMMA (wgmma) instructions in its SASS: there must be some, and no
+    spills."""
     for name, out in builder.build_logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "setmaxnreg" in line:
+            if "setmaxnreg" in line or "arning" in line or (
+                    name not in WGMMA_SOURCES
+                    and ("registers" in line or "spill" in line)):
                 log(f"  ptxas {name}: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(builder.nvcc_path()),
                              "cuobjdump")
     for name in WGMMA_SOURCES:
+        instances = ptxas_instances(builder.build_logs.get(name, ""))
+        log(f"  ptxas {name}: " + "; ".join(
+            f"{fn} {regs} registers, {spill} bytes spilled"
+            for fn, (regs, spill) in sorted(instances.items())))
         sass = subprocess.run(
             [cuobjdump, "-sass", builder.library_path(name)],
             capture_output=True, text=True, check=True, timeout=300).stdout

@@ -1,4 +1,6 @@
-// Flash attention backward, dK/dV pass, for Hopper (sm_90a), plain CUDA C++.
+// Flash attention backward, dK/dV pass, for Hopper (sm_90a), plain CUDA
+// C++, fp32 (bf16 runs on the tensor cores in flash_bwd_dkv_sm90.cu, which
+// would round fp32 operands to TF32).
 //
 // Replaces the TPU kernel _bwd_dkv_kernel (deepspeed_tpu/ops/flash_attention.py:252,
 // launched by _flash_backward at :355; its [B, T, H, D] twin
@@ -12,13 +14,13 @@
 // j is seen by rows i with j <= i + Tk - Tq); fully masked rows (lse =
 // NEG_INF) contribute nothing; a key no row sees gets dK = dV = 0.
 //
-// What bounds it on the H100: at the training shape (B=16, H=12, T=1024,
-// D=64, causal) the work is ~8*D flops per visible (query, key) pair, ~1.0e8
-// pairs -> 5.2e10 flops, 0.052 ms at 989 TF/s, against ~76 MB of inputs and
-// outputs (q, k, v, dO, dK, dV in bf16, lse and delta in fp32), 0.023 ms at
-// 3.35 TB/s: the tensor cores bound it. This first version multiplies on the
-// fp32 CUDA cores from shared memory, so shared-memory load bandwidth, not
-// the tensor cores, limits it (PERF.md carries its time beside the bound).
+// What bounds it on the H100: the fp32 products, at 67 TF/s outside the
+// tensor cores. At the training shape (B=16, H=12, T=1024, D=64, causal)
+// the work is ~8*D flops per visible (query, key) pair, ~1.0e8 pairs ->
+// 5.2e10 flops, 0.78 ms, against ~304 MB of fp32 inputs and outputs,
+// 0.091 ms at 3.35 TB/s. This version multiplies on the CUDA cores from
+// shared memory, so shared-memory load bandwidth limits it (PERF.md carries
+// its time beside the bound).
 // Design: where the TPU carries fp32 dK and dV tiles in VMEM across a
 // sequential query-block grid axis, here one block of 128 threads owns a
 // 64-key tile and loops over 32-row query tiles from the first row that can
@@ -28,7 +30,6 @@
 // across the head dim for the two accumulations). A pair of threads owns one
 // key row: each scores 16 queries of the tile, and after the pair has written
 // its p and ds rows to shared memory each accumulates half of the head dim.
-// wgmma/TMA tiling is the follow-up that moves it to the tensor cores.
 //
 // Any T (ragged tiles are masked); explicit element strides for q, k, v, dO,
 // dK and dV (last dim contiguous); lse and delta contiguous [B, H, Tq] fp32.
@@ -252,16 +253,13 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* dout,
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,
-                                int is_bf16, int B, int H, int Tq, int Tk,
-                                int D, const void* strides, float scale,
+                                int B, int H, int Tq, int Tk, int D,
+                                const void* strides, float scale,
                                 int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides<18> st = load_strides<18>(strides);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, B, H, Tq,
-                                     Tk, D, st, scale, causal, s);
   return dispatch_d<float>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk, D, st,
                            scale, causal, s);
 }

@@ -1,4 +1,6 @@
-// Flash attention backward, dQ pass, for Hopper (sm_90a), plain CUDA C++.
+// Flash attention backward, dQ pass, for Hopper (sm_90a), plain CUDA C++,
+// fp32 (bf16 runs on the tensor cores in flash_bwd_dq_sm90.cu, which would
+// round fp32 operands to TF32).
 //
 // Replaces the TPU kernel _bwd_dq_kernel (deepspeed_tpu/ops/flash_attention.py:196,
 // launched by _flash_backward at :336; its [B, T, H, D] twin
@@ -11,13 +13,13 @@
 // kernel). Bottom-right causal mask (row i sees keys <= i + Tk - Tq); fully
 // masked rows (lse = NEG_INF) get p = 0 and dQ = 0.
 //
-// What bounds it on the H100: at the training shape (B=16, H=12, T=1024,
-// D=64, causal) the work is ~6*D flops per visible (query, key) pair, ~1.0e8
-// pairs -> 3.9e10 flops, 0.039 ms at 989 TF/s, against ~64 MB of inputs and
-// output (q, k, v, dO, dQ in bf16, lse and delta in fp32), 0.019 ms at
-// 3.35 TB/s: the tensor cores bound it. This first version multiplies on the
-// fp32 CUDA cores from shared memory, so shared-memory load bandwidth, not
-// the tensor cores, limits it (PERF.md carries its time beside the bound).
+// What bounds it on the H100: the fp32 products, at 67 TF/s outside the
+// tensor cores. At the training shape (B=16, H=12, T=1024, D=64, causal)
+// the work is ~6*D flops per visible (query, key) pair, ~1.0e8 pairs ->
+// 3.9e10 flops, 0.58 ms, against ~253 MB of fp32 inputs and output, 0.076
+// ms at 3.35 TB/s. This version multiplies on the CUDA cores from shared
+// memory, so shared-memory load bandwidth limits it (PERF.md carries its
+// time beside the bound).
 // Design: where the TPU carries the fp32 dQ tile in VMEM across a sequential
 // key-block grid axis, here one block of 128 threads owns a 64-row query
 // tile and loops over 64-key tiles only up to its causal limit, keeping dQ
@@ -26,7 +28,6 @@
 // rows (16-byte reads across the head dim for ds . K). A pair of threads owns
 // one query row: each scores 32 keys of the tile, and after the pair has
 // written its ds row to shared memory each accumulates half of the head dim.
-// wgmma/TMA tiling is the follow-up that moves it to the tensor cores.
 //
 // Any T (ragged tiles are masked); explicit element strides for q, k, v, dO
 // and dQ (last dim contiguous); lse and delta contiguous [B, H, Tq] fp32.
@@ -222,17 +223,14 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* dout,
 // cudaGetLastError() code of the launch (0 = launched).
 extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
-                               const void* delta, void* dq, int is_bf16,
-                               int B, int H, int Tq, int Tk, int D,
+                               const void* delta, void* dq, int B, int H,
+                               int Tq, int Tk, int D,
                                const void* strides, float scale, int causal,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides<15> st = load_strides<15>(strides);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, dout, l, dl, dq, B, H, Tq, Tk,
-                                     D, st, scale, causal, s);
   return dispatch_d<float>(q, k, v, dout, l, dl, dq, B, H, Tq, Tk, D, st,
                            scale, causal, s);
 }

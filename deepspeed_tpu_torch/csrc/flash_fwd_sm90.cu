@@ -286,10 +286,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// error codes above any cudaError_t: a tensor map that
-// cuTensorMapEncodeTiled refused
-constexpr int TENSOR_MAP_ERROR = 10000;
-
 template <int D, int NWG>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Tq, int Tk, const long long* st, float scale,
@@ -331,16 +327,6 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
     case 128: return launch<128, NWG>(q, k, v, o, lse, B, H, Tq, Tk, st, scale, causal, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
 }
 
 }  // namespace

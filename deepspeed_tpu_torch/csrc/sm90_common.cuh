@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels
-// (flash_fwd_sm90.cu), apart from any one kernel so that the other
-// attention kernels can be rebuilt on them: tensor maps for TMA built on
-// the host, TMA tile loads, mbarrier pipeline helpers, wgmma shared-memory
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu), apart
+// from any one kernel so that the other attention kernels can be rebuilt
+// on them: tensor maps for TMA built on the host, the SM count, TMA tile
+// loads, mbarrier pipeline helpers, wgmma shared-memory
 // descriptors and the wgmma instructions the attention tiles use, register
 // fences and setmaxnreg.
 //
@@ -47,6 +48,23 @@ inline EncodeTiledFn encode_tiled() {
     return reinterpret_cast<EncodeTiledFn>(p);
   }();
   return fn;
+}
+
+// the launch functions' return codes from here up: 10000 + the CUresult
+// of a tensor map that cuTensorMapEncodeTiled refused (above any
+// cudaError_t)
+constexpr int TENSOR_MAP_ERROR = 10000;
+
+// the current device's SM count (queried once): the kernels take two
+// consumer warpgroups a CTA where that still fills the SMs
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
 }
 
 inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
@@ -204,6 +222,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 0 overwrites D
 template <int N>
 struct WgmmaSS;
+
+template <>
+struct WgmmaSS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
 
 template <>
 struct WgmmaSS<64> {

@@ -1,13 +1,18 @@
 """Inference configuration (counterpart of
 ``deepspeed_tpu/inference/config.py``).
 
-``dtype`` resolves to a torch dtype. Sections the JAX package accepts but
-this port does not implement yet raise :class:`NotImplementedError`
-naming the slice of the port that brings them, instead of being accepted
-and ignored.
+``dtype`` resolves to a torch dtype. The JAX config's keys that need no
+unported slice are accepted under the same names, aliases and defaults:
+``max_out_tokens`` takes effect, the rest are inert on one card (the
+engine logs a note for each one set to another value than its default,
+:data:`INERT`), and ``tensor_parallel``/``tp``/``mp_size`` take a size
+of 1. Sections the port does not implement yet raise
+:class:`NotImplementedError` naming the slice of the port that brings
+them, instead of being accepted and ignored; so does a tensor-parallel
+size above 1.
 """
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from pydantic import Field
@@ -32,9 +37,31 @@ UNPORTED = {
     "zero": "the ZeRO-Inference slice",
     "moe": "the MoE slice",
     "injection_policy": "the multi-GPU slice",
-    "tensor_parallel": "the multi-GPU slice",
-    "tp": "the multi-GPU slice",
-    "mp_size": "the multi-GPU slice",
+}
+
+# the JAX config's keys that are accepted and have no effect here, with
+# the note the engine logs where one is set to another value than its
+# default (the JAX engine's warn_inert_options)
+INERT = {
+    "replace_with_kernel_inject": "the port's kernels run on the card "
+                                  "whatever it says",
+    "enable_cuda_graph": "the port runs its kernels eagerly",
+    "triangular_masking": "each model owns its masking (causal decoders "
+                          "mask causally regardless)",
+    "return_tuple": "forward returns the logits tensor",
+    "replace_method": "no module is replaced",
+    "transposed_mode": "weight layouts are canonical",
+    "training_mp_size": "the weights come with the model, at one card",
+    "set_empty_params": "the weights come with the model",
+    "config": "the model carries its own config",
+    "injection_policy_tuple": "no module is replaced",
+    "min_out_tokens": "no kernel workspace needs a floor here",
+    "mpu": "one card has no model-parallel unit",
+    "ep_size": "MoE comes with the MoE slice",
+    "ep_group": "MoE comes with the MoE slice",
+    "ep_mp_group": "MoE comes with the MoE slice",
+    "moe_experts": "MoE comes with the MoE slice",
+    "moe_type": "MoE comes with the MoE slice",
 }
 
 
@@ -52,14 +79,60 @@ def resolve_dtype(dtype) -> torch.dtype:
     raise ValueError(f"unknown inference dtype {dtype!r}")
 
 
+class DeepSpeedTPConfig(DeepSpeedConfigModel):
+    """The JAX config's ``tensor_parallel`` section; the port runs on one
+    card, so a ``tp_size`` above 1 raises in the master config."""
+
+    enabled: bool = True
+    tp_size: int = 1
+    mpu: Optional[Any] = None
+    tp_group: Optional[Any] = None
+
+
+def _deprecated(new_param="", migrate=True):
+    return {"deprecated": True, "new_param": new_param,
+            "set_new_param": migrate}
+
+
 class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
-    """Master inference config: the fields this slice implements."""
+    """Master inference config: the fields this slice implements and the
+    JAX config's inert keys (:data:`INERT`)."""
 
     dtype: torch.dtype = torch.bfloat16
     # serving block (serving/config.ServingConfig): paged KV pool and
     # continuous batching, consumed by ServingEngine; None = no serving
     serving: Optional[Dict] = None
     max_out_tokens: int = Field(1024, alias="max_tokens")
+    tensor_parallel: DeepSpeedTPConfig = Field(DeepSpeedTPConfig(),
+                                               alias="tp")
+    replace_with_kernel_inject: bool = Field(False, alias="kernel_inject")
+    enable_cuda_graph: bool = False
+    triangular_masking: bool = Field(True, alias="tm")
+    return_tuple: bool = True
+    replace_method: str = Field("auto", json_schema_extra=_deprecated())
+    transposed_mode: bool = False
+    training_mp_size: int = 1
+    set_empty_params: bool = False
+    config: Optional[Dict] = Field(None, alias="args")
+    injection_policy_tuple: Optional[tuple] = None
+    min_out_tokens: int = Field(1, alias="min_tokens")
+    # legacy fields: mp_size and mpu move into tensor_parallel as in the
+    # JAX config; the MoE ones name moe.*, which is not ported, so they
+    # stay where they are
+    mp_size: int = Field(1, json_schema_extra=_deprecated(
+        "tensor_parallel.tp_size"))
+    mpu: Optional[Any] = Field(None, json_schema_extra=_deprecated(
+        "tensor_parallel.mpu"))
+    ep_size: int = Field(1, json_schema_extra=_deprecated("moe.ep_size",
+                                                          False))
+    ep_group: Optional[Any] = Field(None, alias="expert_group",
+                                    json_schema_extra=_deprecated())
+    ep_mp_group: Optional[Any] = Field(None, alias="expert_mp_group",
+                                       json_schema_extra=_deprecated())
+    moe_experts: list = Field([1], json_schema_extra=_deprecated(
+        "moe.moe_experts", False))
+    moe_type: str = Field("standard", json_schema_extra=_deprecated(
+        "moe.type", False))
 
     def __init__(self, strict=False, **data):
         for key in UNPORTED:
@@ -69,4 +142,21 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
                     f"comes with {UNPORTED[key]} of the PyTorch port")
         if "dtype" in data:
             data["dtype"] = resolve_dtype(data["dtype"])
+        if "mp_size" in data and "tensor_parallel" not in data \
+                and "tp" not in data:
+            # the JAX config's path: mp_size -> tensor_parallel.tp_size
+            data["tensor_parallel"] = {"tp_size": data.pop("mp_size")}
         super().__init__(strict=strict, **data)
+        if self.tensor_parallel.tp_size != 1:
+            raise NotImplementedError(
+                f"inference config tensor_parallel.tp_size "
+                f"{self.tensor_parallel.tp_size} is not ported yet: it "
+                f"comes with the multi-GPU slice of the PyTorch port")
+
+    def inert_notes(self):
+        """``(key, why)`` for each inert key set to another value than
+        its default."""
+        fields = type(self).model_fields
+        return [(key, why) for key, why in INERT.items()
+                if key in self.model_fields_set
+                and getattr(self, key) != fields[key].get_default()]

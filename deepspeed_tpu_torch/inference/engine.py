@@ -75,6 +75,9 @@ class InferenceEngine:
             merged = {**config.model_dump(exclude_unset=True), **kwargs}
             config = DeepSpeedInferenceConfig(**merged)
         self._config = config
+        for key, why in config.inert_notes():
+            log_dist(f"inference config '{key}' has no effect on this "
+                     f"backend: {why}", ranks=[0])
         self.device = resolve_device(device)
         self.model_config = model.config
         # reference _convert_to_dtype: weights cast once, moved to the

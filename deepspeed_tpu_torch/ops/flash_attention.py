@@ -1,20 +1,23 @@
 """Flash attention forward and backward on the card (counterpart of
 ``deepspeed_tpu/ops/flash_attention.py``).
 
-Hand-written CUDA kernels replace the TPU kernels of the JAX module:
+Hand-written CUDA kernels replace the TPU kernels of the JAX module. bf16
+runs on the tensor cores (TMA loads, ``wgmma``, warp-specialised, on
+``csrc/sm90_common.cuh``): q, k, v and dO reach those kernels through
+tensor maps, so their views must keep TMA's 16-byte rule
+(:func:`tma_view_error`). fp32 runs on the CUDA cores, since the tensor
+cores would round it to TF32:
 
 - for ``_fwd_kernel`` (``:77``, launched at ``:174``), causal or not
   online-softmax attention with the bottom-right mask ``off = Tk - Tq``,
-  returning O in the input dtype and the fp32 logsumexp: bf16 runs on
-  the tensor cores (``csrc/flash_fwd_sm90.cu``: TMA loads, ``wgmma``,
-  warp-specialised; q, k and v reach it through tensor maps, so their
-  views must keep TMA's 16-byte rule, :func:`tma_view_error`), fp32 on
-  the CUDA cores (``csrc/flash_fwd.cu``: the tensor cores would round it
-  to TF32);
-- ``csrc/flash_bwd_dq.cu`` for ``_bwd_dq_kernel`` (``:196`` · ``:336``):
-  dQ by query tiles;
-- ``csrc/flash_bwd_dkv.cu`` for ``_bwd_dkv_kernel`` (``:252`` · ``:355``):
-  dK and dV by key tiles.
+  returning O in the input dtype and the fp32 logsumexp:
+  ``csrc/flash_fwd_sm90.cu`` (bf16), ``csrc/flash_fwd.cu`` (fp32);
+- for ``_bwd_dq_kernel`` (``:196`` · ``:336``), dQ by query tiles:
+  ``csrc/flash_bwd_dq_sm90.cu`` (bf16), ``csrc/flash_bwd_dq.cu`` (fp32);
+- for ``_bwd_dkv_kernel`` (``:252`` · ``:355``), dK and dV by key tiles
+  (the bf16 kernel computes the transposed scores, so P and dS are
+  already ``wgmma``'s register operand): ``csrc/flash_bwd_dkv_sm90.cu``
+  (bf16), ``csrc/flash_bwd_dkv.cu`` (fp32).
 
 Each takes explicit strides (last dim contiguous), so the ``[B, T, H, D]``
 entry :func:`flash_attention_bthd` passes transposed views of its inputs
@@ -51,14 +54,22 @@ _MAX_GRID_Y = 65535
 _TENSOR_MAP_ERROR = 10000
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the two forward kernels, ds_flash_fwd (fp32) and ds_flash_fwd_sm90
-# (bf16), take the same arguments
-_FWD_ARGS = ([_PTR] * 5 + [_INT] * 5 + [_I64] * 12
-             + [ctypes.c_float, _INT, _PTR], _INT)
-_SIG_DQ = {"ds_flash_bwd_dq": (
-    [_PTR] * 7 + [_INT] * 6 + [_PTR, ctypes.c_float, _INT, _PTR], _INT)}
-_SIG_DKV = {"ds_flash_bwd_dkv": (
-    [_PTR] * 8 + [_INT] * 6 + [_PTR, ctypes.c_float, _INT, _PTR], _INT)}
+_TAIL = [ctypes.c_float, _INT, _PTR]  # scale, causal, stream
+# each kernel source's C entry point: (argtypes, restype). The two forward
+# kernels take the same arguments; the tensor-core backward kernels take
+# the (batch, head, token) strides of each tensor as arguments (the
+# CUDA-core ones as a host array)
+_FWD_ARGS = ([_PTR] * 5 + [_INT] * 5 + [_I64] * 12 + _TAIL, _INT)
+_SIGS = {
+    "flash_fwd": _FWD_ARGS,
+    "flash_fwd_sm90": _FWD_ARGS,
+    "flash_bwd_dq": ([_PTR] * 7 + [_INT] * 5 + [_PTR] + _TAIL, _INT),
+    "flash_bwd_dq_sm90": ([_PTR] * 7 + [_INT] * 5 + [_I64] * 15 + _TAIL,
+                          _INT),
+    "flash_bwd_dkv": ([_PTR] * 8 + [_INT] * 5 + [_PTR] + _TAIL, _INT),
+    "flash_bwd_dkv_sm90": ([_PTR] * 8 + [_INT] * 5 + [_I64] * 18 + _TAIL,
+                           _INT),
+}
 
 
 def _scale(q, softmax_scale):
@@ -235,6 +246,31 @@ def _tma_strides(t):
             for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
+def _check_tma(what, **views):
+    """Raise where a bf16 view breaks TMA's 16-byte rule."""
+    for name, t in views.items():
+        why = tma_view_error(t.shape, t.stride(), t.element_size(),
+                             t.data_ptr())
+        if why is not None:
+            raise ValueError(f"{what} (bf16, TMA): {name} view "
+                             f"{tuple(t.shape)}: {why}")
+
+
+def _launch(source, ptrs, *args):
+    """Call kernel source ``source``'s entry point on ``ptrs`` (tensors)
+    and ``args``, raising on a refused tensor map or launch."""
+    fn = getattr(load(source, {f"ds_{source}": _SIGS[source]}),
+                 f"ds_{source}")
+    err = fn(*(t.data_ptr() for t in ptrs), *args)
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{source}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (CUresult "
+                           f"{err - _TENSOR_MAP_ERROR})")
+    if err:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
 def _fwd_launch(q, k, v, causal, scale):
     """Launch the forward kernel, ``csrc/flash_fwd_sm90.cu`` for bf16 and
     ``csrc/flash_fwd.cu`` for fp32: ``(o, lse)``, o in q's layout."""
@@ -244,67 +280,57 @@ def _fwd_launch(q, k, v, causal, scale):
     if tq == 0:
         return o, lse
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            why = tma_view_error(t.shape, t.stride(), t.element_size(),
-                                 t.data_ptr())
-            if why is not None:
-                raise ValueError(f"flash forward (bf16, TMA): {name} view "
-                                 f"{tuple(t.shape)}: {why}")
+        _check_tma("flash forward", q=q, k=k, v=v)
         source = "flash_fwd_sm90"
         strides = ([s for t in (q, k, v) for s in _tma_strides(t)]
                    + list(o.stride()[:3]))
     else:
         source = "flash_fwd"
         strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    fn = getattr(load(source, {f"ds_{source}": _FWD_ARGS}), f"ds_{source}")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), b, h, tq, k.shape[2], d, *strides, float(scale),
-             int(causal), _stream(q))
-    if err >= _TENSOR_MAP_ERROR:
-        raise RuntimeError(f"{source}: cuTensorMapEncodeTiled refused a "
-                           f"tensor map (CUresult "
-                           f"{err - _TENSOR_MAP_ERROR})")
-    if err:
-        raise RuntimeError(f"{source} kernel launch failed: CUDA error "
-                           f"{err}")
+    _launch(source, (q, k, v, o, lse), b, h, tq, k.shape[2], d, *strides,
+            float(scale), int(causal), _stream(q))
     flash_attention.launches += 1
     return o, lse
 
 
+def _bwd_args(q, k, v, do, outs):
+    """The backward kernels' source suffix and stride arguments for q's
+    dtype: bf16 the tensor-core kernel (tensor-map strides of q, k, v, dO,
+    then the outputs' strides, as arguments), fp32 the CUDA-core one (one
+    host array of every stride)."""
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash backward", q=q, k=k, v=v, do=do)
+        return "_sm90", ([s for t in (q, k, v, do) for s in _tma_strides(t)]
+                         + [s for t in outs for s in t.stride()[:3]])
+    return "", [_strides(q, k, v, do, *outs)]
+
+
 def _dq_launch(q, k, v, do, lse, delta, causal, scale):
-    """Launch ``csrc/flash_bwd_dq.cu``: dq in q's layout."""
+    """Launch the dQ kernel, ``csrc/flash_bwd_dq_sm90.cu`` for bf16 and
+    ``csrc/flash_bwd_dq.cu`` for fp32: dq in q's layout."""
     b, h, tq, d = q.shape
     dq = torch.empty_like(q)
     if tq == 0 or k.shape[2] == 0:
         return dq.zero_()
-    lib = load("flash_bwd_dq", _SIG_DQ)
-    err = lib.ds_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, h, tq, k.shape[2], d,
-        _strides(q, k, v, do, dq), float(scale), int(causal), _stream(q))
-    if err:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error "
-                           f"{err}")
+    suffix, strides = _bwd_args(q, k, v, do, (dq,))
+    _launch("flash_bwd_dq" + suffix, (q, k, v, do, lse, delta, dq), b, h, tq,
+            k.shape[2], d, *strides, float(scale), int(causal), _stream(q))
     flash_attention_backward.launches += 1
     return dq
 
 
 def _dkv_launch(q, k, v, do, lse, delta, causal, scale):
-    """Launch ``csrc/flash_bwd_dkv.cu``: (dk, dv) in k's and v's layout."""
+    """Launch the dK/dV kernel, ``csrc/flash_bwd_dkv_sm90.cu`` for bf16
+    and ``csrc/flash_bwd_dkv.cu`` for fp32: (dk, dv) in k's and v's
+    layout."""
     b, h, tq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if tq == 0 or k.shape[2] == 0:
         return dk.zero_(), dv.zero_()
-    lib = load("flash_bwd_dkv", _SIG_DKV)
-    err = lib.ds_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, h, tq, k.shape[2], d,
-        _strides(q, k, v, do, dk, dv), float(scale), int(causal), _stream(q))
-    if err:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error "
-                           f"{err}")
+    suffix, strides = _bwd_args(q, k, v, do, (dk, dv))
+    _launch("flash_bwd_dkv" + suffix, (q, k, v, do, lse, delta, dk, dv), b,
+            h, tq, k.shape[2], d, *strides, float(scale), int(causal),
+            _stream(q))
     flash_attention_backward_dkv.launches += 1
     return dk, dv
 
@@ -345,7 +371,12 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        # the cotangent's layout is the caller's: a copy where the kernels
+        # cannot read it (a strided last dim; for bf16, TMA's 16-byte rule)
+        if do.stride(-1) != 1 or (
+                do.dtype == torch.bfloat16 and do.device.type == "cuda"
+                and tma_view_error(do.shape, do.stride(), do.element_size(),
+                                   do.data_ptr()) is not None):
             do = do.contiguous()
         delta = attention_delta(do, o)
         dq = flash_attention_backward(q, k, v, do, lse, delta, ctx.causal,

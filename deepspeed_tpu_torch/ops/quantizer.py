@@ -105,7 +105,10 @@ def stochastic_quantize_reference(x, seed: int, num_bits: int = 8, u=None):
     code 0, as in the Pallas kernel."""
     _check_stochastic(x, num_bits)
     absmax = x.abs().amax() if x.numel() else x.new_zeros(())
-    scale = absmax / 127.0
+    # a tensor divisor (filled on the device, no upload): torch multiplies
+    # a CUDA tensor by the reciprocal of a Python scalar divisor, which can
+    # miss the exact quotient by an ulp
+    scale = absmax / torch.full_like(absmax, 127.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     if u is None:
         u = stochastic_uniforms(x.numel(), seed, x.device).view(x.shape)

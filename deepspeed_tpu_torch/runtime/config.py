@@ -17,6 +17,8 @@ import os
 from typing import Any, Optional
 
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.config_utils import \
+    dict_raise_error_on_duplicate_keys
 from deepspeed_tpu_torch.runtime.precision_config import (BF16Config,
                                                           FP16Config)
 
@@ -147,7 +149,8 @@ class DeepSpeedConfig:
                 raise DeepSpeedConfigError(
                     f"DeepSpeed config path does not exist: {config}")
             with open(config) as f:
-                self._param_dict = json.load(f)
+                self._param_dict = json.load(
+                    f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
         elif isinstance(config, dict):
             self._param_dict = dict(config)
         elif config is None:

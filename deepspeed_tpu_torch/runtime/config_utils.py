@@ -2,7 +2,8 @@
 
 Copy of ``deepspeed_tpu/runtime/config_utils.py``'s ``DeepSpeedConfigModel``
 (pydantic v2, with the ``Field(deprecated=True, new_param=...)`` migration
-machinery) and the port's own logger.
+machinery) and its ``json.load`` hook that refuses duplicate keys, with
+the port's own logger.
 
 Deprecated fields are declared via ``json_schema_extra``::
 
@@ -68,3 +69,15 @@ class DeepSpeedConfigModel(BaseModel):
 
     def __getitem__(self, key):
         return getattr(self, key)
+
+
+def dict_raise_error_on_duplicate_keys(ordered_pairs):
+    """``json.load`` hook refusing duplicate keys, as the JAX config's."""
+    d = dict(ordered_pairs)
+    if len(d) != len(ordered_pairs):
+        counts = {}
+        for k, _ in ordered_pairs:
+            counts[k] = counts.get(k, 0) + 1
+        keys = [k for k, n in counts.items() if n > 1]
+        raise ValueError(f"Duplicate keys in DeepSpeed config: {keys}")
+    return d

@@ -13,7 +13,9 @@ and the same batch every step, as the bench scripts run them:
   reference's documented ``sparse_attention`` section (fixed, per-head
   layouts with 4 global patterns, 4 local blocks, 1 global block,
   bidirectional) at block 128: micro-batch 2 x 4096, MLM labels on 15 %
-  of the tokens (``bench_bert.py:56-59``).
+  of the tokens (``bench_bert.py:56-59``);
+- ``--model bert-large-dense``: the same without the section, at
+  ``bench_bert.py``'s 64 x 128 (the non-causal flash kernels).
 
     python -m deepspeed_tpu_torch.tools.profile_training [--model M]
         [--seed N] [--steps N] [--out F]
@@ -89,8 +91,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense (NVIDIA data sheet)
 # the kernel name (the first family that matches takes the kernel)
 FAMILIES = (
     ("flash forward", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
-    ("flash dQ", ("flash_bwd_dq_kernel",)),
-    ("flash dK/dV", ("flash_bwd_dkv_kernel",)),
+    ("flash dQ", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
+    ("flash dK/dV", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("block-sparse forward", ("block_sparse_fwd_kernel",)),
     ("block-sparse dQ", ("block_sparse_bwd_dq_kernel",)),
     ("block-sparse dK/dV", ("block_sparse_bwd_dkv_kernel",)),
@@ -238,21 +240,24 @@ def _workload(name, seed):
         return (engine, batch,
                 {"model": "gpt2_125m", "batch": BATCH, "seq": SEQ,
                  **BENCH_CONFIG}, flops_per_token(model), head)
-    model = bert_model(seed)
-    engine = bert_engine(model)
-    batch = bert_batch(model.config.vocab_size, seed, engine.device)
+    sparse = name == "bert-large-sparse"
+    model = bert_model(seed, sparse=sparse)
+    engine = bert_engine(model, sparse=sparse)
+    batch = bert_batch(model.config.vocab_size, seed, engine.device,
+                       sparse=sparse)
     mlm = engine.module.model
-    density = sparse_density(BERT_SPARSE_SHAPE[1])
+    shape = BERT_SPARSE_SHAPE if sparse else BERT_DENSE_SHAPE
+    density = sparse_density(shape[1]) if sparse else 1.0
 
     def head(hidden):
         return cross_entropy_loss(mlm.head(hidden), batch["labels"])
 
+    section = {"sparse_attention": BERT_SPARSE} if sparse else {}
     return (engine, batch,
-            {"model": "bert_large_sparse", "batch": BERT_SPARSE_SHAPE[0],
-             "seq": BERT_SPARSE_SHAPE[1], "density": density,
-             "sparse_attention": BERT_SPARSE, **BERT_CONFIG},
-            bert_flops_per_token(engine.module, BERT_SPARSE_SHAPE[1],
-                                 density), head)
+            {"model": name.replace("-", "_"), "batch": shape[0],
+             "seq": shape[1], "density": density, **section,
+             **BERT_CONFIG},
+            bert_flops_per_token(engine.module, shape[1], density), head)
 
 
 def run(seed: int, steps: int, model: str = "gpt2-125m"):
@@ -327,7 +332,8 @@ def run(seed: int, steps: int, model: str = "gpt2-125m"):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", default="gpt2-125m",
-                        choices=("gpt2-125m", "bert-large-sparse"))
+                        choices=("gpt2-125m", "bert-large-sparse",
+                                 "bert-large-dense"))
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--out", default="",

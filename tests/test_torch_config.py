@@ -1,0 +1,122 @@
+"""The port's training and inference configs against the JAX package's on
+the same inputs: duplicate keys in a JSON training config, and the JAX
+inference config's keys that need no unported slice."""
+
+import pytest
+
+from deepspeed_tpu.inference.config import \
+    DeepSpeedInferenceConfig as JaxInferenceConfig
+from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+from deepspeed_tpu_torch.inference.config import INERT, \
+    DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config_utils import \
+    dict_raise_error_on_duplicate_keys
+
+DUPLICATE = '{"train_batch_size": 8, "train_batch_size": 16}'
+
+
+@pytest.mark.parametrize("config_cls", [JaxConfig, DeepSpeedConfig],
+                         ids=["jax", "port"])
+def test_duplicate_keys_in_a_json_file_raise(tmp_path, config_cls):
+    path = tmp_path / "ds_config.json"
+    path.write_text(DUPLICATE)
+    with pytest.raises(ValueError) as err:
+        config_cls(str(path))
+    assert str(err.value) == \
+        "Duplicate keys in DeepSpeed config: ['train_batch_size']"
+
+
+def test_a_json_file_without_duplicates_loads(tmp_path):
+    path = tmp_path / "ds_config.json"
+    path.write_text('{"train_batch_size": 16}')
+    assert DeepSpeedConfig(str(path)).train_batch_size == 16
+    assert dict_raise_error_on_duplicate_keys([("a", 1), ("b", 2)]) == \
+        {"a": 1, "b": 2}
+
+
+# the JAX inference config's inert keys set to other values than their
+# defaults, under their names or their aliases, and the keys whose note
+# the port's engine logs
+INERT_CASES = {
+    "names": (dict(replace_with_kernel_inject=True, enable_cuda_graph=True,
+                   triangular_masking=False, return_tuple=False,
+                   replace_method="x", transposed_mode=True,
+                   training_mp_size=2, set_empty_params=True,
+                   config={"hidden": 8}, injection_policy_tuple=("attn",),
+                   min_out_tokens=4, max_out_tokens=64, mpu="unit",
+                   ep_group="g", tensor_parallel={"tp_size": 1}),
+              set(INERT) - {"ep_size", "ep_mp_group", "moe_experts",
+                            "moe_type"}),
+    "aliases": (dict(kernel_inject=True, tm=False, args={"hidden": 8},
+                     min_tokens=3, max_tokens=32, mp_size=1,
+                     expert_group="g", expert_mp_group="h"),
+                {"replace_with_kernel_inject", "triangular_masking",
+                 "config", "min_out_tokens", "ep_group", "ep_mp_group"}),
+    # the JAX config moves these into its moe section, which must then be
+    # a section (with moe = False its migration fails); the port keeps
+    # them where they are (moe is not ported)
+    "moe_legacy": (dict(ep_size=2, moe_experts=[4], moe_type="residual"),
+                   {"ep_size", "moe_experts", "moe_type"}),
+}
+
+
+@pytest.mark.parametrize("case", list(INERT_CASES))
+def test_inference_configs_agree_on_the_jax_keys(case):
+    kwargs, noted = INERT_CASES[case]
+    jax_extra = {"moe": {"enabled": False}} if "ep_size" in kwargs else {}
+    jax = JaxInferenceConfig(**kwargs, **jax_extra)
+    port = DeepSpeedInferenceConfig(**kwargs)
+    shared = (set(type(port).model_fields) & set(type(jax).model_fields)) \
+        - {"dtype"}
+    assert set(INERT) | {"max_out_tokens", "tensor_parallel", "mp_size"} \
+        <= shared
+    for name in shared:
+        want = getattr(jax, name)
+        got = getattr(port, name)
+        if name == "tensor_parallel":
+            want, got = want.model_dump(), got.model_dump()
+        assert got == want, name
+    assert {key for key, _ in port.inert_notes()} == noted
+
+
+def test_inference_engine_logs_each_inert_key(monkeypatch):
+    from deepspeed_tpu_torch.inference import engine
+
+    said = []
+    monkeypatch.setattr(engine, "log_dist",
+                        lambda msg, ranks=None: said.append(msg))
+    engine.InferenceEngine(GPT2LMHeadModel(GPT2Config.tiny()), device="cpu",
+                           enable_cuda_graph=True, min_out_tokens=4,
+                           return_tuple=True)
+    text = "\n".join(said)
+    assert "'enable_cuda_graph' has no effect" in text
+    assert "'min_out_tokens' has no effect" in text
+    # set, but to its default: no note
+    assert "'return_tuple'" not in text
+
+
+@pytest.mark.parametrize("kwargs", [dict(tensor_parallel={"tp_size": 1}),
+                                    dict(tp={"tp_size": 1}),
+                                    dict(mp_size=1)])
+def test_tensor_parallel_size_one_is_accepted(kwargs):
+    jax = JaxInferenceConfig(**kwargs)
+    port = DeepSpeedInferenceConfig(**kwargs)
+    assert port.tensor_parallel.tp_size == jax.tensor_parallel.tp_size == 1
+
+
+@pytest.mark.parametrize("kwargs", [dict(tensor_parallel={"tp_size": 2}),
+                                    dict(tp={"tp_size": 4}),
+                                    dict(mp_size=2),
+                                    dict(tensor_parallel={"enabled": True},
+                                         mp_size=2)])
+def test_tensor_parallel_above_one_names_the_multi_gpu_slice(kwargs):
+    assert JaxInferenceConfig(**kwargs).tensor_parallel.tp_size > 1
+    with pytest.raises(NotImplementedError, match="the multi-GPU slice"):
+        DeepSpeedInferenceConfig(**kwargs)
+
+
+def test_unknown_inference_key_still_fails():
+    with pytest.raises(Exception, match="Extra inputs"):
+        DeepSpeedInferenceConfig(not_a_key=1)

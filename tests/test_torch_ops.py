@@ -8,6 +8,10 @@ Tolerance: float32 on both sides, 1e-5 absolute and relative (the same
 math summed in another order).
 """
 
+import os
+import re
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,12 +28,14 @@ from deepspeed_tpu.utils.compat import tpu_interpret_mode
 from deepspeed_tpu_torch.models.decode_utils import (cache_attn_mask,
                                                      paged_positions,
                                                      paged_write_rows)
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.attention import attention, attention_reference
 from deepspeed_tpu_torch.ops.decode_attention import (
     GARBAGE_BLOCK, decode_attention, decode_attention_paged,
     gather_paged_cache)
 from deepspeed_tpu_torch.ops.flash_attention import (
-    attention_delta, flash_attention, flash_attention_backward,
+    FlashAttentionFunction, attention_delta, flash_attention, flash_attention_backward,
     flash_attention_backward_dkv, flash_attention_backward_reference,
     flash_attention_bthd, tma_view_error)
 
@@ -83,8 +89,53 @@ def test_dispatch_cpu_takes_the_reference():
                                        causal=causal))
 
 
+def _flash_cotangents(run):
+    """The dO that each ``FlashAttentionFunction.backward`` is handed
+    while ``run()`` differentiates."""
+    seen = []
+    real = FlashAttentionFunction.backward
+
+    def backward(ctx, do, dlse):
+        seen.append(do)
+        return real(ctx, do, dlse)
+
+    with mock.patch.object(FlashAttentionFunction, "backward",
+                           staticmethod(backward)):
+        run()
+    assert seen
+    return seen
+
+
+def _bthd_cotangent():
+    """dO as :func:`flash_attention_bthd` hands it: the cotangent of its
+    ``[B, T, H, D]`` output, transposed."""
+    leaves = [torch.zeros((2, 10, 3, 64), dtype=torch.bfloat16,
+                          requires_grad=True) for _ in range(3)]
+    return _flash_cotangents(
+        lambda: flash_attention_bthd(*leaves).float().square().sum()
+        .backward())
+
+
+def _gpt2_cotangent():
+    """dO as GPT-2's training path hands it: the cotangent of the
+    attention output ``y4.transpose(1, 2)`` through the reshape and the
+    output projection (``models/gpt2.py``), one per layer."""
+    model = GPT2LMHeadModel(GPT2Config.tiny(), seed=0)
+    ids = torch.randint(0, 256, (2, 24),
+                        generator=torch.Generator().manual_seed(0))
+
+    def run():
+        out = model(ids)
+        logits = out[0] if isinstance(out, tuple) else out
+        logits.float().square().mean().backward()
+
+    seen = _flash_cotangents(run)
+    assert len(seen) == model.config.n_layer
+    return seen
+
+
 def _views(kind):
-    """q, k, v as the port hands them to the bf16 forward kernel."""
+    """q, k, v as the port hands them to the bf16 kernels, or dO."""
     B, H, T, D = 2, 3, 10, 64
     if kind == "bhtd":
         return [torch.empty((B, H, T, D), dtype=torch.bfloat16)
@@ -92,17 +143,75 @@ def _views(kind):
     if kind == "bthd":  # flash_attention_bthd's transposed views
         return [torch.empty((B, T, H, D), dtype=torch.bfloat16)
                 .transpose(1, 2) for _ in range(3)]
+    if kind == "bthd_do":
+        return _bthd_cotangent()
+    if kind == "gpt2_do":
+        return _gpt2_cotangent()
     # GPT-2's fused projection: [B, T, 3C] split into q, k, v
     fused = torch.empty((B, T, 3 * H * D), dtype=torch.bfloat16)
     return [t.view(B, T, H, D).transpose(1, 2)
             for t in fused.split(H * D, dim=-1)]
 
 
-@pytest.mark.parametrize("kind", ["bhtd", "bthd", "fused_qkv"])
+@pytest.mark.parametrize("kind", ["bhtd", "bthd", "fused_qkv", "bthd_do",
+                                  "gpt2_do"])
 def test_tma_rule_accepts_the_ports_views(kind):
     for t in _views(kind):
+        assert t.dtype == torch.bfloat16 and t.stride(-1) == 1
         assert tma_view_error(t.shape, t.stride(), t.element_size(),
                               t.data_ptr()) is None
+
+
+def _c_arity(source):
+    """Parameter count of ``ds_<source>`` in ``csrc/<source>.cu``."""
+    path = os.path.join(os.path.dirname(fa.__file__), os.pardir, "csrc",
+                        f"{source}.cu")
+    with open(path) as f:
+        text = f.read()
+    params = re.search(rf'extern "C" int ds_{source}\((.*?)\)\s*{{', text,
+                       re.S).group(1)
+    return params.count(",") + 1
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "_sm90"),
+                                          (torch.float32, "")])
+def test_backward_launch_reaches_its_kernel_symbol(which, dtype, suffix):
+    """``_dq_launch``/``_dkv_launch`` on CPU tensors with ``load`` patched
+    to a stub library: bf16 calls the tensor-core entry point, fp32 the
+    CUDA-core one, with as many arguments as its ctypes signature and its
+    C declaration have, and the launch is counted."""
+    calls = []
+
+    class Lib:
+        def __init__(self, source, sigs):
+            self.source, self.sigs = source, sigs
+
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((self.source, fn, len(args),
+                              len(self.sigs[fn][0])))
+                return 0
+            return call
+
+    B, H, T, D = 2, 3, 10, 64
+    q, k, v = _views("bthd")  # strided views, as the [B, T, H, D] entry
+    q, k, v = (t.to(dtype) if dtype != torch.bfloat16 else t
+               for t in (q, k, v))
+    do = torch.zeros((B, H, T, D), dtype=dtype)
+    lse, delta = (torch.zeros((B, H, T)) for _ in range(2))
+    launch = fa._dq_launch if which == "dq" else fa._dkv_launch
+    counter = (fa.flash_attention_backward if which == "dq"
+               else fa.flash_attention_backward_dkv)
+    with mock.patch.object(fa, "load", Lib), \
+            mock.patch.object(fa, "_stream", lambda t: 0), \
+            mock.patch.object(counter, "launches", 0):
+        launch(q, k, v, do, lse, delta, True, 0.125)
+        assert counter.launches == 1
+    source = f"flash_bwd_{which}{suffix}"
+    n = len(fa._SIGS[source][0])
+    assert calls == [(source, f"ds_{source}", n, n)]
+    assert _c_arity(source) == n
 
 
 @pytest.mark.parametrize("case", ["row_stride", "base", "last_dim", "width"])
