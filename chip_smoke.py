@@ -5,13 +5,13 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the thirteen CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
+1. build the fifteen CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once), print the card, each kernel's ptxas
-   registers and spills (for the three tensor-core sources, the bf16
-   flash forward, dQ and dK/dV, by template instance: head dim and
-   warpgroups), and the count of HGMMA (``wgmma``) instructions in each
-   tensor-core source's SASS (``cuobjdump -sass``): there must be some,
-   and no spills;
+   registers and spills (for the five tensor-core sources, the bf16
+   flash forward, dQ and dK/dV and the bf16 block-sparse dQ and dK/dV,
+   by template instance: head dim and warpgroups), and the count of
+   HGMMA (``wgmma``) instructions in each tensor-core source's SASS
+   (``cuobjdump -sass``): there must be some, and no spills;
 2. hold each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at ragged ones, in bf16 and
    fp32 — the flash kernels also on ``[B, T, H, D]`` views through
@@ -22,8 +22,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash kernels run on the tensor cores, in fp32 on the CUDA cores), the
    paged kernels (bf16/fp32 and int8 pools) also at the verify (T_q = 5)
    and prefill-chunk (T_q = 256) shapes, the block-sparse kernels at the
-   BERT slice's shape (fixed per-head layout, block 128, 2 x 16 x 4096)
-   and at bench_sparse.py's BigBird one (block 256, 1 x 12 x 8192); the
+   BERT slice's shape (fixed per-head layout, block 128, 2 x 16 x 4096),
+   at bench_sparse.py's BigBird one (block 256, 1 x 12 x 8192), at a
+   fixed layout of block 32 (1 x 4 x 1024) and at a per-head BigBird
+   layout of block 64 (2 x 4 x 1024; in bf16 the backward runs on the
+   tensor cores at blocks 64, 128 and 256 and on the CUDA cores at 32,
+   each source checked to be the one launched); the
    stochastic int8 quantizer (fp32) bit for bit at two seeds on GPT-2
    125M's gradient shapes, a ragged one and zeros, with its rounding
    checked against its contract (floor or floor + 1, the share rounded up
@@ -111,10 +115,12 @@ import numpy as np
 KERNEL_SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq_sm90",
                   "flash_bwd_dq", "flash_bwd_dkv_sm90", "flash_bwd_dkv",
                   "decode_append", "decode_paged", "decode_paged_int8",
-                  "block_sparse_fwd", "block_sparse_bwd_dq",
+                  "block_sparse_fwd", "block_sparse_bwd_dq_sm90",
+                  "block_sparse_bwd_dq", "block_sparse_bwd_dkv_sm90",
                   "block_sparse_bwd_dkv", "stochastic_quantize")
 # the tensor-core kernels, whose SASS must hold wgmma (HGMMA) instructions
-WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+                 "block_sparse_bwd_dq_sm90", "block_sparse_bwd_dkv_sm90")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -558,13 +564,22 @@ def check_flash_bwd(dtype, gen):
 
 
 # the block-sparse checks: (B, H, S, sparse_attention section) — the BERT
-# slice's fixed per-head layout (block 128) and bench_sparse.py:47-68's
+# slice's fixed per-head layout (block 128), bench_sparse.py:47-68's
 # BigBird layout (1 random, 3 window, 1 global block; one layout for every
-# head, block 256)
+# head, block 256), a fixed layout of block 32, which keeps the bf16
+# backward on the CUDA-core kernels (the tensor-core ones take blocks that
+# are a multiple of 64), and a per-head BigBird layout of block 64, whose
+# rows and columns have uneven walks, on the tensor-core kernels' one
+# warpgroup instances (64 rows a CTA; 128 at blocks of 128 and 256)
 SPARSE_CASES = (
     (2, 16, 4096, "BERT_SPARSE"),
     (1, 12, 8192, {"mode": "bigbird", "block": 256, "num_random_blocks": 1,
                    "num_sliding_window_blocks": 3, "num_global_blocks": 1}),
+    (1, 4, 1024, {"mode": "fixed", "block": 32, "num_local_blocks": 4,
+                  "num_global_blocks": 1}),
+    (2, 4, 1024, {"mode": "bigbird", "block": 64, "num_random_blocks": 2,
+                  "num_sliding_window_blocks": 3, "num_global_blocks": 1,
+                  "different_layout_per_head": True}),
 )
 
 
@@ -585,8 +600,10 @@ def check_block_sparse(dtype, gen):
     """The three block-sparse kernels against their plain versions on the
     same inputs (the forward kernel's O and lse feed the backward ones), on
     ``[B, H, S, D]`` views of ``[B, S, H, D]`` tensors as BERT hands them
-    over; then the autograd path, checked to launch each kernel once and to
-    give the plain versions' gradients. Times kernel, plain version and
+    over; then the autograd path, checked to launch each kernel once,
+    through the source the wrapper's rule names (``tensor_cores``: the
+    ``_sm90`` backward for bf16 at a block that is a multiple of 64), and
+    to give the plain versions' gradients. Times kernel, plain version and
     the library yardstick (SDPA with the layout expanded to a boolean
     ``[1, H, S, S]`` mask: its forward for the forward row, its backward
     for the backward rows, and forward + backward beside them). Returns
@@ -625,10 +642,18 @@ def check_block_sparse(dtype, gen):
         errs = [compare(f"block-sparse bwd {n} {name} {dtype}", g, w, dt)
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)]
 
-        # the autograd path: one launch of each kernel, the same gradients
+        # the autograd path: one launch of each kernel, from the source
+        # the routing rule names, and the same gradients
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sources, launch = [], bs._launch
+
+        def spy(source, *call, **kw):
+            sources.append(source)
+            return launch(source, *call, **kw)
+
         before = launch_counts()
-        bs.block_sparse_attention(*leaves, layout).backward(do)
+        with mock.patch.object(bs, "_launch", spy):
+            bs.block_sparse_attention(*leaves, layout).backward(do)
         after = launch_counts()
         for kname in ("block_sparse_fwd", "block_sparse_bwd_dq",
                       "block_sparse_bwd_dkv"):
@@ -636,6 +661,13 @@ def check_block_sparse(dtype, gen):
                 raise AssertionError(f"block_sparse_attention {name}: "
                                      f"{kname} launched "
                                      f"{after[kname] - before[kname]} times")
+        suffix = "_sm90" if bs.tensor_cores(dtype, block) else ""
+        want_sources = ["block_sparse_fwd", f"block_sparse_bwd_dq{suffix}",
+                        f"block_sparse_bwd_dkv{suffix}"]
+        if sources != want_sources:
+            raise AssertionError(f"block_sparse_attention {name} {dtype}: "
+                                 f"launched {sources}, the rule names "
+                                 f"{want_sources}")
         for n, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
             compare(f"block-sparse autograd {n} {name} {dtype}", leaf.grad,
                     w, dt)
@@ -651,6 +683,10 @@ def check_block_sparse(dtype, gen):
         plain_args = (*args[:-1], lists.layout)
         csr = 4 * (lists.row_ptr.numel() + lists.col_idx.numel())
         csc = 4 * (lists.col_ptr.numel() + lists.row_idx.numel())
+        # the tensor-core backward kernels also read their schedule
+        order_dq, order_dkv = ((4 * lists.dq_order.numel(),
+                                4 * lists.dkv_order.numel())
+                               if suffix else (0, 0))
         mask = bs._token_mask(layout, S, S, q.device)[None]
         lq, lk, lv = leaves
         lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
@@ -667,7 +703,7 @@ def check_block_sparse(dtype, gen):
 
         fwd_bwd_ms = device_ms(lib_fwd_bwd, REPEATS)
         fwd_rows.append({
-            "shape": name, "max_abs_err": err,
+            "shape": name, "source": want_sources[0], "max_abs_err": err,
             **times(lambda: bs.block_sparse_attention_with_lse(q, k, v,
                                                                layout),
                     lambda: bs.block_sparse_attention_reference(
@@ -676,21 +712,29 @@ def check_block_sparse(dtype, gen):
             "library_fwd_bwd_ms": fwd_bwd_ms,
             **bound(4 * io + stats + csr, {dt: 4 * D * n_pairs})})
         dq_rows.append({
-            "shape": name, "max_abs_err": errs[0],
+            "shape": name, "source": want_sources[1], "max_abs_err": errs[0],
             **times(lambda: bs.block_sparse_backward_dq(*args),
                     lambda: bs.block_sparse_backward_dq_reference(
                         *plain_args),
                     lib_bwd),
             "library_fwd_bwd_ms": fwd_bwd_ms,
-            **bound(5 * io + 2 * stats + csr, {dt: 6 * D * n_pairs})})
+            **bound(5 * io + 2 * stats + csr + order_dq,
+                    {dt: 6 * D * n_pairs})})
         dkv_rows.append({
-            "shape": name, "max_abs_err": max(errs[1:]),
+            "shape": name, "source": want_sources[2],
+            "max_abs_err": max(errs[1:]),
             **times(lambda: bs.block_sparse_backward_dkv(*args),
                     lambda: bs.block_sparse_backward_dkv_reference(
                         *plain_args),
                     lib_bwd),
             "library_fwd_bwd_ms": fwd_bwd_ms,
-            **bound(6 * io + 2 * stats + csc, {dt: 8 * D * n_pairs})})
+            **bound(6 * io + 2 * stats + csc + order_dkv,
+                    {dt: 8 * D * n_pairs})})
+        # like with like: SDPA's backward computes dQ, dK and dV at once
+        log(f"block-sparse backward {name} {dtype}: dq + dkv "
+            f"{dq_rows[-1]['ms'] + dkv_rows[-1]['ms']:.4f} ms "
+            f"({want_sources[1]}, {want_sources[2]}), SDPA backward "
+            f"{dkv_rows[-1]['library_ms']:.4f} ms")
         del lo, mask
         torch.cuda.empty_cache()
     return fwd_rows, dq_rows, dkv_rows
@@ -1632,7 +1676,9 @@ def phase_bert(seed, card):
 # at the embedding gradient's), the dtype of that row, the row keys
 # listed for every timed row of its checks (None: no list), whether the
 # non-causal row (BERT's dense leg, the checks' last) is reported, and the
-# source of its fp32 variant where that differs. Rows 4-6 are kernels 1-3
+# source of its fp32 variant where that differs (for the block-sparse
+# backward also bf16 at blocks that are not a multiple of 64: each timed
+# row names the source it ran). Rows 4-6 are kernels 1-3
 # through the [B, T, H, D] views every training path hands them (one
 # wrapper and count serve both layouts)
 Kernel = collections.namedtuple(
@@ -1669,13 +1715,17 @@ KERNEL_TABLE = {
                                 rows=()),
     "block_sparse_fwd": Kernel("block_sparse_fwd.cu", f"{_SPARSE}:79",
                                "bert_sparse", "block_sparse_fwd", 0,
-                               rows=()),
-    "block_sparse_bwd_dq": Kernel("block_sparse_bwd_dq.cu", f"{_SPARSE}:175",
-                                  "bert_sparse", "block_sparse_bwd_dq", 0,
-                                  rows=()),
-    "block_sparse_bwd_dkv": Kernel("block_sparse_bwd_dkv.cu",
+                               rows=("source",)),
+    "block_sparse_bwd_dq": Kernel("block_sparse_bwd_dq_sm90.cu",
+                                  f"{_SPARSE}:175", "bert_sparse",
+                                  "block_sparse_bwd_dq", 0,
+                                  rows=("source",),
+                                  fp32_source="block_sparse_bwd_dq.cu"),
+    "block_sparse_bwd_dkv": Kernel("block_sparse_bwd_dkv_sm90.cu",
                                    f"{_SPARSE}:214", "bert_sparse",
-                                   "block_sparse_bwd_dkv", 0, rows=()),
+                                   "block_sparse_bwd_dkv", 0,
+                                   rows=("source",),
+                                   fp32_source="block_sparse_bwd_dkv.cu"),
     "stochastic_quantize": Kernel("stochastic_quantize.cu",
                                   "deepspeed_tpu/ops/quantizer.py:141", None,
                                   "stochastic_quantize", QUANT_ROW,
@@ -1719,7 +1769,8 @@ def kernel_line(kernel_rows, by_path):
 def ptxas_instances(out):
     """``{function: (registers, spill bytes)}`` from ptxas's ``-v``
     output, each template instance of a kernel named by its ``<D, NWG>``
-    arguments (``D=64 NWG=2``)."""
+    arguments (``D=64 NWG=2``; ``NWG=2`` for the block-sparse kernels,
+    whose head dim is 64 alone)."""
     found, fn = {}, None
     for line in out.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -1727,8 +1778,11 @@ def ptxas_instances(out):
         if m:
             fn = m.group(1)
             args = re.search(r"kernelILi(\d+)ELi(\d+)E", fn)
+            one = re.search(r"kernelILi(\d+)EE", fn)
             if args:
                 fn = f"D={args.group(1)} NWG={args.group(2)}"
+            elif one:
+                fn = f"NWG={one.group(1)}"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and fn:

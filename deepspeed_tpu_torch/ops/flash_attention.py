@@ -238,6 +238,18 @@ def tma_view_error(shape, strides, itemsize, data_ptr):
     return None
 
 
+def readable_cotangent(do, tma):
+    """dO as the backward kernels can read it: the cotangent's layout is
+    the caller's, so a copy where it has a strided last dim or, when the
+    kernels read it through a tensor map (``tma``), breaks TMA's 16-byte
+    rule."""
+    if do.stride(-1) != 1 or (
+            tma and tma_view_error(do.shape, do.stride(), do.element_size(),
+                                   do.data_ptr()) is not None):
+        return do.contiguous()
+    return do
+
+
 def _tma_strides(t):
     """(batch, head, token) element strides of a TMA-checked view, each
     dim of size 1 given its head-dim row (never stepped, but the tensor
@@ -256,10 +268,11 @@ def _check_tma(what, **views):
                              f"{tuple(t.shape)}: {why}")
 
 
-def _launch(source, ptrs, *args):
-    """Call kernel source ``source``'s entry point on ``ptrs`` (tensors)
-    and ``args``, raising on a refused tensor map or launch."""
-    fn = getattr(load(source, {f"ds_{source}": _SIGS[source]}),
+def _launch(source, ptrs, *args, sigs=_SIGS):
+    """Call kernel source ``source``'s entry point (its ctypes signature in
+    ``sigs``) on ``ptrs`` (tensors) and ``args``, raising on a refused
+    tensor map or launch."""
+    fn = getattr(load(source, {f"ds_{source}": sigs[source]}),
                  f"ds_{source}")
     err = fn(*(t.data_ptr() for t in ptrs), *args)
     if err >= _TENSOR_MAP_ERROR:
@@ -371,13 +384,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        # the cotangent's layout is the caller's: a copy where the kernels
-        # cannot read it (a strided last dim; for bf16, TMA's 16-byte rule)
-        if do.stride(-1) != 1 or (
-                do.dtype == torch.bfloat16 and do.device.type == "cuda"
-                and tma_view_error(do.shape, do.stride(), do.element_size(),
-                                   do.data_ptr()) is not None):
-            do = do.contiguous()
+        do = readable_cotangent(do, do.dtype == torch.bfloat16
+                                and do.device.type == "cuda")
         delta = attention_delta(do, o)
         dq = flash_attention_backward(q, k, v, do, lse, delta, ctx.causal,
                                       ctx.scale)

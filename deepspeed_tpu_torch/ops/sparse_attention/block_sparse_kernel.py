@@ -1,29 +1,41 @@
 """Block-sparse attention forward and backward on the card (counterpart of
 ``deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py``).
 
-Three hand-written CUDA kernels replace the TPU kernels of the JAX module:
+Hand-written CUDA kernels replace the TPU kernels of the JAX module:
 
 - ``csrc/block_sparse_fwd.cu`` for ``_fwd_kernel`` (``:79``, launched by
   ``_sparse_forward_impl`` at ``:141``): O in the input dtype and the fp32
   logsumexp, ``[B, H, S]``;
-- ``csrc/block_sparse_bwd_dq.cu`` for ``_bwd_dq_kernel`` (``:175`` ·
-  ``:280``): dQ, walking each query block's key blocks;
-- ``csrc/block_sparse_bwd_dkv.cu`` for ``_bwd_dkv_kernel`` (``:214`` ·
-  ``:311``): dK and dV, walking each key block's query blocks.
+- for ``_bwd_dq_kernel`` (``:175`` · ``:280``), dQ, walking each query
+  block's key blocks: ``csrc/block_sparse_bwd_dq_sm90.cu`` (tensor cores)
+  or ``csrc/block_sparse_bwd_dq.cu`` (CUDA cores);
+- for ``_bwd_dkv_kernel`` (``:214`` · ``:311``), dK and dV, walking each
+  key block's query blocks: ``csrc/block_sparse_bwd_dkv_sm90.cu`` (tensor
+  cores) or ``csrc/block_sparse_bwd_dkv.cu`` (CUDA cores).
+
+Which backward kernel runs is a rule of dtype and shape, not a fallback:
+bf16 with a block that is a multiple of 64 takes the tensor-core kernels
+(TMA loads, ``wgmma``, on ``csrc/sm90_common.cuh``), which read q, k, v
+and dO through tensor maps, so those views must keep TMA's 16-byte rule
+(:func:`~deepspeed_tpu_torch.ops.flash_attention.tma_view_error`;
+``ValueError`` otherwise); fp32 (the tensor cores would round it to
+TF32) and bf16 blocks of 16, 32, 48, 80, ... take the CUDA-core kernels.
+A build or launch error raises on either path.
 
 The layout is a ``[H, nq, nk]`` boolean (numpy, as in the JAX module) with
 square blocks and no empty row or column; :func:`block_lists` turns it
 into per-head CSR (row pointers and key-block indices, for the forward
 and dQ) and CSC lists (column pointers and query-block indices, for dK/dV:
 the counterpart of the JAX wrapper's ``flatten_layout(layout.transpose(0,
-2, 1))``), built once per layout and device and cached as int32 device
-tensors. The JAX wrapper's VMEM grouping and batch splitting (``_group``,
-the ``same_layout`` fold, the recursive batch halving) are TPU tiling
-devices with no counterpart here: the kernels take ``[B, H, S, D]`` and
-the per-head lists directly. They read q, k, v and dO through their
-(batch, head, token) strides (last dim contiguous), so transposed views
-of ``[B, T, H, D]`` projections go in without a copy. Head dim 64 and
-blocks that are a multiple of 16 in [16, 256] on the card.
+2, 1))``) and the tensor-core kernels' schedules (the (head, block) pairs
+longest walk first), built once per layout and device and cached as int32
+device tensors. The JAX wrapper's VMEM grouping and batch splitting
+(``_group``, the ``same_layout`` fold, the recursive batch halving) are
+TPU tiling devices with no counterpart here: the kernels take ``[B, H, S,
+D]`` and the per-head lists directly. They read q, k, v and dO through
+their (batch, head, token) strides (last dim contiguous), so transposed
+views of ``[B, T, H, D]`` projections go in without a copy. Head dim 64
+and blocks that are a multiple of 16 in [16, 256] on the card.
 
 Gradients flow through :class:`BlockSparseAttentionFunction`, the
 counterpart of the ``custom_vjp`` pair ``_fwd``/``_bwd``: it saves q, k,
@@ -35,7 +47,7 @@ saves its outputs instead of running the forward again in backward.
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel, or raises, for a CUDA tensor; ``.launches`` on each
-public wrapper counts its kernel's launches.
+public wrapper counts its kernel's launches, whichever source ran.
 """
 
 import ctypes
@@ -44,21 +56,34 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.flash_attention import (_require_cuda, _stream,
-                                                     _strides, attention_delta,
-                                                     probs_ds, softmax_pv)
-from deepspeed_tpu_torch.ops.op_builder import load
+from deepspeed_tpu_torch.ops.flash_attention import (_check_tma, _launch,
+                                                     _require_cuda, _stream,
+                                                     _strides, _tma_strides,
+                                                     attention_delta,
+                                                     probs_ds,
+                                                     readable_cotangent,
+                                                     softmax_pv)
 
 SUPPORTED_HEAD_DIMS = (64,)
 SUPPORTED_BLOCKS = tuple(range(16, 257, 16))
 _MAX_GRID_Y = 65535
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# after the pointers: is_bf16, B, H, Sq, Sk, D, block; strides, scale, stream
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the CUDA-core kernels, after the pointers: is_bf16, B, H, Sq, Sk, D,
+# block; one host array of strides, scale, stream. The tensor-core ones,
+# after the pointers (the last the schedule): B, H, Sq, Sk, D, block; the
+# (batch, head, token) strides of each tensor as arguments, scale, stream
 _TAIL = [_INT] * 7 + [_PTR, ctypes.c_float, _PTR]
-_SIG_FWD = {"ds_block_sparse_fwd": ([_PTR] * 7 + _TAIL, _INT)}
-_SIG_DQ = {"ds_block_sparse_bwd_dq": ([_PTR] * 9 + _TAIL, _INT)}
-_SIG_DKV = {"ds_block_sparse_bwd_dkv": ([_PTR] * 10 + _TAIL, _INT)}
+_TAIL_SM90 = [_INT] * 6
+_SIGS = {
+    "block_sparse_fwd": ([_PTR] * 7 + _TAIL, _INT),
+    "block_sparse_bwd_dq": ([_PTR] * 9 + _TAIL, _INT),
+    "block_sparse_bwd_dkv": ([_PTR] * 10 + _TAIL, _INT),
+    "block_sparse_bwd_dq_sm90": ([_PTR] * 10 + _TAIL_SM90 + [_I64] * 15
+                                 + [ctypes.c_float, _PTR], _INT),
+    "block_sparse_bwd_dkv_sm90": ([_PTR] * 11 + _TAIL_SM90 + [_I64] * 18
+                                  + [ctypes.c_float, _PTR], _INT),
+}
 
 
 def _scale(q, softmax_scale):
@@ -98,12 +123,17 @@ class BlockLists(NamedTuple):
     versions' mask) and the kernels' int32 lists. ``row_ptr [H*nq + 1]``
     and ``col_idx``: head h's query block i attends key blocks
     ``col_idx[row_ptr[h*nq + i]:row_ptr[h*nq + i + 1]]`` (ascending);
-    ``col_ptr [H*nk + 1]`` and ``row_idx`` the same by key block."""
+    ``col_ptr [H*nk + 1]`` and ``row_idx`` the same by key block.
+    ``dq_order [H*nq]`` and ``dkv_order [H*nk]``: the tensor-core
+    kernels' schedules, the pairs ``h*nq + i`` (``h*nk + j``) sorted by
+    row (column) length, longest first, ties by head then block."""
     layout: torch.Tensor
     row_ptr: torch.Tensor
     col_idx: torch.Tensor
     col_ptr: torch.Tensor
     row_idx: torch.Tensor
+    dq_order: torch.Tensor
+    dkv_order: torch.Tensor
 
 
 _LISTS = {}
@@ -116,10 +146,18 @@ def _csr(mask2d: np.ndarray):
     return ptr, np.nonzero(mask2d)[1].astype(np.int32)
 
 
+def _longest_first(ptr: np.ndarray) -> np.ndarray:
+    """The rows of a CSR pointer array sorted by length, longest first,
+    ties in row order: a kernel that maps its CTA index through this order
+    starts the longest walks in its first wave, so the short ones fill the
+    tail (no CTA starts a long walk in the last wave)."""
+    return np.argsort(-np.diff(ptr), kind="stable").astype(np.int32)
+
+
 def block_lists(layout: np.ndarray, device) -> BlockLists:
-    """The CSR and CSC lists of a checked layout on ``device``, built once
-    per (layout, device) and cached: the kernels read them from the card,
-    so no layer uploads them again."""
+    """The CSR and CSC lists of a checked layout and their schedules on
+    ``device``, built once per (layout, device) and cached: the kernels
+    read them from the card, so no layer uploads them again."""
     device = torch.device(device)
     key = (layout.shape, layout.tobytes(), str(device))
     lists = _LISTS.get(key)
@@ -130,7 +168,8 @@ def block_lists(layout: np.ndarray, device) -> BlockLists:
         lists = BlockLists(*(torch.from_numpy(np.ascontiguousarray(x))
                              .to(device)
                              for x in (layout, row_ptr, col_idx, col_ptr,
-                                       row_idx)))
+                                       row_idx, _longest_first(row_ptr),
+                                       _longest_first(col_ptr))))
         _LISTS[key] = lists
     return lists
 
@@ -244,55 +283,64 @@ def _dims(q, k, block):
     return (int(q.dtype == torch.bfloat16), b, h, sq, k.shape[2], d, block)
 
 
+def tensor_cores(dtype, block) -> bool:
+    """Whether the backward of ``dtype`` at ``block`` runs on the
+    tensor-core kernels (bf16, a block that is a multiple of 64) rather
+    than the CUDA-core ones."""
+    return dtype == torch.bfloat16 and block % 64 == 0
+
+
 def _fwd_launch(q, k, v, layout, row_ptr, col_idx, scale):
     """Launch ``csrc/block_sparse_fwd.cu`` over the CSR lists of
     ``layout``: ``(o, lse)``, o in q's layout."""
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    lib = load("block_sparse_fwd", _SIG_FWD)
-    err = lib.ds_block_sparse_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), row_ptr.data_ptr(), col_idx.data_ptr(),
-        *_dims(q, k, _block(q, layout)), _strides(q, k, v, o), float(scale),
-        _stream(q))
-    if err:
-        raise RuntimeError(f"block_sparse_fwd kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch("block_sparse_fwd", (q, k, v, o, lse, row_ptr, col_idx),
+            *_dims(q, k, _block(q, layout)), _strides(q, k, v, o),
+            float(scale), _stream(q), sigs=_SIGS)
     block_sparse_attention.launches += 1
     return o, lse
 
 
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, walk, block, scale):
+    """Launch backward kernel ``name`` writing ``outs``, walking ``walk``
+    (pointers, indices, schedule): its ``_sm90`` source where
+    :func:`tensor_cores` says so (TMA-checked views and the schedule),
+    else the CUDA-core one (pointers and indices)."""
+    ptrs = (q, k, v, do, lse, delta, *outs)
+    if tensor_cores(q.dtype, block):
+        _check_tma(name, q=q, k=k, v=v, do=do)
+        b, h, sq, d = q.shape
+        _launch(name + "_sm90", ptrs + walk, b, h, sq, k.shape[2], d, block,
+                *(s for t in (q, k, v, do) for s in _tma_strides(t)),
+                *(s for t in outs for s in t.stride()[:3]), float(scale),
+                _stream(q), sigs=_SIGS)
+    else:
+        _launch(name, ptrs + walk[:2], *_dims(q, k, block),
+                _strides(q, k, v, do, *outs), float(scale), _stream(q),
+                sigs=_SIGS)
+
+
 def _dq_launch(q, k, v, do, lse, delta, lists, scale):
-    """Launch ``csrc/block_sparse_bwd_dq.cu``: dq in q's layout."""
+    """Launch the dQ kernel, ``csrc/block_sparse_bwd_dq_sm90.cu`` or
+    ``csrc/block_sparse_bwd_dq.cu`` (:func:`tensor_cores`): dq in q's
+    layout."""
     dq = torch.empty_like(q)
-    lib = load("block_sparse_bwd_dq", _SIG_DQ)
-    err = lib.ds_block_sparse_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        lists.row_ptr.data_ptr(), lists.col_idx.data_ptr(),
-        *_dims(q, k, _block(q, lists.layout)), _strides(q, k, v, do, dq),
-        float(scale), _stream(q))
-    if err:
-        raise RuntimeError(f"block_sparse_bwd_dq kernel launch failed: CUDA "
-                           f"error {err}")
+    _bwd_launch("block_sparse_bwd_dq", q, k, v, do, lse, delta, (dq,),
+                (lists.row_ptr, lists.col_idx, lists.dq_order),
+                _block(q, lists.layout), scale)
     block_sparse_backward_dq.launches += 1
     return dq
 
 
 def _dkv_launch(q, k, v, do, lse, delta, lists, scale):
-    """Launch ``csrc/block_sparse_bwd_dkv.cu``: (dk, dv) in k's and v's
-    layout."""
+    """Launch the dK/dV kernel, ``csrc/block_sparse_bwd_dkv_sm90.cu`` or
+    ``csrc/block_sparse_bwd_dkv.cu`` (:func:`tensor_cores`): (dk, dv) in
+    k's and v's layout."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = load("block_sparse_bwd_dkv", _SIG_DKV)
-    err = lib.ds_block_sparse_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lists.col_ptr.data_ptr(), lists.row_idx.data_ptr(),
-        *_dims(q, k, _block(q, lists.layout)),
-        _strides(q, k, v, do, dk, dv), float(scale), _stream(q))
-    if err:
-        raise RuntimeError(f"block_sparse_bwd_dkv kernel launch failed: CUDA "
-                           f"error {err}")
+    _bwd_launch("block_sparse_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+                (lists.col_ptr, lists.row_idx, lists.dkv_order),
+                _block(q, lists.layout), scale)
     block_sparse_backward_dkv.launches += 1
     return dk, dv
 
@@ -339,8 +387,8 @@ class BlockSparseAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        do = readable_cotangent(
+            do, tensor_cores(do.dtype, _block(q, ctx.lists.layout)))
         delta = attention_delta(do, o)
         dq = _backward_dq(q, k, v, do, lse, delta, ctx.lists, ctx.scale)
         dk, dv = _backward_dkv(q, k, v, do, lse, delta, ctx.lists,

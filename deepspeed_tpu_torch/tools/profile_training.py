@@ -94,8 +94,10 @@ FAMILIES = (
     ("flash dQ", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("flash dK/dV", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("block-sparse forward", ("block_sparse_fwd_kernel",)),
-    ("block-sparse dQ", ("block_sparse_bwd_dq_kernel",)),
-    ("block-sparse dK/dV", ("block_sparse_bwd_dkv_kernel",)),
+    ("block-sparse dQ", ("block_sparse_bwd_dq_kernel",
+                         "block_sparse_bwd_dq_sm90_kernel")),
+    ("block-sparse dK/dV", ("block_sparse_bwd_dkv_kernel",
+                            "block_sparse_bwd_dkv_sm90_kernel")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
     ("softmax / cross-entropy", ("softmax", "nll_loss", "cross_entropy")),

@@ -15,6 +15,7 @@ reasons:
 """
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -31,12 +32,16 @@ from deepspeed_tpu.ops.sparse_attention.sparse_self_attention import (
     SparseSelfAttention as JaxSparseSelfAttention)
 from deepspeed_tpu.utils.compat import tpu_interpret_mode
 from deepspeed_tpu_torch.models import bert as port_bert
-from deepspeed_tpu_torch.ops.flash_attention import attention_delta
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops.flash_attention import (attention_delta,
+                                                     tma_view_error)
 from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_kernel as bs
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
     SparseAttentionUtils, SparseSelfAttention)
+from deepspeed_tpu_torch.tools.profile_training import BERT_SPARSE
 from deepspeed_tpu_torch.utils.params import bert_params_from_jax
+from tests.test_torch_ops import _c_arity
 
 B, H, S, D = 1, 4, 256, 32
 BLOCK = 32
@@ -330,6 +335,177 @@ def test_block_lists_are_csr_and_csc_per_head():
     # head h's global columns move with h % 4: a kernel reading head 0's
     # lists for every head would give other outputs
     assert len({tuple(np.nonzero(layout[h, 0])[0]) for h in range(H)}) == 4
+
+
+# the tensor-core kernels' routing, schedules and views: on the CPU, with
+# the kernel library stubbed where a launch is reached
+class _StubLib:
+    """Stands in for a built kernel library: records each call's source,
+    symbol, argument count and ctypes signature length, returns 0."""
+
+    def __init__(self, calls, source, sigs):
+        self.calls, self.source, self.sigs = calls, source, sigs
+
+    def __getattr__(self, fn):
+        def call(*args):
+            self.calls.append((self.source, fn, len(args),
+                               len(self.sigs[fn][0])))
+            return 0
+        return call
+
+
+def _bthd_views(b, h, s, dtype, width=64):
+    """q, k, v, dO as BERT hands them: ``[B, H, S, 64]`` views of
+    ``[B, S, H, width]`` tensors (``width`` 65 breaks TMA's rule: token
+    rows 130 bytes apart)."""
+    return [torch.zeros((b, s, h, width), dtype=dtype)[..., :64]
+            .transpose(1, 2) for _ in range(4)]
+
+
+def _launch_with_stub(which, q, k, v, do, layout):
+    calls = []
+    lists = bs.block_lists(layout, "cpu")
+    lse, delta = (torch.zeros(q.shape[:3]) for _ in range(2))
+    launch = bs._dq_launch if which == "dq" else bs._dkv_launch
+    with mock.patch.object(fa, "load",
+                           lambda src, sigs: _StubLib(calls, src, sigs)), \
+            mock.patch.object(bs, "_stream", lambda t: 0):
+        launch(q, k, v, do, lse, delta, lists, 0.125)
+    return calls
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("dtype,block,suffix", [
+    (torch.bfloat16, 128, "_sm90"), (torch.bfloat16, 64, "_sm90"),
+    (torch.float32, 128, ""), (torch.bfloat16, 32, "")])
+def test_backward_launch_reaches_its_kernel_symbol(which, dtype, block,
+                                                   suffix):
+    """Pins the routing rule: bf16 at a block that is a multiple of 64
+    calls the tensor-core entry point, fp32 and bf16 at block 32 the
+    CUDA-core one, with as many arguments as its ctypes signature and its
+    C declaration have; the launch is counted either way."""
+    s = 256
+    layout = _random_layout(5, s // block)
+    layout = np.broadcast_to(layout, (2, *layout.shape[1:])).copy()
+    q, k, v, do = _bthd_views(1, 2, s, dtype)
+    counter = (bs.block_sparse_backward_dq if which == "dq"
+               else bs.block_sparse_backward_dkv)
+    with mock.patch.object(counter, "launches", 0):
+        calls = _launch_with_stub(which, q, k, v, do, layout)
+        assert counter.launches == 1
+    assert bs.tensor_cores(dtype, block) == (suffix == "_sm90")
+    source = f"block_sparse_bwd_{which}{suffix}"
+    n = len(bs._SIGS[source][0])
+    assert calls == [(source, f"ds_{source}", n, n)]
+    assert _c_arity(source) == n
+
+
+def _brute_force_order(layout, by):
+    """The (head, block) pairs ``h * n + i`` sorted by walk length,
+    longest first, ties by head then block, counted one by one."""
+    h, nq, nk = layout.shape
+    n = nq if by == "row" else nk
+    length = {}
+    for hh in range(h):
+        for i in range(n):
+            cells = layout[hh, i, :] if by == "row" else layout[hh, :, i]
+            length[hh * n + i] = sum(bool(c) for c in cells)
+    return sorted(length, key=lambda p: (-length[p], p)), length
+
+
+@pytest.mark.parametrize("name", ["bert_slice", "bigbird"])
+def test_schedules_are_longest_first(name):
+    """``dq_order`` and ``dkv_order`` of the sparse BERT slice's layout
+    (16 heads, 4096 tokens, block 128: every row 11 key blocks, 384
+    columns of 4 query blocks and 128 global ones of 32) and of
+    bench_sparse.py's BigBird layout (12 heads, 8192 tokens, block 256):
+    each a permutation of every (head, block) pair, lengths not
+    increasing along it, equal to a brute-force count."""
+    if name == "bert_slice":
+        section, heads, seq = dict(BERT_SPARSE), 16, 4096
+    else:
+        section, heads, seq = {
+            "mode": "bigbird", "block": 256, "num_random_blocks": 1,
+            "num_sliding_window_blocks": 3, "num_global_blocks": 1,
+            "attention": "bidirectional"}, 12, 8192
+    layout = sc.sparsity_config_from_dict(section, heads).make_layout(
+        seq).astype(bool)
+    lists = bs.block_lists(layout, "cpu")
+    for order, by in ((lists.dq_order, "row"), (lists.dkv_order, "col")):
+        want, length = _brute_force_order(layout, by)
+        got = order.tolist()
+        assert order.dtype == torch.int32
+        assert sorted(got) == list(range(len(length)))
+        lengths = [length[p] for p in got]
+        assert all(a >= b for a, b in zip(lengths, lengths[1:]))
+        assert got == want
+    if name == "bert_slice":
+        assert set(layout.sum(axis=2).ravel()) == {11}
+        cols = layout.sum(axis=1).ravel()
+        assert (cols == 4).sum() == 384 and (cols == 32).sum() == 128
+        # the global columns come first
+        assert [length for length in
+                np.diff(lists.col_ptr.numpy())[lists.dkv_order[:128]]] == \
+            [32] * 128
+
+
+def _cotangents_seen(q, k, v, do, layout):
+    """dO as :class:`BlockSparseAttentionFunction`'s backward hands it to
+    the dQ and dK/dV wrappers (stubbed to return zeros)."""
+    seen = []
+
+    def dq(q_, k_, v_, do_, *rest):
+        seen.append(do_)
+        return torch.zeros_like(q_)
+
+    def dkv(q_, k_, v_, do_, *rest):
+        seen.append(do_)
+        return torch.zeros_like(k_), torch.zeros_like(v_)
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with mock.patch.object(bs, "_backward_dq", dq), \
+            mock.patch.object(bs, "_backward_dkv", dkv):
+        bs.block_sparse_attention(*leaves, layout).backward(do)
+    assert len(seen) == 2
+    return seen
+
+
+@pytest.mark.parametrize("block,width,copied", [
+    (128, 65, True), (128, 64, False), (32, 65, False)])
+def test_cotangent_copied_where_tma_cannot_read_it(block, width, copied):
+    """A bf16 dO view that breaks TMA's rule (token rows 130 bytes apart)
+    is copied to a readable one before the tensor-core launches, with the
+    same values; one that keeps the rule, or one bound for the CUDA-core
+    kernels (block 32), reaches them as it is."""
+    s = 256
+    layout = np.ones((2, s // block, s // block), bool)
+    rng = np.random.default_rng(3)
+    q, k, v, do = (t.copy_(torch.from_numpy(
+        rng.standard_normal(t.shape).astype(np.float32)))
+        for t in _bthd_views(1, 2, s, torch.bfloat16, width))
+    for got in _cotangents_seen(q, k, v, do, layout):
+        assert (got.data_ptr() != do.data_ptr()) == copied
+        torch.testing.assert_close(got, do, rtol=0, atol=0)
+        if bs.tensor_cores(got.dtype, block):
+            assert tma_view_error(got.shape, got.stride(),
+                                  got.element_size(),
+                                  got.data_ptr()) is None
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_tma_breaking_q_view_raises_on_the_tensor_core_route(which):
+    """A bf16 q view whose token rows are 130 bytes apart cannot be read
+    through a tensor map: the tensor-core launch refuses it with
+    ValueError before any call; the CUDA-core route (fp32) takes the same
+    view."""
+    layout = np.ones((2, 2, 2), bool)
+    q, *_ = _bthd_views(1, 2, 256, torch.bfloat16, width=65)
+    k, v, do = _bthd_views(1, 2, 256, torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match=r"TMA.*q view"):
+        _launch_with_stub(which, q, k, v, do, layout)
+    q, *_ = _bthd_views(1, 2, 256, torch.float32, width=65)
+    k, v, do = _bthd_views(1, 2, 256, torch.float32)[1:]
+    assert len(_launch_with_stub(which, q, k, v, do, layout)) == 1
 
 
 def test_self_attention_validation_like_jax():
