@@ -5,11 +5,11 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the fifteen CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
+1. build the sixteen CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once), print the card, each kernel's ptxas
-   registers and spills (for the five tensor-core sources, the bf16
-   flash forward, dQ and dK/dV and the bf16 block-sparse dQ and dK/dV,
-   by template instance: head dim and warpgroups), and the count of
+   registers and spills (for the six tensor-core sources, the bf16
+   flash forward, dQ and dK/dV and the bf16 block-sparse forward, dQ and
+   dK/dV, by template instance: head dim and warpgroups), and the count of
    HGMMA (``wgmma``) instructions in each tensor-core source's SASS
    (``cuobjdump -sass``): there must be some, and no spills;
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -25,9 +25,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    BERT slice's shape (fixed per-head layout, block 128, 2 x 16 x 4096),
    at bench_sparse.py's BigBird one (block 256, 1 x 12 x 8192), at a
    fixed layout of block 32 (1 x 4 x 1024) and at a per-head BigBird
-   layout of block 64 (2 x 4 x 1024; in bf16 the backward runs on the
-   tensor cores at blocks 64, 128 and 256 and on the CUDA cores at 32,
-   each source checked to be the one launched); the
+   layout of block 64 (2 x 4 x 1024; in bf16 the forward and backward run
+   on the tensor cores at blocks 64, 128 and 256 and on the CUDA cores at
+   32, each source checked to be the one launched), the append kernel
+   (split over the cache) also at T_q = 5 on a full cache, B = 1, D =
+   128, an index whose keys end on a split boundary and one inside the
+   first split, and twice on the same inputs, bitwise equal; the
    stochastic int8 quantizer (fp32) bit for bit at two seeds on GPT-2
    125M's gradient shapes, a ragged one and zeros, with its rounding
    checked against its contract (floor or floor + 1, the share rounded up
@@ -115,12 +118,14 @@ import numpy as np
 KERNEL_SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq_sm90",
                   "flash_bwd_dq", "flash_bwd_dkv_sm90", "flash_bwd_dkv",
                   "decode_append", "decode_paged", "decode_paged_int8",
-                  "block_sparse_fwd", "block_sparse_bwd_dq_sm90",
+                  "block_sparse_fwd_sm90", "block_sparse_fwd",
+                  "block_sparse_bwd_dq_sm90",
                   "block_sparse_bwd_dq", "block_sparse_bwd_dkv_sm90",
                   "block_sparse_bwd_dkv", "stochastic_quantize")
 # the tensor-core kernels, whose SASS must hold wgmma (HGMMA) instructions
 WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
-                 "block_sparse_bwd_dq_sm90", "block_sparse_bwd_dkv_sm90")
+                 "block_sparse_fwd_sm90", "block_sparse_bwd_dq_sm90",
+                 "block_sparse_bwd_dkv_sm90")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -602,7 +607,7 @@ def check_block_sparse(dtype, gen):
     ``[B, H, S, D]`` views of ``[B, S, H, D]`` tensors as BERT hands them
     over; then the autograd path, checked to launch each kernel once,
     through the source the wrapper's rule names (``tensor_cores``: the
-    ``_sm90`` backward for bf16 at a block that is a multiple of 64), and
+    ``_sm90`` sources for bf16 at a block that is a multiple of 64), and
     to give the plain versions' gradients. Times kernel, plain version and
     the library yardstick (SDPA with the layout expanded to a boolean
     ``[1, H, S, S]`` mask: its forward for the forward row, its backward
@@ -662,7 +667,8 @@ def check_block_sparse(dtype, gen):
                                      f"{kname} launched "
                                      f"{after[kname] - before[kname]} times")
         suffix = "_sm90" if bs.tensor_cores(dtype, block) else ""
-        want_sources = ["block_sparse_fwd", f"block_sparse_bwd_dq{suffix}",
+        want_sources = [f"block_sparse_fwd{suffix}",
+                        f"block_sparse_bwd_dq{suffix}",
                         f"block_sparse_bwd_dkv{suffix}"]
         if sources != want_sources:
             raise AssertionError(f"block_sparse_attention {name} {dtype}: "
@@ -683,7 +689,8 @@ def check_block_sparse(dtype, gen):
         plain_args = (*args[:-1], lists.layout)
         csr = 4 * (lists.row_ptr.numel() + lists.col_idx.numel())
         csc = 4 * (lists.col_ptr.numel() + lists.row_idx.numel())
-        # the tensor-core backward kernels also read their schedule
+        # the tensor-core kernels also read their schedule (the forward
+        # dQ's)
         order_dq, order_dkv = ((4 * lists.dq_order.numel(),
                                 4 * lists.dkv_order.numel())
                                if suffix else (0, 0))
@@ -710,7 +717,8 @@ def check_block_sparse(dtype, gen):
                         q, k, v, lists.layout),
                     lib_fwd),
             "library_fwd_bwd_ms": fwd_bwd_ms,
-            **bound(4 * io + stats + csr, {dt: 4 * D * n_pairs})})
+            **bound(4 * io + stats + csr + order_dq,
+                    {dt: 4 * D * n_pairs})})
         dq_rows.append({
             "shape": name, "source": want_sources[1], "max_abs_err": errs[0],
             **times(lambda: bs.block_sparse_backward_dq(*args),
@@ -740,16 +748,34 @@ def check_block_sparse(dtype, gen):
     return fwd_rows, dq_rows, dkv_rows
 
 
+# the append checks: (B, H, D, S, idx, T_q). The first four as before
+# (row 2 is the timed shape); then T_q = 5 on a full cache (idx + T_q =
+# S; its two row groups see 1023 and 1024 keys), B = 1, D = 128, keys
+# that end on a split boundary (512 keys: two splits of exactly
+# MIN_SPLIT_KEYS = 256) and keys that end inside the first split (47
+# keys: one split, which writes O itself)
+APPEND_CASES = ((2, 12, 64, 1024, 0, 1), (2, 12, 64, 1024, 255, 1),
+                (2, 12, 64, 1024, 1000, 1), (2, 12, 64, 1024, 255, 3),
+                (2, 12, 64, 1024, 1019, 5), (1, 12, 64, 1024, 1000, 1),
+                (2, 12, 128, 1024, 1000, 1), (2, 12, 64, 1024, 511, 1),
+                (2, 12, 64, 1024, 46, 1))
+
+
 def check_append(dtype, gen):
+    """The append kernel against its plain version at APPEND_CASES, rows
+    past the valid prefix filled with 1e4 (K) and NaN (V), which it must
+    not read; a second call on the same inputs must give the same bits
+    (the partials merge in split order). Each row logs the grid's split
+    count and the least keys a split takes."""
     import torch
     import torch.nn.functional as F
 
-    from deepspeed_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+    from deepspeed_tpu_torch.ops import decode_attention as da
 
-    B, S, H, D = 2, 1024, 12, 64
     rows = []
-    for idx, tq in ((0, 1), (255, 1), (1000, 1), (255, 3)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, H, D, S, idx, tq in APPEND_CASES:
+        splits = da.append_splits(B, H, tq, S, sms)
         kc, vc = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                   .to(dtype) for _ in range(2))
         # rows past the valid prefix hold garbage the kernel must not read
@@ -757,11 +783,15 @@ def check_append(dtype, gen):
         vc[:, idx + tq:] = float("nan")
         q = torch.randn((B, tq, H, D), generator=gen, device="cuda").to(dtype)
         index = torch.tensor(idx, dtype=torch.int32, device="cuda")
-        got = decode_attention(q, kc, vc, index)
-        want = decode_attention_reference(q, kc, vc, index)
+        got = da.decode_attention(q, kc, vc, index)
+        again = da.decode_attention(q, kc, vc, index)
+        want = da.decode_attention_reference(q, kc, vc, index)
         torch.cuda.synchronize()
-        err = compare(f"append idx={idx} tq={tq} {dtype}", got, want,
-                      str(dtype)[6:])
+        shape = f"B={B} H={H} D={D} S={S} idx={idx} T_q={tq}"
+        err = compare(f"append {shape} {dtype}", got, want, str(dtype)[6:])
+        if not torch.equal(got, again):
+            raise AssertionError(f"append {shape} {dtype}: two calls on the "
+                                 f"same inputs differ")
         keys = idx + tq
         esize = q.element_size()
         nbytes = 2 * B * keys * H * D * esize + 2 * q.numel() * esize + 4
@@ -769,13 +799,18 @@ def check_append(dtype, gen):
         pos = torch.arange(S, device="cuda")
         mask = pos[None, :] <= idx + torch.arange(tq, device="cuda")[:, None]
         rows.append({
-            "shape": f"B={B} S={S} idx={idx} T_q={tq}", "max_abs_err": err,
-            **times(lambda: decode_attention(q, kc, vc, index),
-                    lambda: decode_attention_reference(q, kc, vc, index),
+            "shape": shape, "max_abs_err": err, "splits": splits,
+            **times(lambda: da.decode_attention(q, kc, vc, index),
+                    lambda: da.decode_attention_reference(q, kc, vc, index),
                     lambda: F.scaled_dot_product_attention(
                         q.transpose(1, 2), kc.transpose(1, 2),
                         vc.transpose(1, 2), attn_mask=mask)),
             **bound(nbytes, {str(dtype)[6:]: flops})})
+        log(f"append {shape} {dtype}: a grid of {splits} splits "
+            f"({B * H * -(-tq // da.DEC_ROWS) * splits} CTAs) of at least "
+            f"{da.MIN_SPLIT_KEYS} keys for the last row group's "
+            f"{min(idx + tq, S)}, bitwise equal on a second call, max "
+            f"|kernel - plain| {err}")
     return rows
 
 
@@ -892,7 +927,7 @@ def plain_versions():
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_kernel as bs
 
-    def sparse_fwd(q, k, v, layout, row_ptr, col_idx, scale):
+    def sparse_fwd(q, k, v, layout, row_ptr, col_idx, order, scale):
         return bs.block_sparse_attention_reference(q, k, v, layout, scale)
 
     def sparse_dq(q, k, v, do, lse, delta, lists, scale):
@@ -1707,15 +1742,16 @@ KERNEL_TABLE = {
                                  "training", "flash_bwd_dkv", 1,
                                  fp32_source="flash_bwd_dkv.cu"),
     "decode_append": Kernel("decode_append.cu", f"{_DECODE}:39", "generate",
-                            "decode_append", 2),
+                            "decode_append", 2, rows=("splits",)),
     "decode_paged": Kernel("decode_paged.cu", f"{_DECODE}:194", "serving",
                            "decode_paged", 0, rows=()),
     "decode_paged_int8": Kernel("decode_paged_int8.cu", f"{_DECODE}:319",
                                 "fast_path", "decode_paged_int8", 0,
                                 rows=()),
-    "block_sparse_fwd": Kernel("block_sparse_fwd.cu", f"{_SPARSE}:79",
+    "block_sparse_fwd": Kernel("block_sparse_fwd_sm90.cu", f"{_SPARSE}:79",
                                "bert_sparse", "block_sparse_fwd", 0,
-                               rows=("source",)),
+                               rows=("source",),
+                               fp32_source="block_sparse_fwd.cu"),
     "block_sparse_bwd_dq": Kernel("block_sparse_bwd_dq_sm90.cu",
                                   f"{_SPARSE}:175", "bert_sparse",
                                   "block_sparse_bwd_dq", 0,

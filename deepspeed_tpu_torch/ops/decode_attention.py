@@ -6,7 +6,9 @@ Two hand-written CUDA kernels replace the TPU kernels of that module:
 - :func:`decode_attention` — ``csrc/decode_append.cu``, replacing
   ``_kernel`` (``decode_attention.py:39``, launched at ``:135``): a decode
   step against the valid ``[0, cache_index + T_q)`` prefix of an append
-  KV cache (``InferenceEngine.generate``);
+  KV cache (``InferenceEngine.generate``), split over the cache
+  (:func:`append_splits`) with the partials merged inside the same
+  launch;
 - :func:`decode_attention_paged` — ``csrc/decode_paged.cu``, replacing
   ``_paged_kernel`` (``decode_attention.py:194``, launched at ``:300``):
   the same through per-row block tables and lengths over a shared block
@@ -22,12 +24,13 @@ come with the multi-GPU slice.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from deepspeed_tpu_torch.models.decode_utils import cache_attn_mask
 from deepspeed_tpu_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS,
-                                                     softmax_pv)
+                                                     _stream, softmax_pv)
 from deepspeed_tpu_torch.ops.op_builder import load
 
 # pool block 0 is the reserved garbage sink: block tables pad with it,
@@ -35,10 +38,23 @@ from deepspeed_tpu_torch.ops.op_builder import load
 # reads it
 GARBAGE_BLOCK = 0
 
+# query rows a CTA of the decode kernels (csrc/decode_common.cuh)
+DEC_ROWS = 4
+# the append kernel's split of the cache: no split under MIN_SPLIT_KEYS
+# keys (the kernel takes it as an argument), at most 64 splits (its merge's
+# shared arrays; it refuses more), and a grid of at most 65535 in z. On the
+# H100 a split's merge (fence, ticket, a second pass) costs ~3 us, more
+# than one CTA's walk over a few hundred keys saves: at B=2 H=12 S=1024,
+# 256 keeps generate()'s 129-160 visible keys on one CTA a row group and
+# times as 64 does at 1001 keys (tools/time_decode.py sweeps it)
+MIN_SPLIT_KEYS = 256
+MAX_SPLITS = 64
+_MAX_GRID_Z = 65535
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _APPEND_SIG = {"ds_decode_append": (
-    [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P], _I)}
+    [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P], _I)}
 _PAGED_SIG = {"ds_decode_paged": (
     [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P], _I)}
 _PAGED_INT8_SIG = {"ds_decode_paged_int8": (
@@ -197,6 +213,78 @@ def _int32_on(t, device, name):
                          f"{device}, got {t.dtype} on {t.device}")
 
 
+def append_splits(b, h, tq, s, sms):
+    """The most CTAs that split the keys of each (batch row, head, group
+    of :data:`DEC_ROWS` query rows) in ``csrc/decode_append.cu``, which
+    sizes its grid and workspace: enough for two CTAs on each of ``sms``
+    SMs, no more than a cache of ``s`` keys cut :data:`MIN_SPLIT_KEYS` at
+    a time holds, at most :data:`MAX_SPLITS`. A function of the shapes
+    alone, never of the cache index, which stays on the device: the launch
+    needs no host sync. The kernel itself cuts the keys a row group sees
+    into as many of them as hold :data:`MIN_SPLIT_KEYS` keys each (one
+    where fewer are visible); the rest end at once."""
+    groups = -(-tq // DEC_ROWS)
+    want = -(-2 * sms // (b * h * groups))
+    return max(1, min(want, s // MIN_SPLIT_KEYS, MAX_SPLITS,
+                      _MAX_GRID_Z // groups))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the append kernel's fp32 partials and int32 tickets, per (device,
+# stream)
+_WORKSPACE = {}
+
+
+def _append_workspace(key, device, n_partial, n_tickets):
+    """The append kernel's workspace for ``key`` = (device, stream):
+    ``n_partial`` fp32 values for the splits' partials and ``n_tickets``
+    int32 counters, cached and grown as needed, never allocated per call.
+    The counters start at 0 and each merging CTA resets its own, so they
+    are 0 between launches; launches on one stream run one after another,
+    so they never share a counter. A launch that fails leaves counters it
+    may have taken: the wrapper then drops the key's set."""
+    ws, tickets = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < n_partial:
+        ws = torch.empty(n_partial, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = (ws, tickets)
+    return ws, tickets
+
+
+def _append_launch(q, k_cache, v_cache, cache_index, scale):
+    """Launch ``csrc/decode_append.cu`` once, on a grid of
+    :func:`append_splits` splits a row group, with the partials and
+    tickets in the cached workspace of q's device and current stream.
+    Returns ``[B, T_q, H, D]`` in q's dtype."""
+    b, tq, h, d = q.shape
+    s_len = k_cache.shape[1]
+    splits = append_splits(b, h, tq, s_len, _sm_count(q.device))
+    groups = -(-tq // DEC_ROWS)
+    stream = _stream(q)
+    key = (q.device, stream)
+    ws, tickets = _append_workspace(
+        key, q.device, b * h * groups * splits * DEC_ROWS * (d + 2),
+        b * h * groups)
+    out = torch.empty_like(q)
+    lib = load("decode_append", _APPEND_SIG)
+    err = lib.ds_decode_append(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cache_index.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        tickets.data_ptr(), int(q.dtype == torch.bfloat16), b, tq, h, d,
+        s_len, splits, MIN_SPLIT_KEYS, float(scale), stream)
+    if err:
+        _WORKSPACE.pop(key, None)
+        raise RuntimeError(f"decode_append kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention.launches += 1
+    return out
+
+
 def decode_attention(q, k_cache, v_cache, cache_index, softmax_scale=None):
     """Attend a decode step against the valid prefix of an append KV cache.
 
@@ -216,20 +304,8 @@ def decode_attention(q, k_cache, v_cache, cache_index, softmax_scale=None):
     if cache_index.dim() != 0:
         raise ValueError("cache_index must be a 0-d int32 tensor")
     _int32_on(cache_index, q.device, "cache_index")
-    b, tq, h, d = q.shape
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    out = torch.empty_like(q)
-    lib = load("decode_append", _APPEND_SIG)
-    err = lib.ds_decode_append(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_index.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, tq, h, d, k_cache.shape[1],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_append kernel launch failed: CUDA "
-                           f"error {err}")
-    decode_attention.launches += 1
-    return out
+    scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
+    return _append_launch(q, k_cache, v_cache, cache_index, scale)
 
 
 def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
@@ -261,7 +337,7 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, tq, h, d, nb, bs,
         block_tables.shape[1], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     if err:
         raise RuntimeError(f"decode_paged kernel launch failed: CUDA error "
                            f"{err}")
@@ -310,7 +386,7 @@ def decode_attention_paged_int8(q, k_pool, v_pool, k_scale, v_scale,
         k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
         b, tq, h, d, nb, bs, block_tables.shape[1], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     if err:
         raise RuntimeError(f"decode_paged_int8 kernel launch failed: CUDA "
                            f"error {err}")

@@ -3,9 +3,10 @@
 
 Hand-written CUDA kernels replace the TPU kernels of the JAX module:
 
-- ``csrc/block_sparse_fwd.cu`` for ``_fwd_kernel`` (``:79``, launched by
-  ``_sparse_forward_impl`` at ``:141``): O in the input dtype and the fp32
-  logsumexp, ``[B, H, S]``;
+- for ``_fwd_kernel`` (``:79``, launched by ``_sparse_forward_impl`` at
+  ``:141``), O in the input dtype and the fp32 logsumexp, ``[B, H, S]``,
+  walking each query block's key blocks: ``csrc/block_sparse_fwd_sm90.cu``
+  (tensor cores) or ``csrc/block_sparse_fwd.cu`` (CUDA cores);
 - for ``_bwd_dq_kernel`` (``:175`` · ``:280``), dQ, walking each query
   block's key blocks: ``csrc/block_sparse_bwd_dq_sm90.cu`` (tensor cores)
   or ``csrc/block_sparse_bwd_dq.cu`` (CUDA cores);
@@ -13,10 +14,11 @@ Hand-written CUDA kernels replace the TPU kernels of the JAX module:
   key block's query blocks: ``csrc/block_sparse_bwd_dkv_sm90.cu`` (tensor
   cores) or ``csrc/block_sparse_bwd_dkv.cu`` (CUDA cores).
 
-Which backward kernel runs is a rule of dtype and shape, not a fallback:
-bf16 with a block that is a multiple of 64 takes the tensor-core kernels
-(TMA loads, ``wgmma``, on ``csrc/sm90_common.cuh``), which read q, k, v
-and dO through tensor maps, so those views must keep TMA's 16-byte rule
+Which kernel runs, forward and backward alike, is a rule of dtype and
+shape (:func:`tensor_cores`), not a fallback: bf16 with a block that is
+a multiple of 64 takes the tensor-core kernels (TMA loads, ``wgmma``, on
+``csrc/sm90_common.cuh``), which read q, k, v and dO through tensor maps,
+so those views must keep TMA's 16-byte rule
 (:func:`~deepspeed_tpu_torch.ops.flash_attention.tma_view_error`;
 ``ValueError`` otherwise); fp32 (the tensor cores would round it to
 TF32) and bf16 blocks of 16, 32, 48, 80, ... take the CUDA-core kernels.
@@ -28,7 +30,8 @@ into per-head CSR (row pointers and key-block indices, for the forward
 and dQ) and CSC lists (column pointers and query-block indices, for dK/dV:
 the counterpart of the JAX wrapper's ``flatten_layout(layout.transpose(0,
 2, 1))``) and the tensor-core kernels' schedules (the (head, block) pairs
-longest walk first), built once per layout and device and cached as int32
+longest walk first; the forward takes dQ's, since it walks the same
+rows), built once per layout and device and cached as int32
 device tensors. The JAX wrapper's VMEM grouping and batch splitting
 (``_group``, the ``same_layout`` fold, the recursive batch halving) are
 TPU tiling devices with no counterpart here: the kernels take ``[B, H, S,
@@ -77,6 +80,8 @@ _TAIL = [_INT] * 7 + [_PTR, ctypes.c_float, _PTR]
 _TAIL_SM90 = [_INT] * 6
 _SIGS = {
     "block_sparse_fwd": ([_PTR] * 7 + _TAIL, _INT),
+    "block_sparse_fwd_sm90": ([_PTR] * 8 + _TAIL_SM90 + [_I64] * 12
+                              + [ctypes.c_float, _PTR], _INT),
     "block_sparse_bwd_dq": ([_PTR] * 9 + _TAIL, _INT),
     "block_sparse_bwd_dkv": ([_PTR] * 10 + _TAIL, _INT),
     "block_sparse_bwd_dq_sm90": ([_PTR] * 10 + _TAIL_SM90 + [_I64] * 15
@@ -284,41 +289,44 @@ def _dims(q, k, block):
 
 
 def tensor_cores(dtype, block) -> bool:
-    """Whether the backward of ``dtype`` at ``block`` runs on the
-    tensor-core kernels (bf16, a block that is a multiple of 64) rather
-    than the CUDA-core ones."""
+    """Whether the forward and backward of ``dtype`` at ``block`` run on
+    the tensor-core kernels (bf16, a block that is a multiple of 64)
+    rather than the CUDA-core ones."""
     return dtype == torch.bfloat16 and block % 64 == 0
 
 
-def _fwd_launch(q, k, v, layout, row_ptr, col_idx, scale):
-    """Launch ``csrc/block_sparse_fwd.cu`` over the CSR lists of
-    ``layout``: ``(o, lse)``, o in q's layout."""
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("block_sparse_fwd", (q, k, v, o, lse, row_ptr, col_idx),
-            *_dims(q, k, _block(q, layout)), _strides(q, k, v, o),
-            float(scale), _stream(q), sigs=_SIGS)
-    block_sparse_attention.launches += 1
-    return o, lse
-
-
-def _bwd_launch(name, q, k, v, do, lse, delta, outs, walk, block, scale):
-    """Launch backward kernel ``name`` writing ``outs``, walking ``walk``
-    (pointers, indices, schedule): its ``_sm90`` source where
-    :func:`tensor_cores` says so (TMA-checked views and the schedule),
-    else the CUDA-core one (pointers and indices)."""
-    ptrs = (q, k, v, do, lse, delta, *outs)
+def _routed_launch(name, ptrs, views, outs, walk, block, scale):
+    """Launch kernel ``name`` on the tensors ``ptrs`` (in its argument
+    order), walking ``walk`` (pointers, indices, schedule): its ``_sm90``
+    source where :func:`tensor_cores` says so (the TMA-checked input
+    ``views``, q, k, v and in the backward dO, and the schedule), else
+    the CUDA-core one (pointers and indices); each gets the (batch, head,
+    token) strides of ``views`` and then of the outputs ``outs``."""
+    q, k = views[:2]
     if tensor_cores(q.dtype, block):
-        _check_tma(name, q=q, k=k, v=v, do=do)
+        _check_tma(name, **dict(zip(("q", "k", "v", "do"), views)))
         b, h, sq, d = q.shape
         _launch(name + "_sm90", ptrs + walk, b, h, sq, k.shape[2], d, block,
-                *(s for t in (q, k, v, do) for s in _tma_strides(t)),
+                *(s for t in views for s in _tma_strides(t)),
                 *(s for t in outs for s in t.stride()[:3]), float(scale),
                 _stream(q), sigs=_SIGS)
     else:
         _launch(name, ptrs + walk[:2], *_dims(q, k, block),
-                _strides(q, k, v, do, *outs), float(scale), _stream(q),
+                _strides(*views, *outs), float(scale), _stream(q),
                 sigs=_SIGS)
+
+
+def _fwd_launch(q, k, v, layout, row_ptr, col_idx, order, scale):
+    """Launch the forward kernel, ``csrc/block_sparse_fwd_sm90.cu`` or
+    ``csrc/block_sparse_fwd.cu`` (:func:`tensor_cores`), over the CSR
+    lists of ``layout`` and the rows' schedule ``order``: ``(o, lse)``, o
+    in q's layout."""
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _routed_launch("block_sparse_fwd", (q, k, v, o, lse), (q, k, v), (o,),
+                   (row_ptr, col_idx, order), _block(q, layout), scale)
+    block_sparse_attention.launches += 1
+    return o, lse
 
 
 def _dq_launch(q, k, v, do, lse, delta, lists, scale):
@@ -326,9 +334,10 @@ def _dq_launch(q, k, v, do, lse, delta, lists, scale):
     ``csrc/block_sparse_bwd_dq.cu`` (:func:`tensor_cores`): dq in q's
     layout."""
     dq = torch.empty_like(q)
-    _bwd_launch("block_sparse_bwd_dq", q, k, v, do, lse, delta, (dq,),
-                (lists.row_ptr, lists.col_idx, lists.dq_order),
-                _block(q, lists.layout), scale)
+    _routed_launch("block_sparse_bwd_dq", (q, k, v, do, lse, delta, dq),
+                   (q, k, v, do), (dq,),
+                   (lists.row_ptr, lists.col_idx, lists.dq_order),
+                   _block(q, lists.layout), scale)
     block_sparse_backward_dq.launches += 1
     return dq
 
@@ -338,9 +347,10 @@ def _dkv_launch(q, k, v, do, lse, delta, lists, scale):
     ``csrc/block_sparse_bwd_dkv.cu`` (:func:`tensor_cores`): (dk, dv) in
     k's and v's layout."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("block_sparse_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
-                (lists.col_ptr, lists.row_idx, lists.dkv_order),
-                _block(q, lists.layout), scale)
+    _routed_launch("block_sparse_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+                   (q, k, v, do), (dk, dv),
+                   (lists.col_ptr, lists.row_idx, lists.dkv_order),
+                   _block(q, lists.layout), scale)
     block_sparse_backward_dkv.launches += 1
     return dk, dv
 
@@ -352,17 +362,17 @@ def _dkv_launch(q, k, v, do, lse, delta, lists, scale):
                          mutates_args=())
 def block_sparse_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         layout: torch.Tensor, row_ptr: torch.Tensor,
-                        col_idx: torch.Tensor, scale: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        col_idx: torch.Tensor, order: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)``: the plain version on the CPU, the kernel on the card
     (callers check the device first)."""
     if q.device.type == "cpu":
         return block_sparse_attention_reference(q, k, v, layout, scale)
-    return _fwd_launch(q, k, v, layout, row_ptr, col_idx, scale)
+    return _fwd_launch(q, k, v, layout, row_ptr, col_idx, order, scale)
 
 
 @block_sparse_fwd_op.register_fake
-def _block_sparse_fwd_fake(q, k, v, layout, row_ptr, col_idx, scale):
+def _block_sparse_fwd_fake(q, k, v, layout, row_ptr, col_idx, order, scale):
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
@@ -378,7 +388,7 @@ class BlockSparseAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, lists, scale):
         o, lse = block_sparse_fwd_op(q, k, v, lists.layout, lists.row_ptr,
-                                     lists.col_idx, scale)
+                                     lists.col_idx, lists.dq_order, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.lists, ctx.scale = lists, scale
         ctx.mark_non_differentiable(lse)

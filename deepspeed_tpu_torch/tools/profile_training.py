@@ -27,7 +27,8 @@ peak, with the bench's flops per token (GPT-2: 6N + 6·L·T·C; BERT: 6N +
 ``torch.profiler``: device time summed by kernel family (the port's
 attention kernels, GEMMs, the rest), and the device's busy share of the
 profiled wall time (the profiler slows the host, so this share is a lower
-bound of the unprofiled one). Last, on CUDA events, the dense LM / MLM
+bound of the unprofiled one), and the host's operators and runtime calls
+by their own CPU time. Last, on CUDA events, the dense LM / MLM
 head loss (forward and backward) and the optimizer apply each alone.
 Prints one JSON object. Needs a card.
 """
@@ -93,7 +94,8 @@ FAMILIES = (
     ("flash forward", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("flash dQ", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("flash dK/dV", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
-    ("block-sparse forward", ("block_sparse_fwd_kernel",)),
+    ("block-sparse forward", ("block_sparse_fwd_kernel",
+                              "block_sparse_fwd_sm90_kernel")),
     ("block-sparse dQ", ("block_sparse_bwd_dq_kernel",
                          "block_sparse_bwd_dq_sm90_kernel")),
     ("block-sparse dK/dV", ("block_sparse_bwd_dkv_kernel",
@@ -290,6 +292,11 @@ def run(seed: int, steps: int, model: str = "gpt2-125m"):
                      if any(f in e.key.lower() for f in frags)), "other")
         families[name] += _device_us(e) / 1e3 / n_prof
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    # the host's side of the same window: operators and runtime calls by
+    # their own CPU time (the profiler's overhead included)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
 
     # the dense LM / MLM head (forward + backward) and the optimizer, each
     # alone
@@ -325,7 +332,10 @@ def run(seed: int, steps: int, model: str = "gpt2-125m"):
             "device_ms_per_step_by_family": families,
             "top_device_ms_per_step": [
                 (e.key[:90], e.count / n_prof, _device_us(e) / 1e3 / n_prof)
-                for e in top]},
+                for e in top],
+            "top_host_self_ms_per_step": [
+                (e.key[:90], e.count / n_prof,
+                 e.self_cpu_time_total / 1e3 / n_prof) for e in host]},
         "alone_ms": {"lm_head_loss_fwd_bwd": head_ms,
                      "optimizer_apply": optimizer_ms},
     }

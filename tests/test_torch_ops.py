@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.models.decode_utils import (cache_attn_mask,
                                                      paged_positions,
                                                      paged_write_rows)
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from deepspeed_tpu_torch.ops import decode_attention as da
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.attention import attention, attention_reference
 from deepspeed_tpu_torch.ops.decode_attention import (
@@ -322,7 +323,7 @@ def test_attention_gradients_match_dense_reference():
 # append-cache decode (TPU kernel _kernel)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("idx,tq", [(0, 1), (63, 1), (64, 1), (65, 3),
-                                    (124, 4)])
+                                    (124, 4), (123, 5)])
 def test_decode_matches_pallas(idx, tq):
     B, H, D, S = 2, 2, 16, 128
     rng = np.random.default_rng(idx + tq)
@@ -339,6 +340,109 @@ def test_decode_matches_pallas(idx, tq):
                            torch.from_numpy(vc),
                            torch.tensor(idx, dtype=torch.int32))
     _close(out, ref)
+
+
+@pytest.mark.parametrize("b,h,tq,s", [
+    (2, 12, 1, 1024), (1, 12, 1, 1024), (2, 12, 5, 1024), (2, 12, 1, 192),
+    (16, 12, 1, 1024), (1, 1, 1, 100_000), (2, 12, 1, 64), (1, 2, 1, 63),
+    (2, 12, 1, 16384)])
+def test_append_splits_cover_the_cache(b, h, tq, s):
+    """The append kernel's split: from the shapes alone (no cache index
+    among its arguments), at most 64. The full cache ``[0, S)`` cut into
+    that many splits leaves each at least :data:`MIN_SPLIT_KEYS` >= 64
+    keys (one split where the cache holds fewer): at B=2 H=12 S=1024 (the
+    timed shape) that bounds it at 4 splits, 96 CTAs; a cache long enough
+    takes 264 CTAs or more, two on each of the H100's 132 SMs. How the
+    kernel cuts the keys a row group sees is held on the card
+    (``chip_smoke.py``'s append cases, a split boundary among them)."""
+    splits = da.append_splits(b, h, tq, s, 132)
+    assert 1 <= splits <= da.MAX_SPLITS
+    assert da.MIN_SPLIT_KEYS >= 64
+    assert splits == 1 or s // splits >= da.MIN_SPLIT_KEYS
+    ctas = b * h * -(-tq // da.DEC_ROWS) * splits
+    if (b, h, tq, s) == (2, 12, 1, 1024):
+        assert splits == 1024 // da.MIN_SPLIT_KEYS
+    if (b, h, tq, s) == (2, 12, 1, 16384):
+        assert ctas >= 2 * 132
+    if s >= da.MIN_SPLIT_KEYS * da.MAX_SPLITS:   # a long cache fills the card
+        assert ctas >= min(2 * 132, b * h * -(-tq // da.DEC_ROWS)
+                           * da.MAX_SPLITS)
+
+
+def test_append_launch_is_one_call_with_workspace_and_tickets():
+    """``_append_launch`` (what :func:`decode_attention` runs on the card)
+    with ``load`` patched to a stub library: one call of
+    ``ds_decode_append`` per step, with as many arguments as its ctypes
+    signature and C declaration, the cached fp32 workspace and zeroed
+    int32 tickets of the sizes the split needs, the same split whatever
+    the cache index, and the launch counted."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((fn, args))
+                return 0
+            return call
+
+    B, S, H, D, tq = 2, 1024, 12, 64, 5
+    q = torch.zeros((B, tq, H, D), dtype=torch.bfloat16)
+    kc = torch.zeros((B, S, H, D), dtype=torch.bfloat16)
+    with mock.patch.object(da, "load", lambda src, sigs: Lib()), \
+            mock.patch.object(da, "_stream", lambda t: 0), \
+            mock.patch.object(da, "_sm_count", lambda dev: 132), \
+            mock.patch.object(da, "_WORKSPACE", {}), \
+            mock.patch.object(decode_attention, "launches", 0):
+        for idx in (0, 700, S - tq):
+            da._append_launch(q, kc, kc, torch.tensor(idx, dtype=torch.int32),
+                              0.125)
+        assert decode_attention.launches == 3
+        ws, tickets = da._WORKSPACE[(q.device, 0)]
+    splits = da.append_splits(B, H, tq, S, 132)
+    groups = 2
+    n = len(da._APPEND_SIG["ds_decode_append"][0])
+    assert _c_arity("decode_append") == n
+    assert [fn for fn, _ in calls] == ["ds_decode_append"] * 3
+    for _, args in calls:
+        assert len(args) == n
+        assert args[5:7] == (ws.data_ptr(), tickets.data_ptr())
+        assert args[7:15] == (1, B, tq, H, D, S, splits, da.MIN_SPLIT_KEYS)
+    assert ws.dtype == torch.float32
+    assert ws.numel() == B * H * groups * splits * da.DEC_ROWS * (D + 2)
+    assert tickets.dtype == torch.int32 and tickets.numel() == B * H * groups
+    assert not tickets.any()
+
+
+def test_append_launch_error_drops_its_workspace():
+    """A launch that fails raises, and its (device, stream) workspace is
+    dropped, so no ticket it may have left taken reaches a later launch:
+    the next call gets fresh, zeroed tickets."""
+    class Lib:
+        def __init__(self, err):
+            self.err = err
+
+        def ds_decode_append(self, *args):
+            return self.err
+
+    q = torch.zeros((1, 1, 2, 16))
+    kc = torch.zeros((1, 256, 2, 16))
+    index = torch.tensor(3, dtype=torch.int32)
+    with mock.patch.object(da, "_stream", lambda t: 7), \
+            mock.patch.object(da, "_sm_count", lambda dev: 132), \
+            mock.patch.object(da, "_WORKSPACE", {}), \
+            mock.patch.object(decode_attention, "launches", 0):
+        with mock.patch.object(da, "load", lambda src, sigs: Lib(0)):
+            da._append_launch(q, kc, kc, index, 0.25)
+        first = da._WORKSPACE[(q.device, 7)]
+        with mock.patch.object(da, "load", lambda src, sigs: Lib(700)):
+            with pytest.raises(RuntimeError, match="error 700"):
+                da._append_launch(q, kc, kc, index, 0.25)
+        assert (q.device, 7) not in da._WORKSPACE
+        with mock.patch.object(da, "load", lambda src, sigs: Lib(0)):
+            da._append_launch(q, kc, kc, index, 0.25)
+        again = da._WORKSPACE[(q.device, 7)]
+        assert again[1] is not first[1] and not again[1].any()
+        assert decode_attention.launches == 2
 
 
 # ---------------------------------------------------------------------------

@@ -341,15 +341,19 @@ def test_block_lists_are_csr_and_csc_per_head():
 # the kernel library stubbed where a launch is reached
 class _StubLib:
     """Stands in for a built kernel library: records each call's source,
-    symbol, argument count and ctypes signature length, returns 0."""
+    symbol, argument count and ctypes signature length (and, into
+    ``seen``, its arguments), returns 0."""
 
-    def __init__(self, calls, source, sigs):
+    def __init__(self, calls, source, sigs, seen=None):
         self.calls, self.source, self.sigs = calls, source, sigs
+        self.seen = seen
 
     def __getattr__(self, fn):
         def call(*args):
             self.calls.append((self.source, fn, len(args),
                                len(self.sigs[fn][0])))
+            if self.seen is not None:
+                self.seen.append(args)
             return 0
         return call
 
@@ -362,15 +366,21 @@ def _bthd_views(b, h, s, dtype, width=64):
             .transpose(1, 2) for _ in range(4)]
 
 
-def _launch_with_stub(which, q, k, v, do, layout):
+def _launch_with_stub(which, q, k, v, do, layout, seen=None):
+    """The calls that launch ``which`` ("fwd", "dq" or "dkv") makes into
+    a stub library (their arguments into ``seen``)."""
     calls = []
     lists = bs.block_lists(layout, "cpu")
     lse, delta = (torch.zeros(q.shape[:3]) for _ in range(2))
-    launch = bs._dq_launch if which == "dq" else bs._dkv_launch
-    with mock.patch.object(fa, "load",
-                           lambda src, sigs: _StubLib(calls, src, sigs)), \
+    with mock.patch.object(fa, "load", lambda src, sigs: _StubLib(
+            calls, src, sigs, seen)), \
             mock.patch.object(bs, "_stream", lambda t: 0):
-        launch(q, k, v, do, lse, delta, lists, 0.125)
+        if which == "fwd":
+            bs._fwd_launch(q, k, v, lists.layout, lists.row_ptr,
+                           lists.col_idx, lists.dq_order, 0.125)
+        else:
+            launch = bs._dq_launch if which == "dq" else bs._dkv_launch
+            launch(q, k, v, do, lse, delta, lists, 0.125)
     return calls
 
 
@@ -398,6 +408,61 @@ def test_backward_launch_reaches_its_kernel_symbol(which, dtype, block,
     n = len(bs._SIGS[source][0])
     assert calls == [(source, f"ds_{source}", n, n)]
     assert _c_arity(source) == n
+
+
+@pytest.mark.parametrize("dtype,block,suffix", [
+    (torch.bfloat16, 64, "_sm90"), (torch.bfloat16, 128, "_sm90"),
+    (torch.bfloat16, 256, "_sm90"), (torch.float32, 128, ""),
+    (torch.bfloat16, 32, "")])
+def test_forward_launch_reaches_its_kernel_symbol(dtype, block, suffix):
+    """The forward follows the backward's routing rule: bf16 at a block
+    that is a multiple of 64 calls ``ds_block_sparse_fwd_sm90`` with the
+    lists and the rows' longest-first schedule (``dq_order``) after O and
+    lse, and the (batch, head, token) strides of q, k, v and O; fp32 and
+    bf16 at block 32 call ``ds_block_sparse_fwd`` with the lists alone.
+    As many arguments as the ctypes signature and the C declaration have;
+    the launch is counted either way."""
+    s = 512
+    layout = _random_layout(7, s // block)
+    layout = np.broadcast_to(layout, (2, *layout.shape[1:])).copy()
+    q, k, v, _ = _bthd_views(1, 2, s, dtype)
+    seen = []
+    with mock.patch.object(bs.block_sparse_attention, "launches", 0):
+        calls = _launch_with_stub("fwd", q, k, v, None, layout, seen)
+        assert bs.block_sparse_attention.launches == 1
+    assert bs.tensor_cores(dtype, block) == (suffix == "_sm90")
+    source = f"block_sparse_fwd{suffix}"
+    n = len(bs._SIGS[source][0])
+    assert calls == [(source, f"ds_{source}", n, n)]
+    assert _c_arity(source) == n
+    lists = bs.block_lists(layout, "cpu")
+    args = seen[0]
+    assert args[5:7] == (lists.row_ptr.data_ptr(), lists.col_idx.data_ptr())
+    if suffix:
+        assert args[7] == lists.dq_order.data_ptr()
+        assert args[8:14] == (1, 2, s, s, 64, block)
+        # token rows of the [B, S, H, 64] views are H * 64 apart; the
+        # batch dim of size 1 takes a row's stride in the tensor maps
+        assert args[14:23] == (64, 64, 2 * 64) * 3
+        assert args[23:26] == (s * 2 * 64, 64, 2 * 64)   # O in q's layout
+    else:
+        assert args[7:14] == (int(dtype == torch.bfloat16), 1, 2, s, s, 64,
+                              block)
+
+
+def test_forward_op_fake_gives_the_shapes():
+    """``deepspeed_tpu_torch::block_sparse_fwd`` takes the schedule after
+    the lists, and its fake (which traced and meta calls run) gives O in
+    q's shape and dtype and lse ``[B, H, S]`` fp32."""
+    op = torch.ops.deepspeed_tpu_torch.block_sparse_fwd.default
+    assert [a.name for a in op._schema.arguments] == [
+        "q", "k", "v", "layout", "row_ptr", "col_idx", "order", "scale"]
+    q = torch.empty((2, 4, 256, 64), dtype=torch.bfloat16, device="meta")
+    ints = torch.empty(9, dtype=torch.int32, device="meta")
+    layout = torch.empty((4, 2, 2), dtype=torch.bool, device="meta")
+    o, lse = op(q, q, q, layout, ints, ints, ints[:8], 0.125)
+    assert (o.shape, o.dtype) == (q.shape, q.dtype)
+    assert (lse.shape, lse.dtype) == ((2, 4, 256), torch.float32)
 
 
 def _brute_force_order(layout, by):
@@ -492,12 +557,12 @@ def test_cotangent_copied_where_tma_cannot_read_it(block, width, copied):
                                   got.data_ptr()) is None
 
 
-@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("which", ["dq", "dkv", "fwd"])
 def test_tma_breaking_q_view_raises_on_the_tensor_core_route(which):
     """A bf16 q view whose token rows are 130 bytes apart cannot be read
-    through a tensor map: the tensor-core launch refuses it with
-    ValueError before any call; the CUDA-core route (fp32) takes the same
-    view."""
+    through a tensor map: the tensor-core launch (forward or backward)
+    refuses it with ValueError before any call; the CUDA-core route (fp32)
+    takes the same view."""
     layout = np.ones((2, 2, 2), bool)
     q, *_ = _bthd_views(1, 2, 256, torch.bfloat16, width=65)
     k, v, do = _bthd_views(1, 2, 256, torch.bfloat16)[1:]
