@@ -5,11 +5,12 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build the sixteen CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
+1. build the seventeen CUDA sources from ``deepspeed_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once), print the card, each kernel's ptxas
-   registers and spills (for the six tensor-core sources, the bf16
-   flash forward, dQ and dK/dV and the bf16 block-sparse forward, dQ and
-   dK/dV, by template instance: head dim and warpgroups), and the count of
+   registers and spills (for the seven tensor-core sources, the bf16
+   flash forward, dQ and dK/dV, the bf16 block-sparse forward, dQ and
+   dK/dV, by template instance: head dim and warpgroups, and the int8
+   paged chunk kernel), and the count of
    HGMMA (``wgmma``) instructions in each tensor-core source's SASS
    (``cuobjdump -sass``): there must be some, and no spills;
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -20,8 +21,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    dtype's tolerance and lse within 1e-3; the backward also at B=1
    (64 rows a CTA), D=128 over several tiles and T=16; in bf16 the three
    flash kernels run on the tensor cores, in fp32 on the CUDA cores), the
-   paged kernels (bf16/fp32 and int8 pools) also at the verify (T_q = 5)
-   and prefill-chunk (T_q = 256) shapes, the block-sparse kernels at the
+   paged kernels (bf16/fp32 and int8 pools; the split decode, and for
+   bf16 chunks of at least 8 rows over int8 pools the tensor-core chunk
+   kernel, each row naming the source that ran and its grid's splits)
+   also at the verify (T_q = 5) shape, at the fast path's decode step and
+   prefill chunks (a first one, a partial last one, one that starts
+   inside a block, and T_q at the tensor-core crossover and just below
+   it), the block-sparse kernels at the
    BERT slice's shape (fixed per-head layout, block 128, 2 x 16 x 4096),
    at bench_sparse.py's BigBird one (block 256, 1 x 12 x 8192), at a
    fixed layout of block 32 (1 x 4 x 1024) and at a per-head BigBird
@@ -118,6 +124,7 @@ import numpy as np
 KERNEL_SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq_sm90",
                   "flash_bwd_dq", "flash_bwd_dkv_sm90", "flash_bwd_dkv",
                   "decode_append", "decode_paged", "decode_paged_int8",
+                  "decode_paged_int8_sm90",
                   "block_sparse_fwd_sm90", "block_sparse_fwd",
                   "block_sparse_bwd_dq_sm90",
                   "block_sparse_bwd_dq", "block_sparse_bwd_dkv_sm90",
@@ -125,17 +132,25 @@ KERNEL_SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq_sm90",
 # the tensor-core kernels, whose SASS must hold wgmma (HGMMA) instructions
 WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
                  "block_sparse_fwd_sm90", "block_sparse_bwd_dq_sm90",
-                 "block_sparse_bwd_dkv_sm90")
+                 "block_sparse_bwd_dkv_sm90", "decode_paged_int8_sm90")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-# the paged checks (bf16/fp32 and int8 pools): 4 slots, block size 16, 64
-# blocks a row; (lengths, T_q) — ragged lengths with an empty row, decode
-# (T_q=1), verify at k=4 (T_q=5: one full group of 4 query rows and a
-# partial one; the last row's table full), and one 256-row prefill chunk
-# at length 512
+# the paged checks (bf16/fp32 and int8 pools): block size 16, 64 blocks a
+# row; (lengths, T_q) — ragged lengths with an empty row, decode (T_q=1),
+# verify at k=4 (T_q=5: one full group of 4 query rows and a partial one;
+# the last row's table full), one 256-row prefill chunk at length 512;
+# then the fast path's leg A: its decode step (8 slots at its requests'
+# lengths halfway through their 32 new tokens), a first chunk (length 0,
+# T_q=256), the partial last chunk of its 392-token prompt (length 256,
+# T_q=136), a chunk that starts inside a block (length 200, T_q=100), and
+# T_q at the int8 kernel's tensor-core crossover (decode_attention.
+# TC_MIN_ROWS = 8) and just below it, after the 384-token system prompt
 PAGED_CASES = (([0, 137, 602, 1000], 1), ([0, 137, 602, 1019], 5),
-               ([512], 256))
+               ([512], 256),
+               ([408, 440, 500, 630, 800, 955, 411, 445], 1),
+               ([0], 256), ([256], 136), ([200], 100), ([384], 8),
+               ([384], 7))
 # Tolerances of kernel vs plain version on the same inputs:
 # fp32 — the same math in another summation order (and exp per key or
 #   per tile instead of per row): 1e-4 absolute and relative;
@@ -752,13 +767,15 @@ def check_block_sparse(dtype, gen):
 # (row 2 is the timed shape); then T_q = 5 on a full cache (idx + T_q =
 # S; its two row groups see 1023 and 1024 keys), B = 1, D = 128, keys
 # that end on a split boundary (512 keys: two splits of exactly
-# MIN_SPLIT_KEYS = 256) and keys that end inside the first split (47
-# keys: one split, which writes O itself)
+# MIN_SPLIT_KEYS = 256), keys that end inside the first split (47
+# keys: one split, which writes O itself), and generate()'s own first and
+# last steps (a 128-token prompt, 32 new tokens: idx 128 and 159)
 APPEND_CASES = ((2, 12, 64, 1024, 0, 1), (2, 12, 64, 1024, 255, 1),
                 (2, 12, 64, 1024, 1000, 1), (2, 12, 64, 1024, 255, 3),
                 (2, 12, 64, 1024, 1019, 5), (1, 12, 64, 1024, 1000, 1),
                 (2, 12, 128, 1024, 1000, 1), (2, 12, 64, 1024, 511, 1),
-                (2, 12, 64, 1024, 46, 1))
+                (2, 12, 64, 1024, 46, 1), (2, 12, 64, 1024, 128, 1),
+                (2, 12, 64, 1024, 159, 1))
 
 
 def check_append(dtype, gen):
@@ -775,7 +792,7 @@ def check_append(dtype, gen):
     rows = []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, H, D, S, idx, tq in APPEND_CASES:
-        splits = da.append_splits(B, H, tq, S, sms)
+        splits = da.decode_splits(B, H, tq, S, sms, da.MIN_SPLIT_KEYS)
         kc, vc = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                   .to(dtype) for _ in range(2))
         # rows past the valid prefix hold garbage the kernel must not read
@@ -833,8 +850,13 @@ def _paged_tables(lengths, tq, bs, mb, nb, rng):
 def check_paged(dtype, gen, rng, int8=False):
     """The paged kernel against its plain version at PAGED_CASES: over
     pools of q's dtype, or (``int8``) over int8 pools with fp32 scales
-    quantized row-wise from random K/V. The int8 kernel's P.V is fp32
-    whatever q's dtype (p stays fp32), and so is its bound's."""
+    quantized row-wise from random K/V, the garbage block filled with
+    values that must never reach the output. Each row names the kernel
+    source that ran (from the wrapper's launch counts by source) and the
+    split count of the grid it launched (None on the tensor cores). The
+    split decode's P.V over int8 pools is fp32 whatever q's dtype (p
+    stays fp32), and so is its bound's; the tensor-core source's is
+    bf16."""
     import torch
 
     from deepspeed_tpu_torch.ops import decode_attention as da
@@ -845,10 +867,10 @@ def check_paged(dtype, gen, rng, int8=False):
                      (da.decode_attention_paged,
                       da.decode_attention_paged_reference))
     bs, mb, H, D = 16, 64, 12, 64
-    nb = 1 + 4 * mb
     dt, name = str(dtype)[6:], "paged int8" if int8 else "paged"
     rows = []
     for lengths, tq in PAGED_CASES:
+        nb = 1 + max(4, len(lengths)) * mb
         k, v = (torch.randn((nb, bs, H, D), generator=gen, device="cuda")
                 for _ in range(2))
         if int8:
@@ -865,9 +887,19 @@ def check_paged(dtype, gen, rng, int8=False):
         q = torch.randn((len(lengths), tq, H, D), generator=gen,
                         device="cuda").to(dtype)
         args = (q, *pools, tables, lens)
-        got, want = kernel(*args), plain(*args)
+        before = dict(kernel.source_launches)
+        got = kernel(*args)
+        ran = [src for src, n in kernel.source_launches.items()
+               if n != before.get(src, 0)]
+        splits = kernel.last_splits
+        want = plain(*args)
         torch.cuda.synchronize()
-        err = compare(f"{name} {lengths} tq={tq} {dtype}", got, want, dt)
+        shape = (f"slots={len(lengths)} bs={bs} MB={mb} lengths={lengths} "
+                 f"T_q={tq}")
+        err = compare(f"{name} {shape} {dtype}", got, want, dt)
+        if len(ran) != 1:
+            raise AssertionError(f"{name} {shape} {dtype}: sources {ran} "
+                                 f"launched by one call")
         keys = sum(min(ln + tq, mb * bs) for ln in lengths)
         nbytes = (keys * key_bytes + 2 * q.numel() * q.element_size()
                   + tables.numel() * 4 + len(lengths) * 4)
@@ -875,13 +907,16 @@ def check_paged(dtype, gen, rng, int8=False):
         half = 2 * D * H * sum(ln + r + 1 for ln in lengths
                                for r in range(tq))
         flops = {dt: half}
-        pv_dt = "float32" if int8 else dt
+        pv_dt = "float32" if ran[0] == "decode_paged_int8" else dt
         flops[pv_dt] = flops.get(pv_dt, 0) + half
         rows.append({
-            "shape": f"slots={len(lengths)} bs={bs} MB={mb} "
-                     f"lengths={lengths} T_q={tq}", "max_abs_err": err,
+            "shape": shape, "source": ran[0], "splits": splits,
+            "max_abs_err": err,
             **times(lambda: kernel(*args), lambda: plain(*args)),
             **bound(nbytes, flops)})
+        log(f"{name} {shape} {dtype}: {ran[0]}, "
+            + (f"a grid of {splits} splits" if splits else "64-row tiles")
+            + f", max |kernel - plain| {err}")
     return rows
 
 
@@ -1744,10 +1779,10 @@ KERNEL_TABLE = {
     "decode_append": Kernel("decode_append.cu", f"{_DECODE}:39", "generate",
                             "decode_append", 2, rows=("splits",)),
     "decode_paged": Kernel("decode_paged.cu", f"{_DECODE}:194", "serving",
-                           "decode_paged", 0, rows=()),
+                           "decode_paged", 0, rows=("source", "splits")),
     "decode_paged_int8": Kernel("decode_paged_int8.cu", f"{_DECODE}:319",
                                 "fast_path", "decode_paged_int8", 0,
-                                rows=()),
+                                rows=("source", "splits")),
     "block_sparse_fwd": Kernel("block_sparse_fwd_sm90.cu", f"{_SPARSE}:79",
                                "bert_sparse", "block_sparse_fwd", 0,
                                rows=("source",),

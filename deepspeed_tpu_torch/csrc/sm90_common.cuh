@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels
-// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu), apart
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu, the
+// block-sparse ones and decode_paged_int8_sm90.cu), apart
 // from any one kernel so that the other attention kernels can be rebuilt
 // on them: tensor maps for TMA built on the host, the SM count, TMA tile
 // loads, mbarrier pipeline helpers, wgmma shared-memory
@@ -73,30 +74,36 @@ inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
                            : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A 4-d bf16 tensor map over a [B, H, T, D] view with element strides
-// (sb, sh, st) and a contiguous last dim: dims innermost first (D, T, H,
-// B), boxes of (box_d, box_t, 1, 1) elements with the swizzle of a
-// box_d-wide row. Rows past T read as zeros. Returns the CUresult (0 = ok).
+// A 4-d tensor map over a [B, H, T, D] view with element strides (sb, sh,
+// st) and a contiguous last dim: dims innermost first (D, T, H, B), boxes
+// of (box_d, box_t, 1, 1) elements of `type` (`esize` bytes each; bf16
+// unless given) with the swizzle of a box_d-wide row, or none
+// (`swizzle` false: rows land as they are, for a kernel that reads them
+// with ordinary loads). Rows past T read as zeros. Returns the CUresult
+// (0 = ok).
 inline int make_bthd_map(CUtensorMap* map, const void* base, int B, int H,
                          int T, int D, long long sb, long long sh,
-                         long long st, int box_d, int box_t) {
+                         long long st, int box_d, int box_t,
+                         CUtensorMapDataType type =
+                             CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         int esize = 2, bool swizzle = true) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * esize,
+                                 static_cast<cuuint64_t>(sh) * esize,
+                                 static_cast<cuuint64_t>(sb) * esize};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d),
                              static_cast<cuuint32_t>(box_t), 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle_for(box_d * 2), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+      map, type, 4, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? swizzle_for(box_d * esize) : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 // ---------------------------------------------------------------------------
@@ -161,6 +168,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 4 bytes from global `src` into shared memory at `dst` without holding the
+// thread (zeros where `valid` is false: `src` is then not read)
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's cp.async copies so far have
+// landed (the barrier's count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// makes this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma's operand reads) once the threads have synchronised
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier among `threads` threads (a multiple of 32) of the CTA, by id
+// (1-15: id 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -1,22 +1,27 @@
 """Decode attention on the card (counterpart of
 ``deepspeed_tpu/ops/decode_attention.py``).
 
-Two hand-written CUDA kernels replace the TPU kernels of that module:
+Hand-written CUDA kernels replace the TPU kernels of that module. The
+three CUDA-core kernels share one split decode (``csrc/decode_split.cuh``:
+the keys of each row group cut over several CTAs, :func:`decode_splits`,
+and the partials merged in split order inside the same launch, with the
+workspace of :func:`_split_workspace`):
 
 - :func:`decode_attention` — ``csrc/decode_append.cu``, replacing
   ``_kernel`` (``decode_attention.py:39``, launched at ``:135``): a decode
   step against the valid ``[0, cache_index + T_q)`` prefix of an append
-  KV cache (``InferenceEngine.generate``), split over the cache
-  (:func:`append_splits`) with the partials merged inside the same
-  launch;
+  KV cache (``InferenceEngine.generate``);
 - :func:`decode_attention_paged` — ``csrc/decode_paged.cu``, replacing
   ``_paged_kernel`` (``decode_attention.py:194``, launched at ``:300``):
   the same through per-row block tables and lengths over a shared block
   pool (the serving engine's decode, chunk and verify steps);
-- :func:`decode_attention_paged_int8` — ``csrc/decode_paged_int8.cu``,
-  replacing ``_paged_int8_kernel`` (``decode_attention.py:319``,
-  launched at ``:425``): the paged step over int8 pools with fp32
-  per-(token, head) scale side pools (``kv_cache_dtype: "int8"``).
+- :func:`decode_attention_paged_int8` — replacing ``_paged_int8_kernel``
+  (``decode_attention.py:319``, launched at ``:425``): the paged step over
+  int8 pools with fp32 per-(token, head) scale side pools
+  (``kv_cache_dtype: "int8"``), in two regimes that :func:`int8_source`
+  picks from the shapes: ``csrc/decode_paged_int8_sm90.cu`` (tensor
+  cores) for bf16 prefill chunks of at least :data:`TC_MIN_ROWS` rows,
+  ``csrc/decode_paged_int8.cu`` (the split decode) for every other call.
 
 Each has its plain PyTorch version beside it; a CPU tensor takes it, a
 CUDA tensor launches the kernel or raises. The tensor-parallel wrappers
@@ -38,27 +43,42 @@ from deepspeed_tpu_torch.ops.op_builder import load
 # reads it
 GARBAGE_BLOCK = 0
 
-# query rows a CTA of the decode kernels (csrc/decode_common.cuh)
+# query rows a CTA of the split decode (csrc/decode_split.cuh)
 DEC_ROWS = 4
-# the append kernel's split of the cache: no split under MIN_SPLIT_KEYS
-# keys (the kernel takes it as an argument), at most 64 splits (its merge's
-# shared arrays; it refuses more), and a grid of at most 65535 in z. On the
-# H100 a split's merge (fence, ticket, a second pass) costs ~3 us, more
-# than one CTA's walk over a few hundred keys saves: at B=2 H=12 S=1024,
-# 256 keeps generate()'s 129-160 visible keys on one CTA a row group and
-# times as 64 does at 1001 keys (tools/time_decode.py sweeps it)
+# the split decode's cut of the cache: no split under MIN_SPLIT_KEYS keys
+# (the kernels take it as an argument), at most 64 splits (their merge's
+# shared arrays; they refuse more), and a grid of at most 65535 in z. On
+# the H100 a split's merge (fence, ticket, a second pass) costs ~3 us,
+# more than one CTA's walk over a few hundred keys saves: at B=2 H=12
+# S=1024, 256 keeps generate()'s 129-160 visible keys on one CTA a row
+# group and times as 64 does at 1001 keys (tools/time_decode.py sweeps it)
 MIN_SPLIT_KEYS = 256
+# the paged kernels' least keys a split: the bf16 and int8 split decodes
+# time best at 192 at serving's and the fast path's decode steps (4 and 8
+# slots over 8-955 keys; tools/time_decode.py --paged / --int8
+# --min-split-keys), 6-9 % below 256
+PAGED_MIN_SPLIT_KEYS = 192
 MAX_SPLITS = 64
 _MAX_GRID_Z = 65535
+# int8 chunks of at least this many query rows run on the tensor cores
+# (int8_source). tools/time_decode.py --int8 --tc-min-rows measured the
+# crossover with the split decode at 3 rows for one row of 384 keys, but
+# past 5 rows for 4 rows of up to 1019 keys (the split decode cuts a long
+# row over CTAs; the chunk kernel does not): at 8, every chunk of the fast
+# path runs on the tensor cores, and every verify step of up to 6 drafts
+# on the split decode
+TC_MIN_ROWS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _APPEND_SIG = {"ds_decode_append": (
     [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P], _I)}
 _PAGED_SIG = {"ds_decode_paged": (
-    [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P], _I)}
+    [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P], _I)}
 _PAGED_INT8_SIG = {"ds_decode_paged_int8": (
-    [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I)}
+    [_P] * 10 + [_I] * 10 + [ctypes.c_float, _P], _I)}
+_PAGED_INT8_SM90_SIG = {"ds_decode_paged_int8_sm90": (
+    [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P], _I)}
 
 
 def _attend(q, k, v, visible, scale):
@@ -213,20 +233,37 @@ def _int32_on(t, device, name):
                          f"{device}, got {t.dtype} on {t.device}")
 
 
-def append_splits(b, h, tq, s, sms):
+def decode_splits(b, h, tq, keys, sms, min_keys):
     """The most CTAs that split the keys of each (batch row, head, group
-    of :data:`DEC_ROWS` query rows) in ``csrc/decode_append.cu``, which
-    sizes its grid and workspace: enough for two CTAs on each of ``sms``
-    SMs, no more than a cache of ``s`` keys cut :data:`MIN_SPLIT_KEYS` at
-    a time holds, at most :data:`MAX_SPLITS`. A function of the shapes
-    alone, never of the cache index, which stays on the device: the launch
+    of :data:`DEC_ROWS` query rows) in the split decode
+    (``csrc/decode_split.cuh``), which sizes its grid and workspace:
+    enough for two CTAs on each of ``sms`` SMs, no more than ``keys`` (the
+    most keys a row can see: the append cache's S, a paged step's MB x
+    block size) cut ``min_keys`` (:data:`MIN_SPLIT_KEYS`,
+    :data:`PAGED_MIN_SPLIT_KEYS`) at a time holds, at most
+    :data:`MAX_SPLITS`. A function of the shapes alone, never of the
+    cache index or the lengths, which stay on the device: the launch
     needs no host sync. The kernel itself cuts the keys a row group sees
-    into as many of them as hold :data:`MIN_SPLIT_KEYS` keys each (one
-    where fewer are visible); the rest end at once."""
+    into as many of them as hold ``min_keys`` keys each (one where fewer
+    are visible); the rest end at once."""
     groups = -(-tq // DEC_ROWS)
     want = -(-2 * sms // (b * h * groups))
-    return max(1, min(want, s // MIN_SPLIT_KEYS, MAX_SPLITS,
+    return max(1, min(want, keys // min_keys, MAX_SPLITS,
                       _MAX_GRID_Z // groups))
+
+
+def int8_source(dtype, tq, d, bs):
+    """The kernel source of an int8 paged call, by a rule on its shapes
+    alone: ``decode_paged_int8_sm90`` (tensor cores) for bf16 q with head
+    dim 64, at least :data:`TC_MIN_ROWS` query rows and a block size of at
+    least 2 that divides 64 or is a multiple of it (TMA gathers a 64-key
+    tile as whole boxes of a block's rows, each at least the 128 bytes its
+    shared-memory address must be aligned to); ``decode_paged_int8`` (the
+    split decode) for every other call, fp32 q among them."""
+    if (dtype == torch.bfloat16 and d == 64 and tq >= TC_MIN_ROWS
+            and bs >= 2 and (64 % bs == 0 or bs % 64 == 0)):
+        return "decode_paged_int8_sm90"
+    return "decode_paged_int8"
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,19 +271,19 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# the append kernel's fp32 partials and int32 tickets, per (device,
-# stream)
+# the split decode's fp32 partials and int32 tickets, per (device, stream)
 _WORKSPACE = {}
 
 
-def _append_workspace(key, device, n_partial, n_tickets):
-    """The append kernel's workspace for ``key`` = (device, stream):
-    ``n_partial`` fp32 values for the splits' partials and ``n_tickets``
-    int32 counters, cached and grown as needed, never allocated per call.
-    The counters start at 0 and each merging CTA resets its own, so they
-    are 0 between launches; launches on one stream run one after another,
-    so they never share a counter. A launch that fails leaves counters it
-    may have taken: the wrapper then drops the key's set."""
+def _split_workspace(key, device, n_partial, n_tickets):
+    """The split decode's workspace for ``key`` = (device, stream), one
+    for the three kernels that run it: ``n_partial`` fp32 values for the
+    splits' partials and ``n_tickets`` int32 counters, cached and grown as
+    needed, never allocated per call. The counters start at 0 and each
+    merging CTA resets its own, so they are 0 between launches; launches
+    on one stream run one after another, so they never share a counter. A
+    launch that fails leaves counters it may have taken: the wrapper then
+    drops the key's set."""
     ws, tickets = _WORKSPACE.get(key, (None, None))
     if ws is None or ws.numel() < n_partial:
         ws = torch.empty(n_partial, dtype=torch.float32, device=device)
@@ -256,32 +293,103 @@ def _append_workspace(key, device, n_partial, n_tickets):
     return ws, tickets
 
 
-def _append_launch(q, k_cache, v_cache, cache_index, scale):
-    """Launch ``csrc/decode_append.cu`` once, on a grid of
-    :func:`append_splits` splits a row group, with the partials and
-    tickets in the cached workspace of q's device and current stream.
-    Returns ``[B, T_q, H, D]`` in q's dtype."""
+def _split_launch(source, sigs, q, keys, min_keys, call):
+    """Launch the split decode of kernel ``source`` once, on a grid of
+    :func:`decode_splits` splits a row group of at most ``keys`` keys and
+    at least ``min_keys`` a split, with the partials and tickets in the
+    cached workspace of q's device and current stream. ``call(lib, out,
+    ws, tickets, splits, stream)`` makes the C call and returns its code.
+    Returns ``(out, splits)``, out ``[B, T_q, H, D]`` in q's dtype."""
     b, tq, h, d = q.shape
-    s_len = k_cache.shape[1]
-    splits = append_splits(b, h, tq, s_len, _sm_count(q.device))
+    splits = decode_splits(b, h, tq, keys, _sm_count(q.device), min_keys)
     groups = -(-tq // DEC_ROWS)
     stream = _stream(q)
     key = (q.device, stream)
-    ws, tickets = _append_workspace(
+    ws, tickets = _split_workspace(
         key, q.device, b * h * groups * splits * DEC_ROWS * (d + 2),
         b * h * groups)
     out = torch.empty_like(q)
-    lib = load("decode_append", _APPEND_SIG)
-    err = lib.ds_decode_append(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_index.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        tickets.data_ptr(), int(q.dtype == torch.bfloat16), b, tq, h, d,
-        s_len, splits, MIN_SPLIT_KEYS, float(scale), stream)
+    err = call(load(source, sigs), out, ws, tickets, splits, stream)
     if err:
         _WORKSPACE.pop(key, None)
-        raise RuntimeError(f"decode_append kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error "
+                           f"{err}")
+    return out, splits
+
+
+def _append_launch(q, k_cache, v_cache, cache_index, scale):
+    """Launch ``csrc/decode_append.cu`` once (:func:`_split_launch`).
+    Returns ``[B, T_q, H, D]`` in q's dtype."""
+    b, tq, h, d = q.shape
+    s_len = k_cache.shape[1]
+    out, _ = _split_launch(
+        "decode_append", _APPEND_SIG, q, s_len, MIN_SPLIT_KEYS,
+        lambda lib, out, ws, tickets, splits, stream: lib.ds_decode_append(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            cache_index.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            tickets.data_ptr(), int(q.dtype == torch.bfloat16), b, tq, h, d,
+            s_len, splits, MIN_SPLIT_KEYS, float(scale), stream))
     decode_attention.launches += 1
+    return out
+
+
+def _count(wrapper, source, splits):
+    """One launch of ``wrapper``'s kernel from ``source`` on a grid of
+    ``splits`` splits (None: the tensor-core source, which has none)."""
+    wrapper.launches += 1
+    wrapper.source_launches[source] = \
+        wrapper.source_launches.get(source, 0) + 1
+    wrapper.last_splits = splits
+
+
+def _paged_launch(q, k_pool, v_pool, block_tables, lengths, scale):
+    """Launch ``csrc/decode_paged.cu`` once (:func:`_split_launch`, at
+    most MB x block size keys a row, :data:`PAGED_MIN_SPLIT_KEYS` a
+    split). Returns ``[B, T_q, H, D]``."""
+    b, tq, h, d = q.shape
+    nb, bs = k_pool.shape[:2]
+    mb = block_tables.shape[1]
+    out, splits = _split_launch(
+        "decode_paged", _PAGED_SIG, q, mb * bs, PAGED_MIN_SPLIT_KEYS,
+        lambda lib, out, ws, tickets, splits, stream: lib.ds_decode_paged(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), tickets.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, tq, h, d, nb, bs, mb, splits,
+            PAGED_MIN_SPLIT_KEYS, float(scale), stream))
+    _count(decode_attention_paged, "decode_paged", splits)
+    return out
+
+
+def _paged_int8_launch(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                       lengths, scale):
+    """Launch the source :func:`int8_source` names once: the tensor-core
+    chunk kernel (a grid of 64-row tiles, no workspace) or the split
+    decode (:func:`_split_launch`). Returns ``[B, T_q, H, D]``."""
+    b, tq, h, d = q.shape
+    nb, bs = k_pool.shape[:2]
+    mb = block_tables.shape[1]
+    source = int8_source(q.dtype, tq, d, bs)
+    ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr())
+    if source == "decode_paged_int8_sm90":
+        out, splits = torch.empty_like(q), None
+        err = load(source, _PAGED_INT8_SM90_SIG).ds_decode_paged_int8_sm90(
+            *ptrs, out.data_ptr(), b, tq, h, d, nb, bs, mb, float(scale),
+            _stream(q))
+        if err:
+            raise RuntimeError(f"{source} kernel launch failed: CUDA error "
+                               f"{err}")
+    else:
+        out, splits = _split_launch(
+            source, _PAGED_INT8_SIG, q, mb * bs, PAGED_MIN_SPLIT_KEYS,
+            lambda lib, out, ws, tickets, splits, stream:
+            lib.ds_decode_paged_int8(
+                *ptrs, out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+                int(q.dtype == torch.bfloat16), b, tq, h, d, nb, bs, mb,
+                splits, PAGED_MIN_SPLIT_KEYS, float(scale), stream))
+    _count(decode_attention_paged_int8, source, splits)
     return out
 
 
@@ -327,22 +435,8 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
         raise ValueError(f"pool shapes differ: {tuple(k_pool.shape)} vs "
                          f"{tuple(v_pool.shape)}")
     _check_paging(q, block_tables, lengths)
-    b, tq, h, d = q.shape
-    nb, bs = k_pool.shape[:2]
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    out = torch.empty_like(q)
-    lib = load("decode_paged", _PAGED_SIG)
-    err = lib.ds_decode_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, tq, h, d, nb, bs,
-        block_tables.shape[1], float(scale),
-        _stream(q))
-    if err:
-        raise RuntimeError(f"decode_paged kernel launch failed: CUDA error "
-                           f"{err}")
-    decode_attention_paged.launches += 1
-    return out
+    scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
+    return _paged_launch(q, k_pool, v_pool, block_tables, lengths, scale)
 
 
 def decode_attention_paged_int8(q, k_pool, v_pool, k_scale, v_scale,
@@ -354,9 +448,12 @@ def decode_attention_paged_int8(q, k_pool, v_pool, k_scale, v_scale,
     ``v_pool`` are ``[num_blocks, block_size, H, D]`` int8 and ``k_scale``
     / ``v_scale`` their ``[num_blocks, block_size, H, 1]`` fp32 per-row
     scales (:func:`~deepspeed_tpu_torch.ops.quantizer.quantize_rowwise`).
-    q is bf16 or fp32; the output is in q's dtype. The kernel dequantizes
-    K and V to fp32, runs an fp32 online softmax, and keeps p in fp32
-    for P·V."""
+    q is bf16 or fp32; the output is in q's dtype. The split decode
+    (``decode_paged_int8.cu``) takes the logit ``(q · codes) · k_scale ·
+    scale`` in fp32, runs an fp32 online softmax and keeps ``p ·
+    v_scale`` in fp32 for P·V; the tensor-core chunk kernel
+    (``decode_paged_int8_sm90.cu``, :func:`int8_source`) rounds ``p ·
+    v_scale`` to bf16 before P·V, as the bf16 paged kernel rounds p."""
     if q.device.type == "cpu":
         return decode_attention_paged_int8_reference(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
@@ -376,25 +473,18 @@ def decode_attention_paged_int8(q, k_pool, v_pool, k_scale, v_scale,
                          f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)} "
                          f"do not match")
     _check_paging(q, block_tables, lengths)
-    b, tq, h, d = q.shape
-    nb, bs = k_pool.shape[:2]
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    out = torch.empty_like(q)
-    lib = load("decode_paged_int8", _PAGED_INT8_SIG)
-    err = lib.ds_decode_paged_int8(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-        b, tq, h, d, nb, bs, block_tables.shape[1], float(scale),
-        _stream(q))
-    if err:
-        raise RuntimeError(f"decode_paged_int8 kernel launch failed: CUDA "
-                           f"error {err}")
-    decode_attention_paged_int8.launches += 1
-    return out
+    scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
+    return _paged_int8_launch(q, k_pool, v_pool, k_scale, v_scale,
+                              block_tables, lengths, scale)
 
 
-# kernel launches by each wrapper (chip_smoke.py zeroes and reads them)
+# kernel launches by each wrapper (chip_smoke.py zeroes and reads them);
+# the paged wrappers also count them by kernel source and keep the split
+# count of their last launch's grid
 decode_attention.launches = 0
 decode_attention_paged.launches = 0
+decode_attention_paged.source_launches = {}
+decode_attention_paged.last_splits = None
 decode_attention_paged_int8.launches = 0
+decode_attention_paged_int8.source_launches = {}
+decode_attention_paged_int8.last_splits = None

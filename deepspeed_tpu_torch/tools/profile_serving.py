@@ -58,11 +58,12 @@ COW_EXTEND = (3, 5)
 # the port's kernels (csrc/*.cu), by kernel name
 OUR_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
                "decode_append_kernel", "decode_paged_kernel",
-               "decode_paged_int8_kernel")
+               "decode_paged_int8_kernel", "decode_paged_int8_sm90_kernel")
 # kernel families of the fast path's device-time breakdown, by lower-case
 # fragment of the kernel name (the first family that matches takes it)
 FAMILIES = (
     ("decode_paged_int8_kernel", ("decode_paged_int8_kernel",)),
+    ("decode_paged_int8_sm90_kernel", ("decode_paged_int8_sm90_kernel",)),
     ("decode_paged_kernel", ("decode_paged_kernel",)),
     ("flash_fwd_kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),

@@ -355,7 +355,7 @@ def test_append_splits_cover_the_cache(b, h, tq, s):
     takes 264 CTAs or more, two on each of the H100's 132 SMs. How the
     kernel cuts the keys a row group sees is held on the card
     (``chip_smoke.py``'s append cases, a split boundary among them)."""
-    splits = da.append_splits(b, h, tq, s, 132)
+    splits = da.decode_splits(b, h, tq, s, 132, da.MIN_SPLIT_KEYS)
     assert 1 <= splits <= da.MAX_SPLITS
     assert da.MIN_SPLIT_KEYS >= 64
     assert splits == 1 or s // splits >= da.MIN_SPLIT_KEYS
@@ -375,7 +375,8 @@ def test_append_launch_is_one_call_with_workspace_and_tickets():
     ``ds_decode_append`` per step, with as many arguments as its ctypes
     signature and C declaration, the cached fp32 workspace and zeroed
     int32 tickets of the sizes the split needs, the same split whatever
-    the cache index, and the launch counted."""
+    the cache index, and the launch counted. The paged kernels' split
+    decode on the same stream takes the same workspace and tickets."""
     calls = []
 
     class Lib:
@@ -392,21 +393,30 @@ def test_append_launch_is_one_call_with_workspace_and_tickets():
             mock.patch.object(da, "_stream", lambda t: 0), \
             mock.patch.object(da, "_sm_count", lambda dev: 132), \
             mock.patch.object(da, "_WORKSPACE", {}), \
-            mock.patch.object(decode_attention, "launches", 0):
+            mock.patch.object(decode_attention, "launches", 0), \
+            mock.patch.object(decode_attention_paged, "launches", 0):
         for idx in (0, 700, S - tq):
             da._append_launch(q, kc, kc, torch.tensor(idx, dtype=torch.int32),
                               0.125)
         assert decode_attention.launches == 3
         ws, tickets = da._WORKSPACE[(q.device, 0)]
-    splits = da.append_splits(B, H, tq, S, 132)
+        # a paged step that needs no more of either
+        da._paged_launch(q[:1, :1], kc[:, :16], kc[:, :16],
+                         torch.ones((1, 4), dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), 0.125)
+        assert da._WORKSPACE[(q.device, 0)] == (ws, tickets)
+        assert decode_attention_paged.launches == 1
+    splits = da.decode_splits(B, H, tq, S, 132, da.MIN_SPLIT_KEYS)
     groups = 2
     n = len(da._APPEND_SIG["ds_decode_append"][0])
     assert _c_arity("decode_append") == n
-    assert [fn for fn, _ in calls] == ["ds_decode_append"] * 3
-    for _, args in calls:
+    assert [fn for fn, _ in calls] == ["ds_decode_append"] * 3 + [
+        "ds_decode_paged"]
+    for _, args in calls[:3]:
         assert len(args) == n
         assert args[5:7] == (ws.data_ptr(), tickets.data_ptr())
         assert args[7:15] == (1, B, tq, H, D, S, splits, da.MIN_SPLIT_KEYS)
+    assert calls[3][1][6:8] == (ws.data_ptr(), tickets.data_ptr())
     assert ws.dtype == torch.float32
     assert ws.numel() == B * H * groups * splits * da.DEC_ROWS * (D + 2)
     assert tickets.dtype == torch.int32 and tickets.numel() == B * H * groups
@@ -469,13 +479,71 @@ def _paged_inputs(lengths, tq, bs=16, mb=4, H=2, D=16, seed=0):
 @pytest.mark.parametrize("lengths,tq", [
     ([0, 15, 16, 17], 1),   # empty row, block boundaries
     ([5, 31, 40], 3),       # T_q > 1: per-row causal (verify step)
+    ([0], 80),              # a first prefill chunk, T_q > 64
+    ([40], 70),             # a chunk that starts inside a block
 ])
 def test_paged_matches_pallas(lengths, tq):
-    arrays = _paged_inputs(lengths, tq, seed=sum(lengths) + tq)
+    mb = max(4, -(-(max(lengths) + tq) // 16))
+    arrays = _paged_inputs(lengths, tq, mb=mb, seed=sum(lengths) + tq)
     with tpu_interpret_mode():
         ref = jax_decode.decode_attention_paged(*map(jnp.asarray, arrays))
     out = decode_attention_paged(*map(torch.from_numpy, arrays))
     _close(out, ref)
+
+
+@pytest.mark.parametrize("tq,dtype", [(1, torch.bfloat16),
+                                      (5, torch.bfloat16),
+                                      (256, torch.bfloat16),
+                                      (5, torch.float32)])
+def test_paged_launch_is_one_split_decode(tq, dtype):
+    """``_paged_launch`` (what :func:`decode_attention_paged` runs on the
+    card) with ``load`` patched to a stub library: decode, verify and
+    chunk steps alike are one call of ``ds_decode_paged``, with as many
+    arguments as its ctypes signature and C declaration, on a grid of
+    :func:`decode_splits` splits for MB x block size keys (the shapes
+    alone: the lengths never reach the host), the module's
+    ``PAGED_MIN_SPLIT_KEYS`` and the (device, stream) workspace; the
+    launch is counted under its source."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((fn, args))
+                return 0
+            return call
+
+    B, H, D, NB, BS, MB = 4, 12, 64, 257, 16, 64
+    q = torch.zeros((B, tq, H, D), dtype=dtype)
+    pool = torch.zeros((NB, BS, H, D), dtype=dtype)
+    tables = torch.ones((B, MB), dtype=torch.int32)
+    with mock.patch.object(da, "load", lambda src, sigs: Lib()), \
+            mock.patch.object(da, "_stream", lambda t: 3), \
+            mock.patch.object(da, "_sm_count", lambda dev: 132), \
+            mock.patch.object(da, "_WORKSPACE", {}), \
+            mock.patch.object(decode_attention_paged, "launches", 0), \
+            mock.patch.object(decode_attention_paged, "source_launches", {}):
+        for lengths in ([0, 137, 602, 1000], [8, 40, 100, 230]):
+            da._paged_launch(q, pool, pool, tables,
+                             torch.tensor(lengths, dtype=torch.int32), 0.125)
+        ws, tickets = da._WORKSPACE[(q.device, 3)]
+        assert decode_attention_paged.launches == 2
+        assert decode_attention_paged.source_launches == {"decode_paged": 2}
+        splits = da.decode_splits(B, H, tq, MB * BS, 132,
+                                  da.PAGED_MIN_SPLIT_KEYS)
+        assert decode_attention_paged.last_splits == splits
+    n = len(da._PAGED_SIG["ds_decode_paged"][0])
+    assert _c_arity("decode_paged") == n
+    assert [fn for fn, _ in calls] == ["ds_decode_paged"] * 2
+    assert calls[0][1][6:] == calls[1][1][6:]   # the lengths never count
+    args = calls[0][1]
+    assert len(args) == n
+    assert args[6:8] == (ws.data_ptr(), tickets.data_ptr())
+    assert args[8:18] == (int(dtype == torch.bfloat16), B, tq, H, D, NB, BS,
+                          MB, splits, da.PAGED_MIN_SPLIT_KEYS)
+    assert ws.numel() == B * H * -(-tq // da.DEC_ROWS) * splits \
+        * da.DEC_ROWS * (D + 2)
+    assert splits == 1 or MB * BS // splits >= da.PAGED_MIN_SPLIT_KEYS
 
 
 def test_paged_garbage_block_never_contributes():

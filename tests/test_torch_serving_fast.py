@@ -116,7 +116,9 @@ def _int8_paged_inputs(lengths, tq, bs=32, mb=4, H=2, D=64, seed=0):
 
 @pytest.mark.parametrize("lengths,tq", [([0, 5], 1), ([7, 63], 1),
                                         ([60, 30], 4),
-                                        ([0, 23, 57], 5)])  # verify shapes
+                                        ([0, 23, 57], 5),   # verify shapes
+                                        ([0], 80),    # a first chunk
+                                        ([40], 70)])  # starts in a block
 def test_paged_int8_matches_pallas(lengths, tq):
     arrays = _int8_paged_inputs(lengths, tq, seed=sum(lengths) + tq)
     with tpu_interpret_mode():
@@ -128,6 +130,82 @@ def test_paged_int8_matches_pallas(lengths, tq):
     # the wrapper takes the plain version for CPU tensors
     np.testing.assert_array_equal(
         decode_attention_paged_int8(*ported).numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("tq,dtype,bs,source", [
+    (1, torch.bfloat16, 16, "decode_paged_int8"),        # decode
+    (5, torch.bfloat16, 16, "decode_paged_int8"),        # verify
+    (7, torch.bfloat16, 16, "decode_paged_int8"),        # below the rule
+    (8, torch.bfloat16, 16, "decode_paged_int8_sm90"),   # at it
+    (136, torch.bfloat16, 16, "decode_paged_int8_sm90"),  # a last chunk
+    (256, torch.bfloat16, 16, "decode_paged_int8_sm90"),  # a full chunk
+    (256, torch.bfloat16, 128, "decode_paged_int8_sm90"),  # blocks of 2 x 64
+    (256, torch.float32, 16, "decode_paged_int8"),       # fp32 q
+    (256, torch.bfloat16, 48, "decode_paged_int8"),      # 48 does not divide 64
+    (256, torch.bfloat16, 1, "decode_paged_int8"),       # rows below 128 bytes
+])
+def test_paged_int8_launch_takes_the_rule_s_source(tq, dtype, bs, source):
+    """``_paged_int8_launch`` (what :func:`decode_attention_paged_int8`
+    runs on the card) with ``load`` patched to a stub library: one call of
+    the source ``int8_source`` names from the shapes alone (the tensor
+    cores for bf16 chunks of at least ``TC_MIN_ROWS`` rows at a block size
+    that divides 64 or is a multiple of it, the split decode otherwise),
+    with as many arguments as its ctypes signature and C declaration; the
+    split decode on a grid of ``decode_splits`` splits with the module's
+    ``PAGED_MIN_SPLIT_KEYS`` and the (device, stream) workspace, the
+    tensor-core source with none. The launch is counted under its
+    source."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from tests.test_torch_ops import _c_arity
+
+    calls = []
+
+    class Lib:
+        def __init__(self, src):
+            self.src = src
+
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((self.src, fn, args))
+                return 0
+            return call
+
+    assert da.TC_MIN_ROWS == 8
+    B, H, D, NB, MB = 1, 12, 64, 65, 1024 // bs
+    q = torch.zeros((B, tq, H, D), dtype=dtype)
+    pool = torch.zeros((NB, bs, H, D), dtype=torch.int8)
+    scales = torch.zeros((NB, bs, H, 1))
+    tables = torch.ones((B, MB), dtype=torch.int32)
+    lengths = torch.tensor([384], dtype=torch.int32)
+    wrapper = da.decode_attention_paged_int8
+    with mock.patch.object(da, "load", lambda src, sigs: Lib(src)), \
+            mock.patch.object(da, "_stream", lambda t: 5), \
+            mock.patch.object(da, "_sm_count", lambda dev: 132), \
+            mock.patch.object(da, "_WORKSPACE", {}), \
+            mock.patch.object(wrapper, "launches", 0), \
+            mock.patch.object(wrapper, "source_launches", {}):
+        da._paged_int8_launch(q, pool, pool, scales, scales, tables, lengths,
+                              0.125)
+        assert wrapper.launches == 1
+        assert wrapper.source_launches == {source: 1}
+        splits = wrapper.last_splits
+        workspace = da._WORKSPACE.get((q.device, 5))
+    assert da.int8_source(dtype, tq, D, bs) == source
+    (src, fn, args), = calls
+    sigs = {"decode_paged_int8": da._PAGED_INT8_SIG,
+            "decode_paged_int8_sm90": da._PAGED_INT8_SM90_SIG}[source]
+    assert src == source and fn == f"ds_{source}"
+    assert len(args) == len(sigs[fn][0]) == _c_arity(source)
+    if source == "decode_paged_int8_sm90":
+        assert splits is None and workspace is None
+        assert args[8:15] == (B, tq, H, D, NB, bs, MB)
+    else:
+        ws, tickets = workspace
+        assert splits == da.decode_splits(B, H, tq, MB * bs, 132,
+                                          da.PAGED_MIN_SPLIT_KEYS)
+        assert args[8:10] == (ws.data_ptr(), tickets.data_ptr())
+        assert args[10:20] == (int(dtype == torch.bfloat16), B, tq, H, D,
+                               NB, bs, MB, splits, da.PAGED_MIN_SPLIT_KEYS)
 
 
 def test_paged_int8_matches_dense_dequant_oracle():
