@@ -37,10 +37,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (split over the cache) also at T_q = 5 on a full cache, B = 1, D =
    128, an index whose keys end on a split boundary and one inside the
    first split, and twice on the same inputs, bitwise equal; the
-   stochastic int8 quantizer (fp32) bit for bit at two seeds on GPT-2
-   125M's gradient shapes, a ragged one and zeros, with its rounding
-   checked against its contract (floor or floor + 1, the share rounded up
-   within 5 sigma of the mean fraction) — and
+   stochastic int8 quantizer (fp32, one cooperative launch a call) bit for
+   bit at two seeds on GPT-2 125M's gradient shapes, a ragged one and
+   zeros, with its rounding checked against its contract (floor or floor
+   + 1, the share rounded up within 5 sigma of the mean fraction) and its
+   two passes timed apart, then on inputs that stress its division (x = k
+   scale (1 +- 2^-23) at several scales, subnormal x, +-inf) and its
+   edges (one element, n = 16 m + 7, an unaligned view; an empty tensor
+   launches nothing) — and
    time kernel, plain version and (where one exists) the PyTorch library
    call computing the same function (for block-sparse attention SDPA with
    the layout expanded to a boolean mask), beside the least time the card
@@ -83,7 +87,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    against the stream without speculation are printed. With chunking on
    every prompt takes the chunk path, so leg
    A launches no flash forward; leg B's whole-prompt prefills do;
-7. "bert_sparse": BERT-large MLM at full width and depth through
+7. keyed sampling on the same model: the keyed draw
+   (``ops/sampling.py``) on the card against the same function on the CPU
+   over 64 rows of 50257 logits with mixed knobs (equal tokens, or a
+   row whose two best perturbed scores lie within 1e-5); then
+   ("sampled_serving") a staggered mix of 4 sampled and 2 greedy requests
+   through a serving engine with a ``serving.sampling`` block: every
+   request finishes, the greedy ones emit a sampling-free engine's tokens
+   (and a greedy mix launches the same kernels the same number of times
+   with and without the block), a sampled request resubmitted under
+   another mix repeats its tokens bit for bit, and not every sampled
+   stream is the greedy one; ("sampled_generate") ``generate(do_sample=
+   True, seed=...)`` twice, bit for bit; and the host ms of a decode
+   step with 4 sampled slots against 4 greedy ones;
+8. "bert_sparse": BERT-large MLM at full width and depth through
    ``deepspeed_tpu_torch.initialize`` with ``bench_bert.py``'s keys (Adam,
    clip 1.0, bf16, fused step; ZeRO 0) and the reference's documented
    ``sparse_attention`` section at block 128 (``tools/profile_training.py``
@@ -96,7 +113,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    128, no section; one warm-up and 5 timed steps: ms/step, tokens/s,
    MFU) through the non-causal flash kernels.
 
-Phases 3, 4, 5, 6 and 7 are the main paths (6 and 7 in two legs each):
+Phases 3, 4, 5, 6, 7 and 8 are the main paths (6, 7 and 8 in two legs
+each):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -405,6 +423,48 @@ QUANT_SHAPES = (((3072, 768), "randn"), ((50257, 768), "randn"),
                 ((1000, 3), "nan"))
 # QUANT_SHAPES' row reported in the kernel line: the embedding's gradient
 QUANT_ROW = 1
+# absmax values of the division's stress inputs: scales (absmax / 127) in
+# the fast range, a subnormal scale, and scales above 2^100 (IEEE division
+# for the whole call)
+QUANT_EDGE_ABSMAX = (1.0, 127.0, 3.7e-30, 2.5e20, 6.1e-8, 1e-37, 2.0 ** 110)
+
+
+def quantize_edge_inputs(gen):
+    """(name, x) of the inputs that stress the kernel's division and its
+    ragged, unaligned and tiny cases: for each QUANT_EDGE_ABSMAX, x = k
+    scale (1 + d) for k in -127..127 and d in {0, +-2^-24, +-2^-23}, their
+    float32 neighbours and the absmax itself; subnormal x beside a normal
+    absmax, and all subnormal; a +inf and a -inf element; one element;
+    n = 16 m + 7; a view one element past a 16-byte boundary."""
+    import torch
+
+    out = []
+    k = torch.arange(-127, 128, dtype=torch.float64, device="cuda")
+    d = torch.tensor([0.0, 2.0 ** -24, -2.0 ** -24, 2.0 ** -23, -2.0 ** -23],
+                     dtype=torch.float64, device="cuda")
+    for a in QUANT_EDGE_ABSMAX:
+        scale = torch.tensor(a, dtype=torch.float32, device="cuda") / \
+            torch.tensor(127.0, device="cuda")
+        x = (k[:, None] * scale.double() * (1 + d)).reshape(-1).float()
+        x = torch.cat([x, torch.nextafter(x, torch.full_like(x, float("inf"))),
+                       torch.nextafter(x, torch.full_like(x, -float("inf")))])
+        x = x.clamp(-a, a)
+        x = torch.cat([torch.tensor([a, -a], device="cuda"), x])
+        out.append((f"k scale (1 + d), absmax {a:g}", x))
+    tiny = torch.randn(4099, generator=gen, device="cuda") * 1e-39
+    out.append(("subnormal x, absmax 1", torch.cat(
+        [torch.ones(1, device="cuda"), tiny])))
+    out.append(("all subnormal", tiny))
+    for sign in (1, -1):
+        x = torch.randn(20007, generator=gen, device="cuda")
+        x[777] = sign * float("inf")
+        out.append((f"{'+' if sign > 0 else '-'}inf element", x))
+    out.append(("one element", torch.randn(1, generator=gen, device="cuda")))
+    out.append(("n = 16 * 6250 + 7",
+                torch.randn(16 * 6250 + 7, generator=gen, device="cuda")))
+    base = torch.randn(300001, generator=gen, device="cuda")
+    out.append(("view at offset 1 (unaligned)", base[1:]))
+    return out
 
 
 def check_stochastic_quantize(gen, seed):
@@ -482,9 +542,15 @@ def check_stochastic_quantize(gen, seed):
         def kernel():
             return qz.stochastic_quantize(x, seeds[0])
 
+        def passes(p):
+            return lambda: qz.launch_passes(x, q, scale, seeds[0], p)
+
         rows.append({
             "shape": name, "max_abs_err": err, "seeds": list(seeds),
             "rounded_up_vs_expected": shares,
+            # pass 1 alone (absmax, scale), pass 2 alone (codes, every
+            # tile read from L2 or device memory)
+            "pass1_ms": device_ms(passes(1)), "pass2_ms": device_ms(passes(2)),
             # the plain version launches ~130 elementwise kernels a call:
             # 4 calls keep the host's queue of launches from filling while
             # the device spins
@@ -494,6 +560,34 @@ def check_stochastic_quantize(gen, seed):
             "library_ms": None, **bound(5 * x.numel(), {})})
         del x, codes
         torch.cuda.empty_cache()
+    for name, x in quantize_edge_inputs(gen):
+        for s in seeds:
+            before = qz.stochastic_quantize.launches
+            q, scale = qz.stochastic_quantize(x, s)
+            launched = qz.stochastic_quantize.launches - before
+            if launched != 1:
+                raise AssertionError(f"stochastic_quantize {name}: "
+                                     f"{launched} launches in one call, "
+                                     f"not 1")
+            rq, rscale = qz.stochastic_quantize_reference(x, s)
+            torch.cuda.synchronize()
+            same_scale = (
+                (scale.isnan().item() and rscale.isnan().item()) or
+                scale.view(torch.int32).item() ==
+                rscale.view(torch.int32).item())
+            if not (torch.equal(q, rq) and same_scale):
+                raise AssertionError(
+                    f"stochastic_quantize {name} seed {s}: kernel differs "
+                    f"from the plain version ({int((q != rq).sum())} of "
+                    f"{q.numel()} codes, scale {scale.item()} vs "
+                    f"{rscale.item()})")
+    before = qz.stochastic_quantize.launches
+    q, scale = qz.stochastic_quantize(torch.empty(0, device="cuda"), 5)
+    if qz.stochastic_quantize.launches != before or scale.item() != 1.0:
+        raise AssertionError("stochastic_quantize: an empty tensor launched "
+                             "the kernel or gave a scale other than 1")
+    log(f"stochastic_quantize: {len(QUANT_EDGE_ABSMAX) + 7} edge inputs at "
+        f"two seeds bit for bit, one launch a call; empty: no launch")
     return rows
 
 
@@ -1456,6 +1550,197 @@ def phase_fast_path(model, seed, card):
                       leg_speculative(model, seed, card))
 
 
+# keyed sampling (phase 7): the knobs of the sampled requests, and the
+# draw check's rows
+SAMPLED_KNOBS = (dict(seed=101, temperature=0.8, top_p=0.9),
+                 dict(seed=202, temperature=1.0, top_k=50),
+                 dict(seed=303, temperature=1.3, top_k=7),
+                 dict(seed=404))
+DRAW_ROWS = 64
+DRAW_TIE = 1e-5
+HOST_STEPS = 30
+
+
+def check_keyed_draw(vocab, seed):
+    """The keyed draw on the card against the same function on the CPU
+    over DRAW_ROWS logits rows of the vocabulary, mixed greedy and sampled
+    rows and knobs: the tokens must be equal, except in a row whose two
+    best perturbed scores (gumbel + filtered logit, on the CPU) lie within
+    DRAW_TIE of each other, where the card's other rounding of the filter
+    may pick the other one. Returns (rows that differ, ms of a 4-row draw
+    with its host work)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import sampling
+
+    rng = np.random.default_rng(seed + 11)
+    n = DRAW_ROWS
+    logits = torch.from_numpy(
+        (3 * rng.standard_normal((n, vocab))).astype(np.float32))
+    knobs = (rng.integers(0, 2 ** 32, n), rng.integers(0, 1024, n),
+             rng.integers(0, 4, n) > 0, rng.choice([0.7, 1.0, 1.3], n),
+             rng.choice([0, 7, 50], n), rng.choice([0.0, 0.9], n))
+    cpu = sampling.keyed_sample(logits, *knobs)
+    gpu = sampling.keyed_sample(logits.cuda(), *knobs).cpu()
+    differ = (cpu != gpu).nonzero().flatten().tolist()
+    for i in differ:
+        key = sampling.fold_in_key(int(knobs[0][i]), int(knobs[1][i]))
+        row = sampling.keyed_filter_logits(
+            logits[i:i + 1], [knobs[3][i]], [knobs[4][i]], [knobs[5][i]])
+        scores = sampling.gumbel(sampling.uniform(sampling.random_bits(
+            key[None], vocab))) + row
+        top = scores.flatten().topk(2).values
+        if not knobs[2][i] or (top[0] - top[1]).item() > DRAW_TIE:
+            raise AssertionError(
+                f"keyed draw row {i}: card token {int(gpu[i])}, CPU token "
+                f"{int(cpu[i])}, best perturbed scores {top.tolist()}")
+    four = logits[:4].cuda()
+    on = [1, 1, 1, 1]
+    # back to back on CUDA events: each call uploads its knobs, which
+    # holds the host, so this is the draw's time with its host work
+    ms = wrapper_ms(lambda: sampling.keyed_sample(
+        four, knobs[0][:4], knobs[1][:4], on, knobs[3][:4], knobs[4][:4],
+        knobs[5][:4]))
+    return differ, ms
+
+
+def mixed_requests(srv, prompts, max_new, sampled):
+    """A staggered mix on ``srv``: requests 0 and 1, two steps, 2 and 3,
+    a step, 4, a step, 5, then a drain. When ``sampled``, requests 0, 2,
+    3 and 5 sample with SAMPLED_KNOBS 0-3; 1 and 4 are greedy. Returns
+    the requests."""
+    order = (0, None, 1, 2, None, 3)
+    reqs = []
+    for i, p in enumerate(prompts):
+        k = order[i]
+        kw = dict(do_sample=True, **SAMPLED_KNOBS[k]) \
+            if sampled and k is not None else {}
+        reqs.append(srv.submit(p, max_new_tokens=max_new,
+                               request_id=f"m{i}", **kw))
+        for _ in range({1: 2, 3: 1, 4: 1}.get(i, 0)):
+            srv.step()
+    srv.drain()
+    return reqs
+
+
+def decode_step_ms(srv, prompts, max_new, sampled):
+    """Host ms of each of HOST_STEPS decode steps of ``srv`` once every
+    request of ``prompts`` (one a slot) is past its prefill; a step ends
+    in the host sync of its tokens."""
+    for i, p in enumerate(prompts):
+        kw = dict(do_sample=True, **SAMPLED_KNOBS[i]) if sampled else {}
+        srv.submit(p, max_new_tokens=max_new, **kw)
+    srv.step()
+    out = []
+    for _ in range(HOST_STEPS):
+        t0 = time.perf_counter()
+        srv.step()
+        out.append(1e3 * (time.perf_counter() - t0))
+    srv.drain()
+    return out
+
+
+def phase_sampling(model, seed, card):
+    """Keyed sampling on the card: the draw against the CPU's, a staggered
+    mix of 4 sampled and 2 greedy requests (each finishes; the greedy ones
+    emit a sampling-free engine's tokens; a sampled one repeats its tokens
+    under another mix; not every sampled stream is the greedy one),
+    ``generate(seed=)`` twice, bit for bit, and the host ms of a decode
+    step with 4 sampled slots against 4 greedy ones. Returns the launch
+    counts of the mixed serving run and of generate."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference, init_serving
+    from deepspeed_tpu_torch.tools.profile_serving import (
+        MAX_NEW_TOKENS, SERVING)
+
+    vocab = model.config.vocab_size
+    differ, draw_ms = check_keyed_draw(vocab, seed)
+    log(f"keyed draw: {DRAW_ROWS} rows of {vocab} logits, card against "
+        f"CPU: {len(differ)} rows differ (each within {DRAW_TIE} of a tie: "
+        f"{differ}); a draw of 4 sampled rows {draw_ms:.4f} ms back to "
+        f"back, host work included [{card}]")
+
+    rng = np.random.default_rng(seed + 13)
+    prompts = [rng.integers(1, vocab, n) for n in (37, 300, 8, 129, 64, 511)]
+    max_new = MAX_NEW_TOKENS
+    keyed = {**SERVING, "sampling": {"enabled": True}}
+    srv = init_serving(model, serving=keyed)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reqs = mixed_requests(srv, prompts, max_new, sampled=True)
+    counts = launch_counts()
+    for r in reqs:
+        if r.state != "finished" or len(r.tokens) != max_new:
+            raise AssertionError(f"sampled mix {r.request_id}: state "
+                                 f"{r.state} reason {r.finish_reason}, "
+                                 f"{len(r.tokens)} tokens")
+    if counts["flash_fwd"] <= 0 or counts["decode_paged"] <= 0:
+        raise AssertionError(f"sampled serving did not launch the kernels: "
+                             f"{counts}")
+    plain = init_serving(model, serving=SERVING)
+    reset_launch_counts()
+    greedy = mixed_requests(plain, prompts, max_new, sampled=False)
+    plain_counts = launch_counts()
+    reset_launch_counts()
+    keyed_greedy = mixed_requests(srv, prompts, max_new, sampled=False)
+    if launch_counts() != plain_counts:
+        raise AssertionError(f"a greedy mix launched {launch_counts()} with "
+                             f"the sampling block, {plain_counts} without")
+    sampled_idx = (0, 2, 3, 5)
+    for i in (1, 4):
+        if reqs[i].tokens != greedy[i].tokens or \
+                keyed_greedy[i].tokens != greedy[i].tokens:
+            raise AssertionError(f"greedy request {i} in the sampled mix "
+                                 f"differs from the sampling-free engine")
+    same = [reqs[i].tokens == greedy[i].tokens for i in sampled_idx]
+    if all(same):
+        raise AssertionError("every sampled stream equals the greedy one")
+    again = srv.submit(prompts[0], max_new_tokens=max_new, do_sample=True,
+                       **SAMPLED_KNOBS[0])
+    srv.submit(prompts[4], max_new_tokens=max_new)
+    srv.submit(prompts[1], max_new_tokens=max_new // 2)
+    srv.drain()
+    if again.tokens != reqs[0].tokens:
+        raise AssertionError("a sampled request resubmitted under another "
+                             "mix changed its tokens")
+    log(f"sampled serving: 6 requests (4 sampled, 2 greedy) finished, "
+        f"greedy tokens equal the sampling-free engine's, sampled streams "
+        f"equal to greedy {same}, resubmitted stream repeats; launches "
+        f"{counts}; a greedy mix with and without the block {plain_counts}")
+
+    engine = init_inference(model)
+    ids = generate_ids(engine, seed)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    first = engine.generate(ids, max_new_tokens=max_new, do_sample=True,
+                            **SAMPLED_KNOBS[0]).cpu()
+    gen_counts = launch_counts()
+    second = engine.generate(ids, max_new_tokens=max_new, do_sample=True,
+                             **SAMPLED_KNOBS[0]).cpu()
+    if first.shape != (2, 128 + max_new) or not torch.equal(first, second):
+        raise AssertionError("generate(seed=) is not repeatable")
+    if gen_counts["flash_fwd"] <= 0 or gen_counts["decode_append"] <= 0:
+        raise AssertionError(f"generate(seed=) did not launch the kernels: "
+                             f"{gen_counts}")
+
+    host = {}
+    step_prompts = [rng.integers(1, vocab, 128) for _ in range(4)]
+    for name, cfg, sampled in (("sampled", keyed, True),
+                               ("greedy", keyed, False),
+                               ("greedy, no block", SERVING, False)):
+        ms = decode_step_ms(init_serving(model, serving=cfg),
+                            step_prompts, HOST_STEPS + 2, sampled)
+        host[name] = (float(np.median(ms)), float(np.mean(ms)))
+    log(f"host ms a decode step, 4 slots (p50, mean over {HOST_STEPS}): "
+        + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f}" for k, v in host.items())
+        + f"; the draw adds {host['sampled'][0] - host['greedy'][0]:.3f} ms "
+        f"p50 [{card}]")
+    log(f"generate(seed=): 2 x {max_new} tokens twice, bit for bit; "
+        f"launches {gen_counts}")
+    return counts, gen_counts
+
+
 def first_grads(engine, batch):
     """Per-parameter gradients of the first step's loss (the engine's
     model, before any update); leaves the engine's gradients clear."""
@@ -1547,7 +1832,7 @@ def phase_training(seed, card):
     return counts
 
 
-# phase 7: BERT-large MLM with the sparse_attention section. 3 warm-up and
+# phase 8: BERT-large MLM with the sparse_attention section. 3 warm-up and
 # 5 timed steps of the sparse workload (every launch count per step:
 # forward, dQ and dK/dV once a layer, the forward saved by the dots policy,
 # no flash); the kernel-vs-plain comparison at BERT_PLAIN_LAYERS of the 24
@@ -1800,7 +2085,8 @@ KERNEL_TABLE = {
     "stochastic_quantize": Kernel("stochastic_quantize.cu",
                                   "deepspeed_tpu/ops/quantizer.py:141", None,
                                   "stochastic_quantize", QUANT_ROW,
-                                  dtype="float32", rows=()),
+                                  dtype="float32",
+                                  rows=("pass1_ms", "pass2_ms")),
 }
 
 
@@ -1947,12 +2233,16 @@ def main():
     t0 = time.perf_counter()
     by_path["fast_path"] = phase_fast_path(model, args.seed, card)
     log(f"phase 6: serving fast path in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["sampled_serving"], by_path["sampled_generate"] = \
+        phase_sampling(model, args.seed, card)
+    log(f"phase 7: keyed sampling in {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     by_path["bert_sparse"], by_path["bert_dense"] = phase_bert(args.seed,
                                                                card)
-    log(f"phase 7: BERT-large sparse and dense training in "
+    log(f"phase 8: BERT-large sparse and dense training in "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernel_line(kernel_rows, by_path)}))

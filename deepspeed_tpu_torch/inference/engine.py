@@ -5,12 +5,15 @@ device: the weights are cast to the config dtype once (``_convert_dtype``
 in the JAX engine), ``forward``/``forward_last`` run the causal forward,
 and ``generate`` runs one prefill then a Python loop of decode steps over
 an append KV cache, sampling greedily or with temperature/top-k/top-p
-from a ``torch.Generator``. The loop keeps the tokens on the device: it
-never waits on the host between steps.
+from a ``torch.Generator``, or, given a ``seed``, with the keyed sampler
+(``ops/sampling.py``): the token at absolute position P is a pure
+function of (seed, P, logits), the same as the JAX engine's and the
+serving engine's for the same request. The loop keeps the tokens on the
+device: it never waits on the host between steps.
 
-Not in this slice: weight-only int8, the keyed threefry sampler (the
-keyed-sampling slice), left-padded ``attention_mask`` generation (the
-padded-generate slice), tensor parallelism, telemetry and resilience.
+Not in this slice: weight-only int8, left-padded ``attention_mask``
+generation (the padded-generate slice), tensor parallelism, telemetry and
+resilience.
 """
 
 from typing import Optional
@@ -19,6 +22,7 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.ops.sampling import keyed_sample
 from deepspeed_tpu_torch.serving.config import ServingConfig
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -131,16 +135,17 @@ class InferenceEngine:
         """Autoregressive generation. Returns ``[batch, prompt_len +
         max_new_tokens]`` token ids on the engine's device (prompt
         included, HF-style); after ``eos_token_id`` a row repeats it
-        (``-1`` disables the stop)."""
+        (``-1`` disables the stop).
+
+        ``do_sample=True`` with ``seed`` set selects the keyed sampler:
+        the first token is drawn at position ``prompt_len`` and each later
+        one at the next position, from ``fold_in(PRNGKey(seed),
+        position)`` (``generator`` is not used); a ``seed`` with
+        ``do_sample=False`` is greedy, as in the JAX engine."""
         if attention_mask is not None:
             raise NotImplementedError(
                 "generate(attention_mask=...) (left-padded batches) is not "
                 "ported yet: it comes with the padded-generate slice of the "
-                "PyTorch port")
-        if seed is not None:
-            raise NotImplementedError(
-                "generate(seed=...) (keyed reproducible sampling) is not "
-                "ported yet: it comes with the keyed-sampling slice of the "
                 "PyTorch port")
         ids = self._ids(input_ids)
         B, T = ids.shape
@@ -160,17 +165,23 @@ class InferenceEngine:
         model = self._decode_model
         cache = model.new_cache(B)
 
-        def next_token(input_ids):
+        keyed = bool(do_sample) and seed is not None
+
+        def next_token(input_ids, position):
             hidden = model(input_ids, cache=cache, return_hidden=True)
             logits = model.lm_head(hidden[:, -1])
+            if keyed:
+                return keyed_sample(logits, [seed] * B, [position] * B,
+                                    [1] * B, [temperature] * B, [top_k] * B,
+                                    [top_p] * B)
             return sample_logits(logits, generator, temperature, do_sample,
                                  top_k, top_p)
 
-        token = next_token(ids)
+        token = next_token(ids, T)
         done = token == eos_token_id
         tokens = [token]
-        for _ in range(max_new_tokens - 1):
-            nxt = next_token(token[:, None])
+        for step in range(1, max_new_tokens):
+            nxt = next_token(token[:, None], T + step)
             nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
             done = done | (nxt == eos_token_id)
             tokens.append(nxt)

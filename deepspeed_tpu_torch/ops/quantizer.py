@@ -34,7 +34,12 @@ from deepspeed_tpu_torch.ops.op_builder import load
 
 _P = ctypes.c_void_p
 _SIG = {"ds_stochastic_quantize": (
-    [_P] * 4 + [ctypes.c_longlong, ctypes.c_uint, _P], ctypes.c_int)}
+    [_P] * 4 + [ctypes.c_longlong, ctypes.c_uint] + [ctypes.c_int] * 2 + [_P],
+    ctypes.c_int),
+        "ds_stochastic_quantize_grid": ([ctypes.POINTER(ctypes.c_int)],
+                                        ctypes.c_int)}
+# the cooperative grid of each device (CTAs an SM times SMs), queried once
+_GRID = {}
 
 # Philox4x32-10 (Salmon et al. 2011; the constants of PyTorch's
 # ATen/core/PhiloxRNGEngine.h): round multipliers and key increments
@@ -120,10 +125,11 @@ def stochastic_quantize(x, seed: int, num_bits: int = 8):
     """Per-tensor symmetric int8 with stochastic rounding: ``(q int8 like
     x, scale fp32 0-d)``, ``E[q * scale] = x`` inside the clip. fp32 only;
     a CPU tensor takes the plain version, a CUDA tensor launches
-    ``csrc/stochastic_quantize.cu`` (an absmax pass, then the codes) or
-    raises."""
+    ``csrc/stochastic_quantize.cu`` (one cooperative launch: absmax, a
+    grid sync, then the codes) or raises. An empty tensor returns the
+    plain version's result and launches nothing."""
     _check_stochastic(x, num_bits)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or x.numel() == 0:
         return stochastic_quantize_reference(x, seed)
     if x.device.type != "cuda":
         raise ValueError(f"stochastic_quantize runs on cuda or cpu, got "
@@ -131,17 +137,48 @@ def stochastic_quantize(x, seed: int, num_bits: int = 8):
     x = x.contiguous()
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((), dtype=torch.float32, device=x.device)
-    absmax_bits = torch.zeros((), dtype=torch.int32, device=x.device)
+    launch_passes(x, q, scale, seed, 3)
+    return q, scale
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _grid(lib, device):
+    """The cooperative grid of ``device`` (resident CTAs an SM times SMs),
+    from the occupancy API once a device."""
+    grid = _GRID.get(device.index)
+    if grid is None:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.ds_stochastic_quantize_grid(ctypes.byref(blocks))
+        if err:
+            raise RuntimeError(f"stochastic_quantize: occupancy query "
+                               f"failed: CUDA error {err}")
+        grid = _GRID[device.index] = blocks.value
+    return grid
+
+
+def launch_passes(x, q, scale, seed: int, passes: int):
+    """One launch of the kernel on contiguous fp32 ``x`` (any alignment),
+    writing ``q`` and the 0-d ``scale``: ``passes`` 3 is a call of
+    :func:`stochastic_quantize`; 1 (absmax and scale only) and 2 (codes
+    from the scale already in ``scale``, every tile brought from L2 or
+    device memory, the fast path wherever the scale allows it) time the
+    passes apart (``tools/time_quantize.py``)."""
     lib = load("stochastic_quantize", _SIG)
+    grid = _grid(lib, x.device)
+    # two slots a CTA (its absmax, its least nonzero |x|): each CTA writes
+    # its own before the grid syncs, so nothing needs zeroing
+    partial = torch.empty(2 * grid, dtype=torch.float32, device=x.device)
     err = lib.ds_stochastic_quantize(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), absmax_bits.data_ptr(),
-        x.numel(), seed & _MASK,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), partial.data_ptr(),
+        x.numel(), seed & _MASK, passes, grid, _stream(x))
     if err:
         raise RuntimeError(f"stochastic_quantize kernel launch failed: CUDA "
                            f"error {err}")
     stochastic_quantize.launches += 1
-    return q, scale
 
 
 # kernel launches by the wrapper (chip_smoke.py zeroes and reads them)

@@ -21,7 +21,6 @@ QUEUE = "queue"
 PROMPT_LOOKUP = "prompt_lookup"
 DRAFT_MODEL = "draft_model"
 
-_KEYED = "the keyed-sampling slice"
 _FLEET = "the multi-GPU serving slice (router, fleet, gateway, migration, " \
          "replay)"
 _PADDED = "the padded-generate slice"
@@ -96,6 +95,57 @@ class SpeculativeConfig(DeepSpeedConfigModel):
 
 
 
+class SamplingConfig(DeepSpeedConfigModel):
+    """The ``serving.sampling`` block: reproducible keyed sampling on the
+    fixed-slot decode loop. Absent (the default), keyed sampling does not
+    exist and every step runs as before. Present, a request submitted
+    with ``do_sample=True`` and a ``seed`` draws each token from a
+    threefry key folded from ``(seed, absolute position)``
+    (``ops/sampling.py``) with its own temperature, top-k and top-p, so
+    the emitted token is a pure function of (seed, position, logits),
+    whatever slot or batch mix serves it.
+
+    One sampling authority per engine: the engine-level ``do_sample``
+    (one shared generator, not replayable) must stay off, and
+    speculative decoding (whose accept oracle is the greedy stream)
+    cannot be combined with this block."""
+
+    enabled: bool = True
+    # per-request defaults a sampled request inherits when it leaves
+    # temperature/top_k/top_p unset (the seed has no default: an unseeded
+    # do_sample request is not replayable and sheds)
+    default_temperature: float = 1.0
+    default_top_k: int = 0
+    default_top_p: float = 0.0
+
+    @field_validator("default_temperature")
+    @classmethod
+    def _temp(cls, v):
+        if v <= 0:
+            raise ValueError(
+                "serving.sampling.default_temperature must be > 0, "
+                f"got {v}")
+        return v
+
+    @field_validator("default_top_k")
+    @classmethod
+    def _topk(cls, v):
+        if v < 0:
+            raise ValueError(
+                "serving.sampling.default_top_k must be >= 0 "
+                f"(0 = disabled), got {v}")
+        return v
+
+    @field_validator("default_top_p")
+    @classmethod
+    def _topp(cls, v):
+        if not 0.0 <= v <= 1.0:
+            raise ValueError(
+                "serving.sampling.default_top_p must be in [0, 1] "
+                f"(0 = disabled), got {v}")
+        return v
+
+
 class ServingConfig(DeepSpeedConfigModel):
     enabled: bool = True
     # ---- paged KV cache ----
@@ -144,11 +194,13 @@ class ServingConfig(DeepSpeedConfigModel):
     kv_cache_dtype: str = ""
     # draft-and-verify decoding (None = speculation does not exist)
     speculative: Optional[SpeculativeConfig] = None
+    # per-request keyed sampling (None = greedy or engine-level sampling
+    # only, every step as without it)
+    sampling: Optional[SamplingConfig] = None
     # ---- knobs of later slices: parsed, and rejected when set ----
     # the JAX default pads legacy generate() prompts to the bucket set via
     # left-padded generation, which the port does not have yet
     bucket_legacy_generate: bool = False
-    sampling: Optional[dict] = None
     router: Optional[dict] = None
     fleet: Optional[dict] = None
     replay: Optional[dict] = None
@@ -211,12 +263,30 @@ class ServingConfig(DeepSpeedConfigModel):
         return self
 
     @model_validator(mode="after")
+    def _sampling_one_authority(self):
+        if self.sampling is not None and self.sampling.enabled:
+            if self.do_sample:
+                # the engine-level sampler draws from one shared
+                # generator: its tokens depend on dispatch order
+                raise ValueError(
+                    "serving.sampling requires do_sample: false — the "
+                    "keyed sampler is per-REQUEST (submit with "
+                    "do_sample=True and a seed); the engine-level "
+                    "do_sample knob is the legacy shared-rng sampler")
+            if self.speculative is not None and self.speculative.enabled:
+                raise ValueError(
+                    "serving.sampling cannot be combined with "
+                    "serving.speculative: draft acceptance is verified "
+                    "against the greedy token stream (rejection-sampled "
+                    "speculation is not implemented)")
+        return self
+
+    @model_validator(mode="after")
     def _unported(self):
         def on(block):
             return block is not None and block.get("enabled", True)
 
         later = {
-            "sampling": (on(self.sampling), _KEYED),
             "router": (on(self.router), _FLEET),
             "fleet": (on(self.fleet), _FLEET),
             "replay": (on(self.replay), _FLEET),

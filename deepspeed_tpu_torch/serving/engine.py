@@ -42,10 +42,18 @@ engine's tokens with any of them on. The pools are updated in place
 (the JAX engine donates them instead); the one host sync per step is
 the sampled tokens.
 
+With a ``serving.sampling`` block, a request submitted with
+``do_sample=True`` and a ``seed`` samples through the keyed sampler
+(``ops/sampling.py``): its token at absolute position P is a pure function
+of (seed, P, logits), drawn at the JAX engine's positions (the prompt
+length after prefill or the final chunk, ``length + 1`` at a decode step),
+so its stream equals ``generate(do_sample=True, seed=...)``'s and the JAX
+engine's under any batch mix; greedy requests beside it keep the argmax.
+
 Not in this slice, each rejected at config time with the slice that
-brings it (``serving/config.py``): keyed sampling, router/fleet/gateway,
-migration (``export_sequence``/``import_sequence`` raise too). Telemetry,
-span tracing and resilience hooks come later.
+brings it (``serving/config.py``): router/fleet/gateway, migration
+(``export_sequence``/``import_sequence`` raise too). Telemetry, span
+tracing and resilience hooks come later.
 """
 
 import collections
@@ -57,6 +65,7 @@ import torch
 
 from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
                                                   sample_logits)
+from deepspeed_tpu_torch.ops.sampling import keyed_sample
 from deepspeed_tpu_torch.serving.blocks import BlockManager
 from deepspeed_tpu_torch.serving.config import (ServingConfig,
                                                 blocks_for_tokens,
@@ -133,6 +142,18 @@ class ServingEngine:
                        if self._proposer is not None else 0)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(self.config.seed))
+        # keyed sampling (serving.sampling): each slot's seed and knobs on
+        # the host; the key folds from (seed, position) at every draw, so
+        # nothing else carries over between steps. Without the block these
+        # arrays do not exist and every step samples as before
+        self._keyed = bool(self.config.sampling is not None
+                           and self.config.sampling.enabled)
+        if self._keyed:
+            self._seeds = np.zeros((n,), np.int64)
+            self._samp_on = np.zeros((n,), np.int32)
+            self._temps = np.ones((n,), np.float32)
+            self._top_ks = np.zeros((n,), np.int64)
+            self._top_ps = np.zeros((n,), np.float32)
         self._step_count = 0
         # speculation counters over the stats window (reset_stats zeroes
         # them with the records)
@@ -151,6 +172,36 @@ class ServingEngine:
         sc = self.config
         return sample_logits(logits, self.generator, sc.temperature,
                              sc.do_sample, sc.top_k, sc.top_p)
+
+    def _first_token(self, logits, req: Request) -> int:
+        """The request's first generated token from its last prompt row's
+        logits ``[1, V]``: with keyed sampling, drawn at the absolute
+        position ``prompt_len`` (whole-prompt prefill and the final chunk
+        alike), greedy for a request without ``do_sample``."""
+        if not self._keyed:
+            return int(self._sample(logits)[0])
+        return int(keyed_sample(
+            logits, [req.seed or 0], [req.prompt_len],
+            [1 if req.do_sample else 0],
+            [req.temperature if req.temperature is not None else 1.0],
+            [req.top_k or 0], [req.top_p or 0.0])[0])
+
+    def _set_samp_slot(self, slot: int, req: Request):
+        """Load one slot's sampling row from the request's (resolved)
+        knobs: the only per-slot sampler state."""
+        self._seeds[slot] = int(req.seed or 0) & 0xFFFFFFFF
+        self._samp_on[slot] = 1 if req.do_sample else 0
+        self._temps[slot] = (req.temperature
+                             if req.temperature is not None else 1.0)
+        self._top_ks[slot] = req.top_k or 0
+        self._top_ps[slot] = req.top_p or 0.0
+
+    def _clear_samp_slot(self, slot: int):
+        self._seeds[slot] = 0
+        self._samp_on[slot] = 0
+        self._temps[slot] = 1.0
+        self._top_ks[slot] = 0
+        self._top_ps[slot] = 0.0
 
     def _on_device(self, array, dtype=torch.int32):
         return torch.as_tensor(array, dtype=dtype, device=self.device)
@@ -229,7 +280,7 @@ class ServingEngine:
         # the request's next token depends on its LAST REAL position
         # (right padding: index prompt_len - 1)
         logits = self.model.lm_head(hidden[:, req.prompt_len - 1])
-        tok = int(self._sample(logits)[0])
+        tok = self._first_token(logits, req)
         req.prefill_chunks = 1
         self._slot_live(slot, req, table, tok, done)
 
@@ -293,7 +344,9 @@ class ServingEngine:
         if not last:
             return None
         logits = self.model.lm_head(hidden[:, step_len - 1])
-        return int(self._sample(logits)[0])
+        # the final chunk ends the prompt: pos + step_len = prompt_len,
+        # the position the whole-prompt prefill draws at too
+        return self._first_token(logits, req)
 
     def _slot_live(self, slot: int, req: Request, table: np.ndarray,
                    tok: int, done: List[Request]):
@@ -304,6 +357,8 @@ class ServingEngine:
         self._tables[slot] = table
         self._lengths[slot] = req.prompt_len
         self._last_tokens[slot] = tok
+        if self._keyed:
+            self._set_samp_slot(slot, req)
         if self.prefix is not None:
             # BEFORE any finish: insertion must precede release so a
             # one-token request's blocks park evictable, not freed
@@ -334,9 +389,18 @@ class ServingEngine:
                                             torch.long),
                             cache=self.cache, paging=paging,
                             return_hidden=True)
+        logits = self.model.lm_head(hidden[:, -1])
+        if self._keyed:
+            # this step emits the token at absolute position lengths + 1
+            # (lengths tokens pooled, the pending last token at lengths)
+            toks = keyed_sample(logits, self._seeds, self._lengths + 1,
+                                self._samp_on, self._temps, self._top_ks,
+                                self._top_ps)
+        else:
+            toks = self._sample(logits)
         # the one host sync per decode step: sampled tokens stream to
         # callers and drive the finish logic
-        toks = self._sample(self.model.lm_head(hidden[:, -1])).cpu().numpy()
+        toks = toks.cpu().numpy()
         now = self.clock()
         self._step_count += 1
         for slot, req in active:
@@ -454,6 +518,8 @@ class ServingEngine:
             self._tables[req.slot] = 0
             self._lengths[req.slot] = 0
             self._last_tokens[req.slot] = 0
+            if self._keyed:
+                self._clear_samp_slot(req.slot)
             self._prefilling.pop(req.slot, None)
             self._pf_tables.pop(req.slot, None)
             self._pf_pos.pop(req.slot, None)

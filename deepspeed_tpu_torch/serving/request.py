@@ -35,8 +35,10 @@ class Request:
     # stream(request, token, done) fires once per generated token, on the
     # scheduler thread, in generation order
     stream: Optional[Callable] = None
-    # ---- per-request (keyed) sampling knobs: the keyed-sampling slice
-    # serves them; until then a do_sample request sheds at submit ----
+    # ---- per-request (keyed) sampling knobs, served under a
+    # ``serving.sampling`` block: with do_sample on, token P is a pure
+    # function of (seed, P, logits); without the block, or without a
+    # seed, a do_sample request sheds at submit ----
     do_sample: bool = False
     seed: Optional[int] = None
     temperature: Optional[float] = None

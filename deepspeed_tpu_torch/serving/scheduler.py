@@ -104,10 +104,9 @@ class ContinuousBatchingScheduler:
         self.stats["submitted"] += 1
         if req.max_new_tokens <= 0:
             req.max_new_tokens = self.config.default_max_new_tokens
-        if req.do_sample:
-            # per-request (keyed) sampling needs the serving.sampling
-            # block, which comes with the keyed-sampling slice
-            return self._shed(req, "sampling_unsupported", now)
+        reason = self._admit_sampling(req)
+        if reason is not None:
+            return self._shed(req, reason, now)
         if req.request_id in self._live_ids:
             # a duplicate id would collide in the block manager mid-admit
             return self._shed(req, "duplicate_id", now)
@@ -131,6 +130,32 @@ class ContinuousBatchingScheduler:
         self.stats["queue_peak"] = max(self.stats["queue_peak"],
                                        len(self.queue))
         return True
+
+    def _admit_sampling(self, req: rq.Request) -> Optional[str]:
+        """Admission control for per-request sampling: resolve the
+        ``serving.sampling`` defaults onto the request (so its record
+        carries the knobs it runs with) and return a shed reason when it
+        cannot be served reproducibly: ``sampling_unsupported`` (no
+        sampling block on this engine), ``sampling_unseeded`` (do_sample
+        without a seed is not replayable: shed, never quietly greedy) or
+        ``sampling_invalid`` (knobs out of range)."""
+        if not req.do_sample:
+            return None
+        sc = self.config.sampling
+        if sc is None or not sc.enabled:
+            return "sampling_unsupported"
+        if req.seed is None:
+            return "sampling_unseeded"
+        if req.temperature is None:
+            req.temperature = sc.default_temperature
+        if req.top_k is None:
+            req.top_k = sc.default_top_k
+        if req.top_p is None:
+            req.top_p = sc.default_top_p
+        if (req.seed < 0 or req.temperature <= 0 or req.top_k < 0
+                or not 0.0 <= req.top_p <= 1.0):
+            return "sampling_invalid"
+        return None
 
     def _shed(self, req: rq.Request, reason: str,
               now: Optional[float] = None) -> bool:

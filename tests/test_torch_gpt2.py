@@ -173,5 +173,6 @@ def test_unported_generate_options_raise(engines):
     ids = torch.ones((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="padded-generate"):
         port.generate(ids, max_new_tokens=2, attention_mask=torch.ones(1, 4))
-    with pytest.raises(NotImplementedError, match="keyed-sampling"):
-        port.generate(ids, max_new_tokens=2, do_sample=True, seed=1)
+    with pytest.raises(NotImplementedError, match="padded-generate"):
+        port.generate(ids, max_new_tokens=2, do_sample=True, seed=1,
+                      attention_mask=torch.ones(1, 4))

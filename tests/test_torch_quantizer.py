@@ -11,6 +11,8 @@ vectors and to a pure-Python integer Philox, and the drawn quantizer to
 stochastic rounding's contract (floor or floor + 1, unbiased).
 """
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +20,12 @@ import torch
 
 from deepspeed_tpu.ops.quantizer import stochastic_quantize_tpu
 from deepspeed_tpu.utils.compat import tpu_interpret_mode
+from deepspeed_tpu_torch.ops import quantizer as qz
 from deepspeed_tpu_torch.ops.quantizer import (philox4x32_10,
                                                stochastic_quantize,
                                                stochastic_quantize_reference,
                                                stochastic_uniforms)
+from tests.test_torch_ops import _c_arity
 
 MASK = 0xFFFFFFFF
 
@@ -154,3 +158,54 @@ def test_errors():
         stochastic_quantize(x.to(torch.bfloat16), 0)
     with pytest.raises(ValueError, match="cuda or cpu"):
         stochastic_quantize(torch.empty(4, device="meta"), 0)
+
+
+def test_launch_is_one_cooperative_call_with_its_workspace():
+    """``launch_passes`` (what :func:`stochastic_quantize` runs for a CUDA
+    tensor) on CPU tensors with ``load`` patched to a stub library: the
+    grid is queried once a device, every call is one ``ds_stochastic_
+    quantize`` with as many arguments as its ctypes signature and its C
+    declaration, a workspace of two fp32 slots a CTA (nothing zeroed)
+    and the grid, and counts one launch; a failed launch raises and counts
+    none."""
+    calls = []
+
+    class Lib:
+        err = 0
+
+        def ds_stochastic_quantize_grid(self, blocks):
+            calls.append(("grid",))
+            blocks._obj.value = 132
+            return 0
+
+        def ds_stochastic_quantize(self, *args):
+            calls.append(args)
+            return self.err
+
+    lib = Lib()
+    x = torch.randn(3072, 768)
+    q = torch.empty(x.shape, dtype=torch.int8)
+    scale = torch.empty(())
+    with mock.patch.object(qz, "load", lambda src, sigs: lib), \
+            mock.patch.object(qz, "_stream", lambda t: 5), \
+            mock.patch.object(torch.cuda, "device",
+                              lambda dev: mock.MagicMock()), \
+            mock.patch.object(qz, "_GRID", {}), \
+            mock.patch.object(torch, "empty", wraps=torch.empty) as empty, \
+            mock.patch.object(stochastic_quantize, "launches", 0):
+        qz.launch_passes(x, q, scale, 7, 3)
+        assert empty.call_args_list[0] == mock.call(
+            264, dtype=torch.float32, device=x.device)
+        qz.launch_passes(x, q, scale, (1 << 32) + 9, 2)
+        assert stochastic_quantize.launches == 2
+        lib.err = 700
+        with pytest.raises(RuntimeError, match="error 700"):
+            qz.launch_passes(x, q, scale, 7, 3)
+        assert stochastic_quantize.launches == 2
+    assert calls[0] == ("grid",) and len(calls) == 4
+    n = len(qz._SIG["ds_stochastic_quantize"][0])
+    assert _c_arity("stochastic_quantize") == n
+    for args, seed, passes in ((calls[1], 7, 3), (calls[2], 9, 2)):
+        assert len(args) == n
+        assert args[:3] == (x.data_ptr(), q.data_ptr(), scale.data_ptr())
+        assert args[4:] == (x.numel(), seed, passes, 132, 5)

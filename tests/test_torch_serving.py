@@ -142,7 +142,7 @@ def test_sampled_request_sheds_like_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    {"sampling": {}}, {"router": {"replicas": 2}}, {"fleet": {}},
+    {"router": {"replicas": 2}}, {"fleet": {}},
     {"gateway": {}}, {"migration": {}}, {"replay": {}},
     {"bucket_legacy_generate": True},
 ])
@@ -154,9 +154,9 @@ def test_unported_serving_knobs_raise(knob):
 def test_unported_knob_raises_through_init_serving():
     model = deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel(
         deepspeed_tpu_torch.models.gpt2.GPT2Config.tiny())
-    with pytest.raises(NotImplementedError, match="keyed-sampling"):
+    with pytest.raises(NotImplementedError, match="multi-GPU serving"):
         deepspeed_tpu_torch.init_serving(
-            model, device="cpu", serving={**_SERVING, "sampling": {}})
+            model, device="cpu", serving={**_SERVING, "router": {}})
 
 
 @pytest.mark.parametrize("key,value", [
