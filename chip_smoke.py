@@ -36,7 +36,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    32, each source checked to be the one launched), the append kernel
    (split over the cache) also at T_q = 5 on a full cache, B = 1, D =
    128, an index whose keys end on a split boundary and one inside the
-   first split, and twice on the same inputs, bitwise equal; the
+   first split, and twice on the same inputs, bitwise equal; then with a
+   per-row first key (left-padded rows, pads 0 / 37 / 500 / 1000 at idx
+   1000, so one row sees a single key, at T_q = 1 and 4, and the padded
+   phase's first step), the pad rows filled with values it must not
+   read, each launch counted as one with a first key; the
    stochastic int8 quantizer (fp32, one cooperative launch a call) bit for
    bit at two seeds on GPT-2 125M's gradient shapes, a ragged one and
    zeros, with its rounding checked against its contract (floor or floor
@@ -68,7 +72,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the first token and first decode-step logits agree with the same
    engine run with the plain versions on the card;
 5. ``init_inference(model).generate`` on a 2 x 128 prompt through the
-   append-decode kernel, with the same logits check;
+   append-decode kernel, with the same logits check; then ("padded_generate",
+   5b) ``generate(attention_mask=)`` on four prompts of 128 / 100 / 37 / 1
+   tokens left-padded to 128, 32 new, greedy and then keyed: every decode
+   launch of the append kernel carries a first key (372 of 372), and each
+   row is held to its prompt's solo call (prefill and first-decode logits
+   within 0.05 where the first tokens agree, tokens equal until the solo
+   run's two best scores lie within 0.05); then a 100-token prompt
+   through an engine with a ``serving`` section, which buckets it to 128
+   (``bucket_legacy_generate``), against the unbucketed call;
 6. the serving fast path on the same model. Leg A
    (``tools/profile_serving.py``'s ``FAST_SERVING``: prefix cache,
    256-token prefill chunks, int8 KV, 8 slots) serves 8 requests sharing
@@ -113,16 +125,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    128, no section; one warm-up and 5 timed steps: ms/step, tokens/s,
    MFU) through the non-causal flash kernels.
 
-Phases 3, 4, 5, 6, 7 and 8 are the main paths (6, 7 and 8 in two legs
-each):
+Phases 3, 4, 5, 5b, 6, 7 and 8 are the main paths (6, 7 and 8 in two
+legs each):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
 the card's name and power limit (``nvidia-smi``), and before that one
 JSON object with the 13 rows of the kernel table (TPU kernels 1-13; no
-path calls kernel 13, the quantizer, so its launches are 0): each one's
-launches on each path, error, times and bound.
+path calls kernel 13, the quantizer, so its launches are 0) and row 7's
+padded case (``decode_append_padded``: its launches with a first key):
+each one's launches on each path, error, times and bound.
 Without a card (``torch.cuda.is_available()`` false) it exits 2.
 """
 
@@ -872,12 +885,26 @@ APPEND_CASES = ((2, 12, 64, 1024, 0, 1), (2, 12, 64, 1024, 255, 1),
                 (2, 12, 64, 1024, 159, 1))
 
 
-def check_append(dtype, gen):
-    """The append kernel against its plain version at APPEND_CASES, rows
-    past the valid prefix filled with 1e4 (K) and NaN (V), which it must
-    not read; a second call on the same inputs must give the same bits
-    (the partials merge in split order). Each row logs the grid's split
-    count and the least keys a split takes."""
+# the append kernel with a per-row first key (left-padded generate()):
+# (B, H, D, S, idx, T_q, pads). idx 1000 with pads 0 / 37 / 500 / 1000,
+# so the last row sees its last key alone (T_q = 1) or its 4 query rows 1-4
+# keys (T_q = 4); then the padded-generate phase's first decode step (4
+# prompts of 128 / 100 / 37 / 1 tokens left-padded to 128)
+APPEND_PAD_CASES = ((4, 12, 64, 1024, 1000, 1, (0, 37, 500, 1000)),
+                    (4, 12, 64, 1024, 1000, 4, (0, 37, 500, 1000)),
+                    (4, 12, 64, 1024, 128, 1, (0, 28, 91, 127)))
+
+
+def check_append(dtype, gen, padded=False):
+    """The append kernel against its plain version at APPEND_CASES, or
+    (``padded``) with each row's first key from ``pad`` at
+    APPEND_PAD_CASES: the rows past ``idx + T_q`` and a row's pad rows
+    ``[0, pad_b)`` hold 1e4 (K) and NaN (V), which it must not read; a
+    second call on the same inputs must give the same bits (the partials
+    merge in split order), and a padded call counts one launch with a
+    first key. The bound counts the keys each row sees, ``[pad_b, idx +
+    T_q)``. Each row logs the grid's split count and the least keys a
+    split takes."""
     import torch
     import torch.nn.functional as F
 
@@ -885,43 +912,61 @@ def check_append(dtype, gen):
 
     rows = []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for B, H, D, S, idx, tq in APPEND_CASES:
+    for case in APPEND_PAD_CASES if padded else APPEND_CASES:
+        B, H, D, S, idx, tq = case[:6]
+        pads = case[6] if padded else (0,) * B
         splits = da.decode_splits(B, H, tq, S, sms, da.MIN_SPLIT_KEYS)
         kc, vc = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                   .to(dtype) for _ in range(2))
-        # rows past the valid prefix hold garbage the kernel must not read
+        # rows outside the valid keys hold garbage the kernel must not read
         kc[:, idx + tq:] = 1e4
         vc[:, idx + tq:] = float("nan")
+        for b, p in enumerate(pads):
+            kc[b, :p] = 1e4
+            vc[b, :p] = float("nan")
         q = torch.randn((B, tq, H, D), generator=gen, device="cuda").to(dtype)
         index = torch.tensor(idx, dtype=torch.int32, device="cuda")
-        got = da.decode_attention(q, kc, vc, index)
-        again = da.decode_attention(q, kc, vc, index)
-        want = da.decode_attention_reference(q, kc, vc, index)
+        pad = (torch.tensor(pads, dtype=torch.int32, device="cuda")
+               if padded else None)
+        before = da.decode_attention.padded_launches
+        got = da.decode_attention(q, kc, vc, index, pad=pad)
+        again = da.decode_attention(q, kc, vc, index, pad=pad)
+        if da.decode_attention.padded_launches - before != 2 * padded:
+            raise AssertionError("the append kernel miscounted its launches "
+                                 "with a first key")
+        want = da.decode_attention_reference(q, kc, vc, index, pad=pad)
         torch.cuda.synchronize()
-        shape = f"B={B} H={H} D={D} S={S} idx={idx} T_q={tq}"
+        shape = (f"B={B} H={H} D={D} S={S} idx={idx} T_q={tq}"
+                 + (f" pads={list(pads)}" if padded else ""))
         err = compare(f"append {shape} {dtype}", got, want, str(dtype)[6:])
         if not torch.equal(got, again):
             raise AssertionError(f"append {shape} {dtype}: two calls on the "
                                  f"same inputs differ")
-        keys = idx + tq
+        keys = [min(idx + tq, S) - p for p in pads]
         esize = q.element_size()
-        nbytes = 2 * B * keys * H * D * esize + 2 * q.numel() * esize + 4
-        flops = 4 * D * H * B * sum(idx + r + 1 for r in range(tq))
+        nbytes = (2 * sum(keys) * H * D * esize + 2 * q.numel() * esize + 4
+                  + 4 * B * padded)
+        flops = 4 * D * H * sum(idx + r + 1 - p for p in pads
+                                for r in range(tq))
         pos = torch.arange(S, device="cuda")
         mask = pos[None, :] <= idx + torch.arange(tq, device="cuda")[:, None]
+        if padded:
+            mask = (mask[None] & (pos[None, None, :]
+                                  >= pad[:, None, None]))[:, None]
         rows.append({
             "shape": shape, "max_abs_err": err, "splits": splits,
-            **times(lambda: da.decode_attention(q, kc, vc, index),
-                    lambda: da.decode_attention_reference(q, kc, vc, index),
+            **times(lambda: da.decode_attention(q, kc, vc, index, pad=pad),
+                    lambda: da.decode_attention_reference(q, kc, vc, index,
+                                                          pad=pad),
                     lambda: F.scaled_dot_product_attention(
                         q.transpose(1, 2), kc.transpose(1, 2),
                         vc.transpose(1, 2), attn_mask=mask)),
             **bound(nbytes, {str(dtype)[6:]: flops})})
         log(f"append {shape} {dtype}: a grid of {splits} splits "
             f"({B * H * -(-tq // da.DEC_ROWS) * splits} CTAs) of at least "
-            f"{da.MIN_SPLIT_KEYS} keys for the last row group's "
-            f"{min(idx + tq, S)}, bitwise equal on a second call, max "
-            f"|kernel - plain| {err}")
+            f"{da.MIN_SPLIT_KEYS} keys, the rows' last groups see {keys} "
+            f"keys, bitwise equal on a second call, max |kernel - plain| "
+            f"{err}")
     return rows
 
 
@@ -1029,6 +1074,8 @@ def phase_kernels(seed):
         res = {"flash_fwd": check_flash(dtype, gen),
                "flash_bwd_dq": dq_rows, "flash_bwd_dkv": dkv_rows,
                "decode_append": check_append(dtype, gen),
+               "decode_append_padded": check_append(dtype, gen,
+                                                    padded=True),
                "decode_paged": check_paged(dtype, gen, rng),
                "decode_paged_int8": check_paged(dtype, gen, rng, int8=True),
                "block_sparse_fwd": sp_fwd, "block_sparse_bwd_dq": sp_dq,
@@ -1109,12 +1156,21 @@ def kernel_wrappers():
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Each kernel's launches, and the append kernel's launches with a
+    per-row first key (``decode_append_padded``)."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+
+    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    counts["decode_append_padded"] = decode_attention.padded_launches
+    return counts
 
 
 def reset_launch_counts():
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    decode_attention.padded_launches = 0
 
 
 def submit_all(prompts, max_new):
@@ -1281,19 +1337,23 @@ def phase_serving(model, seed, card):
     return counts
 
 
-def run_generate(engine, ids, max_new):
-    """engine.generate with every step's logits recorded."""
+def run_generate(engine, ids, max_new, **kwargs):
+    """engine.generate with every step's logits recorded (the greedy and
+    the keyed sampler's alike)."""
     from deepspeed_tpu_torch.inference import engine as eng_mod
 
     calls = []
-    sample = eng_mod.sample_logits
+    sample, keyed = eng_mod.sample_logits, eng_mod.keyed_sample
 
-    def record(logits, *args, **kwargs):
-        calls.append(logits.float().cpu())
-        return sample(logits, *args, **kwargs)
+    def record(fn):
+        def call(logits, *args, **kw):
+            calls.append(logits.float().cpu())
+            return fn(logits, *args, **kw)
+        return call
 
-    with mock.patch.object(eng_mod, "sample_logits", record):
-        out = engine.generate(ids, max_new_tokens=max_new)
+    with mock.patch.object(eng_mod, "sample_logits", record(sample)), \
+            mock.patch.object(eng_mod, "keyed_sample", record(keyed)):
+        out = engine.generate(ids, max_new_tokens=max_new, **kwargs)
     return out.cpu(), calls
 
 
@@ -1331,6 +1391,145 @@ def phase_generate(model, seed, card):
         f"{agree:.3f}, max |logit diff| {err:.4g}, launches {counts} "
         f"[{card}]")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: padded generate
+# ---------------------------------------------------------------------------
+# real prompt lengths of the padded batch, left-padded to the longest
+PADDED_LENS = (128, 100, 37, 1)
+PADDED_NEW = 32
+
+
+def top2_gap(logits, knobs, position):
+    """The gap between the two best scores a step's token was chosen by:
+    the logits (greedy) or, with ``knobs`` (keyed), the gumbel-perturbed
+    filtered logits at ``position`` times the temperature (logit units)."""
+    from deepspeed_tpu_torch.ops import sampling
+
+    row = logits.reshape(1, -1).float()
+    if knobs is not None:
+        temp = knobs.get("temperature", 1.0)
+        key = sampling.fold_in_key(int(knobs["seed"]), int(position))
+        row = (sampling.gumbel(sampling.uniform(sampling.random_bits(
+            key[None], row.shape[-1]))) + sampling.keyed_filter_logits(
+                row, [temp], [knobs.get("top_k", 0)],
+                [knobs.get("top_p", 0.0)])) * temp
+    top = row.flatten().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def agree_until_tie(what, got, want, want_calls, prompt_len, knobs=None):
+    """Hold ``got``'s new tokens to ``want``'s (one row each) up to the
+    first step where ``want``'s own two best scores lie within
+    LOGITS_ATOL: there another rounding may pick the other token, and the
+    streams may part. Returns (tokens agreeing, steps held)."""
+    held = len(want)
+    for t in range(len(want)):
+        if top2_gap(want_calls[t][0], knobs, prompt_len + t) < LOGITS_ATOL:
+            held = t
+            break
+        if got[t] != want[t]:
+            raise AssertionError(f"{what}: token {t} is {got[t]}, the solo "
+                                 f"run's {want[t]} (top-2 gap above "
+                                 f"{LOGITS_ATOL})")
+    return sum(a == b for a, b in zip(got, want)), held
+
+
+def phase_padded_generate(model, seed, card):
+    """``generate(attention_mask=)`` on four prompts of PADDED_LENS real
+    tokens left-padded to 128 (greedy, then keyed): the decode steps run
+    the append kernel with each row's first key, and each row is held to
+    its prompt's solo call (prefill and first-decode logits within
+    LOGITS_ATOL where the first tokens agree; tokens up to a near tie);
+    then a 100-token prompt through an engine with a ``serving`` section,
+    which buckets it to 128, against the same prompt unbucketed. Returns
+    the padded batch's launch counts."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.tools.profile_serving import SERVING
+
+    engine = init_inference(model)
+    rng = np.random.default_rng(seed + 17)
+    T = max(PADDED_LENS)
+    prompts = [rng.integers(1, model.config.vocab_size, n)
+               for n in PADDED_LENS]
+    ids = torch.zeros((len(prompts), T), dtype=torch.long)
+    mask = torch.zeros((len(prompts), T), dtype=torch.int32)
+    for b, p in enumerate(prompts):
+        ids[b, T - len(p):] = torch.from_numpy(p)
+        mask[b, T - len(p):] = 1
+    ids, mask = ids.cuda(), mask.cuda()
+    solo_in = [torch.from_numpy(p)[None].cuda() for p in prompts]
+    keyed = dict(do_sample=True, **SAMPLED_KNOBS[0])
+    summary = []
+    for label, kw in (("greedy", {}), ("keyed", keyed)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, calls = run_generate(engine, ids, PADDED_NEW,
+                                  attention_mask=mask, **kw)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        if label == "greedy":
+            padded_counts = counts
+        steps = PADDED_NEW - 1
+        want = {"decode_append": steps * model.config.n_layer,
+                "decode_append_padded": steps * model.config.n_layer}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"padded generate ({label}) launched "
+                                 f"{counts}, not {want}")
+        if out.shape != (len(prompts), T + PADDED_NEW) or not all(
+                torch.isfinite(c).all() for c in calls):
+            raise AssertionError(f"padded generate ({label}): shape "
+                                 f"{tuple(out.shape)} or non-finite logits")
+        agree = held = 0
+        err = 0.0
+        for b, p in enumerate(solo_in):
+            solo, solo_calls = run_generate(engine, p, PADDED_NEW, **kw)
+            what = f"padded generate ({label}) row {b} ({p.shape[1]} tokens)"
+            err = max(err, check_logits(f"{what} prefill", calls[0][b],
+                                        solo_calls[0][0]))
+            if out[b, T] == solo[0, p.shape[1]]:
+                err = max(err, check_logits(f"{what} first decode",
+                                            calls[1][b], solo_calls[1][0]))
+            a, h = agree_until_tie(
+                what, out[b, T:].tolist(), solo[0, p.shape[1]:].tolist(),
+                [c[:1] for c in solo_calls], p.shape[1],
+                kw or None)
+            agree, held = agree + a, held + h
+        summary.append(
+            f"{label}: {len(prompts)} x ({'/'.join(map(str, PADDED_LENS))} "
+            f"left-padded to {T}) + {PADDED_NEW} tokens in {secs:.3f} s, "
+            f"tokens equal to the solo runs {agree}/"
+            f"{len(prompts) * PADDED_NEW} (held {held} steps before a near "
+            f"tie), max "
+            f"|logit diff| prefill and first decode {err:.4g}, launches "
+            f"{counts}")
+
+    bucketed = init_inference(model, serving=SERVING)
+    prompt = torch.from_numpy(rng.integers(1, model.config.vocab_size,
+                                           100))[None].cuda()
+    reset_launch_counts()
+    out, _ = run_generate(bucketed, prompt, PADDED_NEW)
+    b_counts = launch_counts()
+    ref, ref_calls = run_generate(engine, prompt, PADDED_NEW)
+    if out.shape != ref.shape or not torch.equal(out[:, :100], ref[:, :100]):
+        raise AssertionError(f"bucketed generate returned {tuple(out.shape)}"
+                             f", not the prompt and {PADDED_NEW} tokens")
+    if b_counts["decode_append_padded"] <= 0:
+        raise AssertionError(f"the bucketed prompt did not take the padded "
+                             f"path: {b_counts}")
+    agree, held = agree_until_tie("bucketed generate", out[0, 100:].tolist(),
+                                  ref[0, 100:].tolist(), ref_calls, 100)
+    for line in summary:
+        log(f"padded generate {line} [{card}]")
+    log(f"bucketed generate: a 100-token prompt through serving "
+        f"{SERVING} (bucket 128): tokens equal to the unbucketed call "
+        f"{agree}/{PADDED_NEW} (held {held} steps before a near tie), "
+        f"launches {b_counts}")
+    return padded_counts
 
 
 # ---------------------------------------------------------------------------
@@ -2063,6 +2262,9 @@ KERNEL_TABLE = {
                                  fp32_source="flash_bwd_dkv.cu"),
     "decode_append": Kernel("decode_append.cu", f"{_DECODE}:39", "generate",
                             "decode_append", 2, rows=("splits",)),
+    "decode_append_padded": Kernel("decode_append.cu", f"{_DECODE}:39",
+                                   "padded_generate", "decode_append_padded",
+                                   0, rows=("splits",)),
     "decode_paged": Kernel("decode_paged.cu", f"{_DECODE}:194", "serving",
                            "decode_paged", 0, rows=("source", "splits")),
     "decode_paged_int8": Kernel("decode_paged_int8.cu", f"{_DECODE}:319",
@@ -2230,6 +2432,10 @@ def main():
     t0 = time.perf_counter()
     by_path["generate"] = phase_generate(model, args.seed, card)
     log(f"phase 5: generate in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["padded_generate"] = phase_padded_generate(model, args.seed,
+                                                       card)
+    log(f"phase 5b: padded generate in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["fast_path"] = phase_fast_path(model, args.seed, card)
     log(f"phase 6: serving fast path in {time.perf_counter() - t0:.1f} s")

@@ -56,6 +56,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 
+def default_inference_config():
+    """The default inference config as a plain dict."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+
+    return DeepSpeedInferenceConfig().model_dump()
+
+
 def init_inference(model, config=None, **kwargs):
     """Build an :class:`~deepspeed_tpu_torch.inference.engine.
     InferenceEngine` (``device=None`` is the card)."""
@@ -78,6 +85,25 @@ def init_serving(model, config=None, draft_model=None, **kwargs):
 
     return ServingEngine(model, config=config, draft_model=draft_model,
                          **kwargs)
+
+
+def add_config_arguments(parser):
+    """Add the ``--deepspeed`` / ``--deepspeed_config`` flags (and their
+    deprecated ``--deepscale`` forms and ``--deepspeed_mpi``) to an
+    ``argparse`` parser; :func:`initialize` reads ``args.
+    deepspeed_config``."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag to indicate usage)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to DeepSpeed json configuration")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help="Deprecated enable flag")
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help="Deprecated config path")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Run via MPI discovery")
+    return parser
 
 
 def __getattr__(name):

@@ -1,8 +1,11 @@
 // The split decode shared by the CUDA-core decode kernels (decode_append.cu,
 // decode_paged.cu, decode_paged_int8.cu): up to DEC_ROWS query rows of one
-// (batch row, head) attend the keys at logical positions [0, n_keys), row r
-// seeing keys j <= base + r, the keys cut over several CTAs (flash-decoding)
-// and merged inside the same launch.
+// (batch row, head) attend the keys at logical positions [first, n_keys),
+// row r seeing keys first <= j <= base + r, the keys cut over several CTAs
+// (flash-decoding) and merged inside the same launch. `first` is the
+// row's first key: a left-padded append cache's pad length, 0 for every
+// other source (a compile-time 0, so the paged kernels' code is as
+// without it).
 //
 // Decode moves K/V bytes and does little arithmetic (4 D flops a key and
 // row against 4 D bytes of bf16 K and V, 2 D + 8 of int8 codes and
@@ -14,11 +17,14 @@
 //   sizes it for `splits` splits of the cache a row group
 //   (ops/decode_attention.py:decode_splits: enough for two CTAs an SM, from
 //   the shapes alone, never the lengths or the index), and each CTA cuts
-//   the keys its group sees, [0, n_keys) with n_keys = min(base + last row
-//   + 1, capacity), into `active` = min(splits, n_keys / min_split_keys)
-//   splits (at least 1; the wrapper passes its MIN_SPLIT_KEYS, 256):
-//   split i reads [i n_keys / active, (i + 1) n_keys / active), and the
-//   CTAs past `active` end at once. The merge below costs ~3 us (fence,
+//   the keys its group sees, [first, n_keys) with n_keys = min(base + last
+//   row + 1, capacity) and n = n_keys - first, into `active` = min(splits,
+//   n / min_split_keys) splits (at least 1; the wrapper passes its
+//   MIN_SPLIT_KEYS, 256): split i reads [first + i n / active, first +
+//   (i + 1) n / active), and the CTAs past `active` end at once, before
+//   they take a ticket. `active` is a function of the row group's batch
+//   row alone, so every CTA of the group, the merging one included,
+//   computes the same value, while rows of one launch may differ. The merge below costs ~3 us (fence,
 //   ticket, a second pass), more than splitting a few hundred keys saves,
 //   so a short cache takes one CTA a row group and no merge;
 // - each lane group of D / 8 lanes loads UNROLL keys' K and V rows (8
@@ -98,6 +104,7 @@ struct Raw8<float> {
 // key sources. Each one gives the split decode:
 //   Raw   one lane's share of a key's K and V as loaded;
 //   base(b), capacity()   row r sees keys <= base + r, of at most capacity;
+//   first(b, n_keys)   the row's first key, in [0, n_keys];
 //   begin(b, h, k_lo, k_hi, tbl)   per CTA, before the block's first sync;
 //   row(j)   the (token, head) row of key j, or -1: never read;
 //   load / zero / keys / values   a key's elements as fp32;
@@ -140,14 +147,19 @@ struct PlainKV {
 };
 
 // the [B, S, H, D] append cache (TPU kernel _kernel): row j of batch row b
-// at (b S + j) H + h, valid below index + T_q
+// at (b S + j) H + h, valid in [first[b], index + T_q) (first: the rows'
+// left-padded prefix lengths, or null for none)
 template <typename T, int D>
 struct AppendKeys : PlainKV<T, D> {
   const int* index;
+  const int* first_key;
   int S, H;
   long long b_row;  // b S H + h, set by begin
   __device__ __forceinline__ int base(int) const { return *index; }
   __device__ __forceinline__ int capacity() const { return S; }
+  __device__ __forceinline__ int first(int b, int n_keys) const {
+    return first_key ? min(max(first_key[b], 0), n_keys) : 0;
+  }
   __device__ __forceinline__ void begin(int b, int h, int, int, int*) {
     b_row = static_cast<long long>(b) * S * H + h;
   }
@@ -167,6 +179,7 @@ struct PagedTable {
   int blk0, h;
   __device__ __forceinline__ int base(int b) const { return lengths[b]; }
   __device__ __forceinline__ int capacity() const { return MB * BS; }
+  __device__ __forceinline__ int first(int, int) const { return 0; }
   __device__ __forceinline__ void begin(int b, int h_, int k_lo, int k_hi,
                                         int* tbl_s) {
     blk0 = k_lo / BS;
@@ -282,14 +295,17 @@ __device__ __forceinline__ void split_decode(
   const int r0 = grp * DEC_ROWS;
   const int rows = min(DEC_ROWS, Tq - r0);
   const int base = src.base(b);
-  // the keys the group's last row sees, [0, n_keys), cut into `active`
+  // the keys the group's last row sees, [k0, n_keys), cut into `active`
   // splits of at least min_split_keys keys each (one where there are
-  // fewer): the rest of the grid's splits have nothing to read and end
+  // fewer, down to a single key): the rest of the grid's splits have
+  // nothing to read and end
   const int n_keys = min(base + r0 + rows, src.capacity());
-  const int active = max(1, min(splits, n_keys / min_split_keys));
+  const int k0 = src.first(b, n_keys);
+  const int n_vis = n_keys - k0;
+  const int active = max(1, min(splits, n_vis / min_split_keys));
   if (sp >= active) return;
-  const int k_lo = sp * n_keys / active;
-  const int k_hi = (sp + 1) * n_keys / active;
+  const int k_lo = k0 + sp * n_vis / active;
+  const int k_hi = k0 + (sp + 1) * n_vis / active;
   const long long row_stride = static_cast<long long>(H) * D;
   const long long qo = (static_cast<long long>(b) * Tq * H + h) * D;
   const long long slot = (static_cast<long long>(b) * H + h) * n_groups + grp;

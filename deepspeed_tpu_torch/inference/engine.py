@@ -11,20 +11,38 @@ function of (seed, P, logits), the same as the JAX engine's and the
 serving engine's for the same request. The loop keeps the tokens on the
 device: it never waits on the host between steps.
 
-Not in this slice: weight-only int8, left-padded ``attention_mask``
-generation (the padded-generate slice), tensor parallelism, telemetry and
+A left-padded ``attention_mask`` batches prompts of unequal length: the
+prefill masks each row's pads, and the decode steps start each row's keys
+at its first real one (the append kernel's per-row first key). With a
+``serving`` section, ``bucket_legacy_generate`` left-pads every prompt up
+to the serving bucket set the same way, and strips the pads on return.
+
+Not in this slice: weight-only int8, tensor parallelism, telemetry and
 resilience.
 """
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.models.decode_utils import validate_left_padded_mask
 from deepspeed_tpu_torch.ops.sampling import keyed_sample
-from deepspeed_tpu_torch.serving.config import ServingConfig
+from deepspeed_tpu_torch.serving.config import (ServingConfig, bucket_for,
+                                                resolve_buckets)
 from deepspeed_tpu_torch.utils.logging import log_dist
+
+
+def warn_inert_options(config):
+    """Name each inference option that is accepted but has no effect on
+    this backend, set to another value than its default
+    (``config.inert_notes()``): the call keeps working, and the user
+    learns the knob does nothing here."""
+    for name, why in config.inert_notes():
+        log_dist(f"inference config '{name}' has no effect on this "
+                 f"backend: {why}", ranks=[0])
 
 
 def filter_logits(logits, temperature, top_k: int, top_p: float):
@@ -79,9 +97,7 @@ class InferenceEngine:
             merged = {**config.model_dump(exclude_unset=True), **kwargs}
             config = DeepSpeedInferenceConfig(**merged)
         self._config = config
-        for key, why in config.inert_notes():
-            log_dist(f"inference config '{key}' has no effect on this "
-                     f"backend: {why}", ranks=[0])
+        warn_inert_options(config)
         self.device = resolve_device(device)
         self.model_config = model.config
         # reference _convert_to_dtype: weights cast once, moved to the
@@ -92,7 +108,8 @@ class InferenceEngine:
             int(seed))
         self._serving_cfg = (ServingConfig(**config.serving)
                              if config.serving is not None else None)
-        self._decode_model = None
+        # the decode-mode modules sharing the weights, unpadded and padded
+        self._decode_models = {}
         log_dist(f"InferenceEngine: device={self.device} "
                  f"dtype={config.dtype}", ranks=[0])
 
@@ -103,6 +120,13 @@ class InferenceEngine:
         module = type(self.module)(config, device="meta")
         module.load_state_dict(self.module.state_dict(), assign=True)
         return module
+
+    def _decode_module(self, padded: bool):
+        """The decode-mode module (``for_decode(padded)``), built once."""
+        if padded not in self._decode_models:
+            self._decode_models[padded] = self.mode_module(
+                self.model_config.for_decode(padded=padded))
+        return self._decode_models[padded]
 
     @staticmethod
     def _logits_of(out):
@@ -135,18 +159,17 @@ class InferenceEngine:
         """Autoregressive generation. Returns ``[batch, prompt_len +
         max_new_tokens]`` token ids on the engine's device (prompt
         included, HF-style); after ``eos_token_id`` a row repeats it
-        (``-1`` disables the stop).
+        (``-1`` disables the stop). ``attention_mask`` (``[B, T]``, 0 =
+        LEFT padding) batches prompts of unequal length: per-row positions
+        start at the first real token and padded cache slots are never
+        attended; an all-real mask is the unpadded call.
 
         ``do_sample=True`` with ``seed`` set selects the keyed sampler:
-        the first token is drawn at position ``prompt_len`` and each later
-        one at the next position, from ``fold_in(PRNGKey(seed),
-        position)`` (``generator`` is not used); a ``seed`` with
-        ``do_sample=False`` is greedy, as in the JAX engine."""
-        if attention_mask is not None:
-            raise NotImplementedError(
-                "generate(attention_mask=...) (left-padded batches) is not "
-                "ported yet: it comes with the padded-generate slice of the "
-                "PyTorch port")
+        the first token is drawn at position ``prompt_len`` (each row's
+        real length under a mask) and each later one at the next
+        position, from ``fold_in(PRNGKey(seed), position)`` (``generator``
+        is not used); a ``seed`` with ``do_sample=False`` is greedy, as in
+        the JAX engine."""
         ids = self._ids(input_ids)
         B, T = ids.shape
         limit = self.model_config.n_positions
@@ -158,32 +181,67 @@ class InferenceEngine:
                 f"model window {limit}")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if attention_mask is not None:
+            attention_mask = validate_left_padded_mask(ids, attention_mask)
+        # serving-bucketed prompts: pad LEFT up to the bucket set (the
+        # padded path gives the same tokens); the pads are stripped on
+        # return
+        trim = 0
+        scfg = self._serving_cfg
+        if scfg is not None and scfg.enabled and scfg.bucket_legacy_generate:
+            ids, attention_mask, trim = self._bucket_prompt(
+                ids, attention_mask, limit, max_new_tokens)
         generator = generator or self.generator
-        if self._decode_model is None:
-            self._decode_model = self.mode_module(
-                self.model_config.for_decode())
-        model = self._decode_model
+        padded = attention_mask is not None
+        model = self._decode_module(padded)
         cache = model.new_cache(B)
 
         keyed = bool(do_sample) and seed is not None
+        # the first generated token's absolute position: the REAL prompt
+        # length, per row under left padding, so pads never shift the key
+        # stream (read from the host-validated mask once, before the loop)
+        first_pos = (attention_mask.sum(dim=1).cpu().numpy() if padded
+                     else np.full(B, ids.shape[1]))
 
-        def next_token(input_ids, position):
-            hidden = model(input_ids, cache=cache, return_hidden=True)
+        def next_token(input_ids, step, mask=None):
+            hidden = model(input_ids, cache=cache, return_hidden=True,
+                           attention_mask=mask)
             logits = model.lm_head(hidden[:, -1])
             if keyed:
-                return keyed_sample(logits, [seed] * B, [position] * B,
+                return keyed_sample(logits, [seed] * B, first_pos + step,
                                     [1] * B, [temperature] * B, [top_k] * B,
                                     [top_p] * B)
             return sample_logits(logits, generator, temperature, do_sample,
                                  top_k, top_p)
 
-        token = next_token(ids, T)
+        token = next_token(ids, 0, attention_mask)
         done = token == eos_token_id
         tokens = [token]
         for step in range(1, max_new_tokens):
-            nxt = next_token(token[:, None], T + step)
+            nxt = next_token(token[:, None], step)
             nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
             done = done | (nxt == eos_token_id)
             tokens.append(nxt)
             token = nxt
-        return torch.cat([ids, torch.stack(tokens, dim=1)], dim=1)
+        return torch.cat([ids[:, trim:], torch.stack(tokens, dim=1)], dim=1)
+
+    def _bucket_prompt(self, ids, attention_mask, limit, max_new_tokens):
+        """Round the prompt length up to the serving bucket set by LEFT
+        padding (plus a mask marking the pads), as the serving engine
+        buckets its prefills. Skipped when the padded length would
+        overflow the model window. Returns ``(ids, mask, pads added)``."""
+        B, T = ids.shape
+        scfg = self._serving_cfg
+        buckets = resolve_buckets(scfg.prompt_buckets, limit,
+                                  floor=scfg.block_size)
+        bT = bucket_for(T, buckets)
+        if bT is None or bT == T or bT + max_new_tokens > limit:
+            return ids, attention_mask, 0
+        pad = bT - T
+        if attention_mask is None:
+            attention_mask = torch.ones((B, T), dtype=torch.int32,
+                                        device=ids.device)
+        ids = torch.cat([ids.new_zeros((B, pad)), ids], dim=1)
+        attention_mask = torch.cat(
+            [attention_mask.new_zeros((B, pad)), attention_mask], dim=1)
+        return ids, attention_mask, pad

@@ -1,15 +1,19 @@
 """GPT-2 on the card (counterpart of ``deepspeed_tpu/models/gpt2.py``).
 
 The inference paths of the JAX model (the causal forward, the append-cache
-decode of ``generate()`` and the paged prefill/decode of the serving
-engine) and its training path (:class:`GPT2ForTraining`, the LM-head
-cross-entropy with the dense/chunked switch, per-block activation
-checkpointing), with learned positions, tanh-GELU MLP, sequential residual
-blocks and the tied LM head. Attention routes through
+decode of ``generate()``, left-padded batches included, and the paged
+prefill/decode of the serving engine) and its training path
+(:class:`GPT2ForTraining`, the LM-head cross-entropy with the
+dense/chunked switch, per-block activation checkpointing), with learned
+positions, tanh-GELU MLP, sequential residual blocks and the tied LM
+head. Attention routes through
 ``deepspeed_tpu_torch.ops``: the flash kernels (forward and backward) for
 causal self-attention, the append and paged decode kernels for cached
 steps (the int8 paged kernel over int8 pools) — their plain versions on
-the CPU.
+the CPU. A left-padded prefill (``attention_mask``) takes the plain masked
+attention, as the JAX model does; its decode steps run the append kernel
+with each row's first key at its pad length, where the JAX model takes
+its plain masked path.
 
 Parameters are fp32 (the masters); every product runs in the config's
 compute dtype, casting the weights at each use, so gradients reach the
@@ -19,9 +23,8 @@ KV caches and pools are tensors updated IN PLACE (``index_copy_``) where
 the JAX model returns new arrays and the serving engine donates the old
 ones: one allocation lives for the whole generation or serving run.
 
-ALiBi, rotary, parallel residuals, local windows, padded generation,
-dropout and progressive layer drop belong to other model families or
-later slices.
+ALiBi, rotary, parallel residuals, local windows, dropout and
+progressive layer drop belong to other model families or later slices.
 """
 
 import dataclasses
@@ -31,8 +34,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepspeed_tpu_torch.models.decode_utils import (paged_positions,
-                                                     paged_write_rows)
+from deepspeed_tpu_torch.models.decode_utils import (decode_positions,
+                                                     pad_lengths,
+                                                     paged_positions,
+                                                     paged_write_rows,
+                                                     row_positions)
 from deepspeed_tpu_torch.models.remat_utils import (REMAT_POLICIES,
                                                     checkpointed)
 from deepspeed_tpu_torch.ops.attention import attention, attention_reference
@@ -52,6 +58,10 @@ class GPT2Config:
     dtype: torch.dtype = torch.bfloat16  # compute/activation dtype
     # decode mode: attention reads/writes a KV cache (``forward(cache=)``)
     decode: bool = False
+    # padded decode: the batch was prefilled with LEFT-padded prompts
+    # (``attention_mask``); decode steps skip each row's padded cache
+    # prefix and compute per-row positions
+    padded: bool = False
     # paged decode (the serving engine's cache): KV lives in a SHARED
     # block pool ([paged_num_blocks, paged_block_size, H, D] per layer);
     # block tables / lengths / valid counts arrive via ``paging``
@@ -92,22 +102,28 @@ class GPT2Config:
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {self.remat_policy!r} not in "
                              f"{REMAT_POLICIES}")
+        if self.paged and self.padded:
+            raise ValueError("paged and padded decode are mutually "
+                             "exclusive: ragged prompts are the block "
+                             "table's job in paged mode")
 
     @property
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
 
-    def for_decode(self):
-        return dataclasses.replace(self, decode=True)
+    def for_decode(self, padded: bool = False):
+        return dataclasses.replace(self, decode=True, padded=padded)
 
     def for_paged_decode(self, num_blocks: int, block_size: int,
                          kv_dtype: str = ""):
         """Serving variant: decode mode whose KV cache is a shared block
         pool (block 0 reserved as the garbage sink — see
-        ``ops.decode_attention.GARBAGE_BLOCK``); ``kv_dtype="int8"``
-        stores the pool quantized per row with a scale side pool (the
-        serving ``kv_cache_dtype`` knob)."""
-        return dataclasses.replace(self, decode=True, paged=True,
+        ``ops.decode_attention.GARBAGE_BLOCK``). Mutually exclusive with
+        ``padded``: ragged prompts are the block table's job here.
+        ``kv_dtype="int8"`` stores the pool quantized per row with a scale
+        side pool (the serving ``kv_cache_dtype`` knob)."""
+        return dataclasses.replace(self, decode=True, padded=False,
+                                   paged=True,
                                    paged_num_blocks=int(num_blocks),
                                    paged_block_size=int(block_size),
                                    paged_kv_dtype=str(kv_dtype))
@@ -130,7 +146,9 @@ class KVCache:
     """Append KV cache of one decode batch: per-layer ``[B, n_positions,
     H, D]`` key/value buffers, the 0-d int32 device index of the next free
     row (read by the decode kernel on the card, never synced to the host)
-    and its host mirror ``length``."""
+    and its host mirror ``length``; ``pad``, the ``[B]`` int32 device
+    tensor of each row's left-padded prefix, set by a padded prefill
+    (``None`` when unpadded)."""
 
     def __init__(self, config: GPT2Config, batch: int, device):
         shape = (batch, config.n_positions, config.n_head, config.head_dim)
@@ -139,6 +157,7 @@ class KVCache:
         self.values = [torch.zeros_like(k) for k in self.keys]
         self.index = torch.zeros((), dtype=torch.int32, device=device)
         self.length = 0
+        self.pad = None
 
 
 class PagedKVCache:
@@ -234,15 +253,21 @@ class CausalSelfAttention(nn.Module):
             keys.index_copy_(1, step["write_rows"], k4)
             values.index_copy_(1, step["write_rows"], v4)
             if not step["prefill"]:
+                # a padded batch's rows start at their first real key
                 y4 = decode_attention(q4.contiguous(), keys, values,
-                                      step["index"])
+                                      step["index"], pad=step["pad"])
         if y4 is None:
             # the causal forward (training included) and every prefill:
-            # causal attention over the call's own keys
+            # causal attention over the call's own keys; a left-padded
+            # prompt also masks its pad keys (the plain masked attention,
+            # as in the JAX model: pad queries see only pad keys, and
+            # their outputs are never used)
+            mask = step.get("key_valid") if step else None
             attend = attention_reference if cfg.use_flash is False \
                 else attention
             y4 = attend(q4.transpose(1, 2), k4.transpose(1, 2),
-                        v4.transpose(1, 2), causal=True).transpose(1, 2)
+                        v4.transpose(1, 2), causal=True,
+                        mask=mask).transpose(1, 2)
         return _dense(self.c_proj, y4.reshape(B, T, C), cfg.dtype)
 
 
@@ -334,15 +359,20 @@ class GPT2LMHeadModel(nn.Module):
             return PagedKVCache(self.config, device)
         return KVCache(self.config, batch, device)
 
-    def _step(self, input_ids, cache, paging):
+    def _step(self, input_ids, cache, paging, attention_mask):
         """Cache addressing shared by every layer of one call, and the
-        token positions."""
+        token positions (per row under a left-padded ``attention_mask``,
+        from 0 at each row's first real token)."""
         cfg = self.config
         B, T = input_ids.shape
         dev = input_ids.device
         t = torch.arange(T, device=dev)
+        key_valid = (attention_mask[:, None, None, :].bool()
+                     if attention_mask is not None else None)
         if not cfg.decode:
-            return None, t[None]
+            if attention_mask is None:
+                return None, t[None]
+            return {"key_valid": key_valid}, row_positions(attention_mask)
         if cfg.paged:
             if paging is None:
                 raise ValueError(
@@ -361,20 +391,31 @@ class GPT2LMHeadModel(nn.Module):
         if cache.length + T > cfg.n_positions:
             raise ValueError(f"cache holds {cfg.n_positions} positions; "
                              f"{cache.length} used + {T} new overflows it")
-        pos = (cache.index + t).long()
-        step = {"prefill": cache.length == 0, "write_rows": pos,
-                "index": cache.index}
-        return step, pos[None]
+        prefill = cache.length == 0
+        rows = (cache.index + t).long()
+        step = {"prefill": prefill, "write_rows": rows,
+                "index": cache.index, "pad": cache.pad}
+        if cfg.padded and prefill and attention_mask is not None:
+            # each row's pad length stays in the cache for its decode steps
+            cache.pad = pad_lengths(attention_mask, T)
+            step["key_valid"] = key_valid
+            return step, row_positions(attention_mask)
+        if cache.pad is None:
+            return step, rows[None]
+        return step, decode_positions(cache.index, T, cache.pad).long()
 
     def forward(self, input_ids, cache=None, paging=None,
-                return_hidden=False):
+                return_hidden=False, attention_mask=None):
         """Logits ``[B, T, vocab]`` in fp32 (or the final hidden states
         with ``return_hidden``). Decode mode needs ``cache`` (from
-        :meth:`new_cache`), and paged mode also ``paging``."""
+        :meth:`new_cache`), and paged mode also ``paging``.
+        ``attention_mask`` (``[B, T]`` int, 0 = LEFT padding) marks a
+        left-padded batch: the causal forward, or a padded decode model's
+        prefill, which keeps each row's pad length in the cache."""
         cfg = self.config
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache from new_cache()")
-        step, pos = self._step(input_ids, cache, paging)
+        step, pos = self._step(input_ids, cache, paging, attention_mask)
         x = self.wte[input_ids].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
@@ -383,9 +424,10 @@ class GPT2LMHeadModel(nn.Module):
                           if cfg.paged_kv_dtype == "int8" else None)
                 x = block(x, cache.keys[i], cache.values[i], step, scales)
             elif remat:
-                x = checkpointed(block, x, policy=cfg.remat_policy)
+                x = checkpointed(block, x, None, None, step,
+                                 policy=cfg.remat_policy)
             else:
-                x = block(x)
+                x = block(x, step=step)
         if cfg.decode and not cfg.paged:
             cache.index += input_ids.shape[1]
             cache.length += input_ids.shape[1]

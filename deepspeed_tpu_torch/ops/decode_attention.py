@@ -10,7 +10,10 @@ workspace of :func:`_split_workspace`):
 - :func:`decode_attention` — ``csrc/decode_append.cu``, replacing
   ``_kernel`` (``decode_attention.py:39``, launched at ``:135``): a decode
   step against the valid ``[0, cache_index + T_q)`` prefix of an append
-  KV cache (``InferenceEngine.generate``);
+  KV cache (``InferenceEngine.generate``), or, for a left-padded batch,
+  against ``[pad[b], cache_index + T_q)`` of each row: the kernel starts
+  each row's keys at its first real one (the JAX model sends padded
+  decode steps to the plain masked attention instead);
 - :func:`decode_attention_paged` — ``csrc/decode_paged.cu``, replacing
   ``_paged_kernel`` (``decode_attention.py:194``, launched at ``:300``):
   the same through per-row block tables and lengths over a shared block
@@ -72,7 +75,7 @@ TC_MIN_ROWS = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _APPEND_SIG = {"ds_decode_append": (
-    [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P], _I)}
+    [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I)}
 _PAGED_SIG = {"ds_decode_paged": (
     [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P], _I)}
 _PAGED_INT8_SIG = {"ds_decode_paged_int8": (
@@ -90,18 +93,20 @@ def _attend(q, k, v, visible, scale):
 
 
 def decode_attention_reference(q, k_cache, v_cache, cache_index,
-                               softmax_scale=None):
+                               softmax_scale=None, pad=None):
     """Plain version of :func:`decode_attention`. Like the kernel it reads
-    ``cache_index`` on the device (no host sync): it attends over every
-    cache row, masked to keys ``<= cache_index + r``."""
+    ``cache_index`` and ``pad`` on the device (no host sync): it attends
+    over every cache row, masked to keys ``<= cache_index + r`` and, with
+    ``pad``, ``>= pad[b]``."""
     b, tq, _, d = q.shape
     s_len = k_cache.shape[1]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     visible = cache_attn_mask(s_len, torch.as_tensor(cache_index,
                                                      device=q.device),
-                              tq)[0].expand(b, tq, s_len)
-    # rows past the valid prefix are zeroed, not just masked: the kernel
-    # never reads them, so not even a NaN there may reach the output
+                              tq, pad)[:, 0].expand(b, tq, s_len)
+    # rows outside [pad, cache_index + T_q) are zeroed, not just masked:
+    # the kernel never reads them, so not even a NaN there may reach the
+    # output
     valid = visible[:, -1, :, None, None]
     k, v = (torch.where(valid, cache, 0) for cache in (k_cache, v_cache))
     return _attend(q, k, v, visible, scale)
@@ -317,19 +322,23 @@ def _split_launch(source, sigs, q, keys, min_keys, call):
     return out, splits
 
 
-def _append_launch(q, k_cache, v_cache, cache_index, scale):
-    """Launch ``csrc/decode_append.cu`` once (:func:`_split_launch`).
-    Returns ``[B, T_q, H, D]`` in q's dtype."""
+def _append_launch(q, k_cache, v_cache, cache_index, scale, pad=None):
+    """Launch ``csrc/decode_append.cu`` once (:func:`_split_launch`), with
+    each row's first key from ``pad`` (None: key 0). Returns ``[B, T_q, H,
+    D]`` in q's dtype."""
     b, tq, h, d = q.shape
     s_len = k_cache.shape[1]
     out, _ = _split_launch(
         "decode_append", _APPEND_SIG, q, s_len, MIN_SPLIT_KEYS,
         lambda lib, out, ws, tickets, splits, stream: lib.ds_decode_append(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_index.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            tickets.data_ptr(), int(q.dtype == torch.bfloat16), b, tq, h, d,
-            s_len, splits, MIN_SPLIT_KEYS, float(scale), stream))
+            cache_index.data_ptr(), None if pad is None else pad.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, tq, h, d, s_len, splits,
+            MIN_SPLIT_KEYS, float(scale), stream))
     decode_attention.launches += 1
+    if pad is not None:
+        decode_attention.padded_launches += 1
     return out
 
 
@@ -393,17 +402,21 @@ def _paged_int8_launch(q, k_pool, v_pool, k_scale, v_scale, block_tables,
     return out
 
 
-def decode_attention(q, k_cache, v_cache, cache_index, softmax_scale=None):
+def decode_attention(q, k_cache, v_cache, cache_index, softmax_scale=None,
+                     pad=None):
     """Attend a decode step against the valid prefix of an append KV cache.
 
     q ``[B, T_q, H, D]``; caches ``[B, S, H, D]`` whose rows
     ``[0, cache_index + T_q)`` are valid (this step's keys already
     written at ``[cache_index, cache_index + T_q)``); ``cache_index`` a 0-d
     int32 tensor on q's device (the kernel reads it there, so the host
-    never waits on it). Returns ``[B, T_q, H, D]`` in q's dtype."""
+    never waits on it). ``pad``: None, or a ``[B]`` int32 tensor on q's
+    device, row b's left-padded prefix: its keys start at ``pad[b]``
+    (read on the device too; its values are not checked). Returns ``[B,
+    T_q, H, D]`` in q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, cache_index,
-                                          softmax_scale)
+                                          softmax_scale, pad)
     _check_common(q, (k_cache, v_cache), "decode_attention")
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != q.shape[0]:
         raise ValueError(f"cache shapes {tuple(k_cache.shape)} / "
@@ -412,8 +425,13 @@ def decode_attention(q, k_cache, v_cache, cache_index, softmax_scale=None):
     if cache_index.dim() != 0:
         raise ValueError("cache_index must be a 0-d int32 tensor")
     _int32_on(cache_index, q.device, "cache_index")
+    if pad is not None:
+        _int32_on(pad, q.device, "pad")
+        if tuple(pad.shape) != (q.shape[0],):
+            raise ValueError(f"pad must be [B] = [{q.shape[0]}], got "
+                             f"{tuple(pad.shape)}")
     scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
-    return _append_launch(q, k_cache, v_cache, cache_index, scale)
+    return _append_launch(q, k_cache, v_cache, cache_index, scale, pad)
 
 
 def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
@@ -479,9 +497,11 @@ def decode_attention_paged_int8(q, k_pool, v_pool, k_scale, v_scale,
 
 
 # kernel launches by each wrapper (chip_smoke.py zeroes and reads them);
-# the paged wrappers also count them by kernel source and keep the split
-# count of their last launch's grid
+# the append wrapper also counts those with a per-row first key, the
+# paged wrappers theirs by kernel source, and keep the split count of
+# their last launch's grid
 decode_attention.launches = 0
+decode_attention.padded_launches = 0
 decode_attention_paged.launches = 0
 decode_attention_paged.source_launches = {}
 decode_attention_paged.last_splits = None

@@ -2,8 +2,9 @@
 
 Copy of ``deepspeed_tpu/runtime/config_utils.py``'s ``DeepSpeedConfigModel``
 (pydantic v2, with the ``Field(deprecated=True, new_param=...)`` migration
-machinery) and its ``json.load`` hook that refuses duplicate keys, with
-the port's own logger.
+machinery), its ``json.load`` hook that refuses duplicate keys, the
+``get_*_param`` lookups and the config-dump encoder, with the port's own
+logger.
 
 Deprecated fields are declared via ``json_schema_extra``::
 
@@ -13,6 +14,9 @@ Deprecated fields are declared via ``json_schema_extra``::
         "new_param_fn": lambda x: x,   # value translation
     })
 """
+
+import json
+from typing import Any, Dict
 
 from pydantic import BaseModel, ConfigDict, model_validator
 
@@ -71,6 +75,21 @@ class DeepSpeedConfigModel(BaseModel):
         return getattr(self, key)
 
 
+def get_scalar_param(param_dict: Dict, param_name: str,
+                     param_default_value: Any):
+    return param_dict.get(param_name, param_default_value)
+
+
+def get_list_param(param_dict: Dict, param_name: str,
+                   param_default_value: Any):
+    return param_dict.get(param_name, param_default_value)
+
+
+def get_dict_param(param_dict: Dict, param_name: str,
+                   param_default_value: Any):
+    return param_dict.get(param_name, param_default_value)
+
+
 def dict_raise_error_on_duplicate_keys(ordered_pairs):
     """``json.load`` hook refusing duplicate keys, as the JAX config's."""
     d = dict(ordered_pairs)
@@ -81,3 +100,26 @@ def dict_raise_error_on_duplicate_keys(ordered_pairs):
         keys = [k for k, n in counts.items() if n > 1]
         raise ValueError(f"Duplicate keys in DeepSpeed config: {keys}")
     return d
+
+
+class ScientificNotationEncoder(json.JSONEncoder):
+    """Config dumps with large and small floats in scientific notation
+    (``json.dumps(config, cls=ScientificNotationEncoder)``)."""
+
+    def iterencode(self, o, _one_shot=False, level=0):
+        indent = self.indent if self.indent is not None else 4
+        prefix_close = " " * level * indent
+        level += 1
+        prefix = " " * level * indent
+        if isinstance(o, bool):
+            return "true" if o else "false"
+        if isinstance(o, float) and (o > 1e3 or o < 1e-3):
+            return f"{o:e}"
+        if isinstance(o, dict):
+            x = [f"\n{prefix}\"{k}\": {self.iterencode(v, level=level)}"
+                 for k, v in o.items()]
+            return "{" + ", ".join(x) + f"\n{prefix_close}" + "}"
+        if isinstance(o, list):
+            x = [self.iterencode(el, level=level) for el in o]
+            return "[" + ", ".join(x) + "]"
+        return ",".join(super().iterencode(o, _one_shot))

@@ -7,7 +7,9 @@ returning a Python float: the engine evaluates it on the host at every
 optimizer step and hands the number to the update, so no device value
 is read. :class:`LRScheduler` wraps one in the reference's
 ``step()``/``get_lr()``/``state_dict()`` surface. The CLI tuning-argument
-helpers of the JAX module come with a later slice.
+helpers (:func:`add_tuning_arguments`, :func:`parse_arguments`,
+:func:`get_config_from_args`, :func:`get_lr_from_config`) build the
+``scheduler`` config section from command-line flags, as the JAX module's.
 """
 
 import math
@@ -177,3 +179,114 @@ def WarmupLR(optimizer=None, **params):
 
 def WarmupDecayLR(optimizer=None, **params):
     return LRScheduler(warmup_decay_lr_fn(**params))
+
+
+# ----------------------------------------------------------------------
+# CLI tuning-argument helpers: a training script exposes the schedule
+# knobs as flags and builds the ``scheduler`` config section from the
+# parsed args. Each schedule's flags with their types and defaults:
+_TUNING_FLAGS = {
+    LR_RANGE_TEST: {
+        "lr_range_test_min_lr": (float, 1e-3),
+        "lr_range_test_step_rate": (float, 1.0),
+        "lr_range_test_step_size": (int, 1000),
+        "lr_range_test_staircase": (bool, False),
+    },
+    ONE_CYCLE: {
+        "cycle_first_step_size": (int, 1000),
+        "cycle_first_stair_count": (int, -1),
+        "cycle_second_step_size": (int, -1),
+        "cycle_second_stair_count": (int, -1),
+        "decay_step_size": (int, 1000),
+        "cycle_min_lr": (float, 0.01),
+        "cycle_max_lr": (float, 0.1),
+        "decay_lr_rate": (float, 0.0),
+        # momentum flags are accepted for the reference CLI's sake:
+        # one_cycle_fn does not cycle momentum (betas stay config-driven)
+        "cycle_min_mom": (float, 0.8),
+        "cycle_max_mom": (float, 0.9),
+        "decay_mom_rate": (float, 0.0),
+    },
+    WARMUP_LR: {
+        "warmup_min_lr": (float, 0.0),
+        "warmup_max_lr": (float, 0.001),
+        "warmup_num_steps": (int, 1000),
+        "warmup_type": (str, "log"),
+    },
+}
+# WarmupDecayLR shares WarmupLR's flags plus the total step count
+_TUNING_FLAGS[WARMUP_DECAY_LR] = {
+    **_TUNING_FLAGS[WARMUP_LR], "total_num_steps": (int, 10_000),
+}
+
+
+def add_tuning_arguments(parser):
+    """Add ``--lr_schedule`` and every schedule's flags to ``parser``."""
+    group = parser.add_argument_group(
+        "Convergence Tuning", "Convergence tuning configurations")
+    group.add_argument("--lr_schedule", type=str, default=None,
+                       help=f"LR schedule for training; one of "
+                            f"{VALID_LR_SCHEDULES}")
+
+    def _str2bool(v):
+        return str(v).lower() in ("1", "true", "yes", "on")
+
+    seen = set()
+    for flags in _TUNING_FLAGS.values():
+        for name, (typ, default) in flags.items():
+            if name in seen:
+                continue
+            seen.add(name)
+            group.add_argument(f"--{name}",
+                               type=_str2bool if typ is bool else typ,
+                               default=default)
+    return parser
+
+
+def parse_arguments(parser=None):
+    """Parse the tuning flags from the command line (on ``parser``, or a
+    new one). Returns ``(lr_sched_args, unknown_args)``."""
+    import argparse
+
+    parser = parser or argparse.ArgumentParser()
+    add_tuning_arguments(parser)
+    args, unknown = parser.parse_known_args()
+    return args, unknown
+
+
+def get_config_from_args(args):
+    """``(scheduler_config, error)`` from parsed args: the config is
+    ``{"type": ..., "params": {...}}`` for the ``scheduler`` section;
+    ``error`` is a message when ``--lr_schedule`` is absent or unknown."""
+    name = getattr(args, "lr_schedule", None)
+    if name is None:
+        return None, "--lr_schedule not specified on command line"
+    if name not in VALID_LR_SCHEDULES:
+        return None, f"{name} is not a supported LR schedule"
+    # -1 means "unset" only for the flags that default to it (stair
+    # counts, second step size)
+    sentinels = {k for k, (_, d) in _TUNING_FLAGS[name].items() if d == -1}
+    params = {k: getattr(args, k)
+              for k in _TUNING_FLAGS[name]
+              if hasattr(args, k)
+              and not (k in sentinels and getattr(args, k) == -1)}
+    return {"type": name, "params": params}, None
+
+
+def get_lr_from_config(config):
+    """``(initial_lr, error)`` of a scheduler config: a missing ``type`` or
+    ``params`` is an error, and OneCycle reports ``cycle_max_lr`` (the
+    cycle's peak), not its floor."""
+    if "type" not in config:
+        return None, "LR schedule type not defined in config"
+    if "params" not in config:
+        return None, "LR schedule params not defined in config"
+    params = config["params"]
+    name = config["type"]
+    if name == LR_RANGE_TEST:
+        return params.get("lr_range_test_min_lr", 1e-3), None
+    if name == ONE_CYCLE:
+        return params.get("cycle_max_lr", 0.1), None
+    if name in (WARMUP_LR, WARMUP_DECAY_LR):
+        return params.get("warmup_max_lr", 0.001), None
+    return None, f"{name} is not a supported LR schedule"

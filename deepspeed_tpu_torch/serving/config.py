@@ -23,7 +23,6 @@ DRAFT_MODEL = "draft_model"
 
 _FLEET = "the multi-GPU serving slice (router, fleet, gateway, migration, " \
          "replay)"
-_PADDED = "the padded-generate slice"
 
 
 class SpeculativeConfig(DeepSpeedConfigModel):
@@ -197,10 +196,10 @@ class ServingConfig(DeepSpeedConfigModel):
     # per-request keyed sampling (None = greedy or engine-level sampling
     # only, every step as without it)
     sampling: Optional[SamplingConfig] = None
+    # pad legacy generate() prompts up to the bucket set (left-padded
+    # generation: the same tokens, the pads stripped on return)
+    bucket_legacy_generate: bool = True
     # ---- knobs of later slices: parsed, and rejected when set ----
-    # the JAX default pads legacy generate() prompts to the bucket set via
-    # left-padded generation, which the port does not have yet
-    bucket_legacy_generate: bool = False
     router: Optional[dict] = None
     fleet: Optional[dict] = None
     replay: Optional[dict] = None
@@ -292,7 +291,6 @@ class ServingConfig(DeepSpeedConfigModel):
             "replay": (on(self.replay), _FLEET),
             "migration": (on(self.migration), _FLEET),
             "gateway": (on(self.gateway), _FLEET),
-            "bucket_legacy_generate": (self.bucket_legacy_generate, _PADDED),
         }
         for key, (value, where) in later.items():
             if value:

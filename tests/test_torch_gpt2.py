@@ -169,10 +169,17 @@ def test_seeded_init_matches_jax_init_scales():
 
 
 def test_unported_generate_options_raise(engines):
+    """generate(attention_mask=) is ported (tests/test_torch_padded_
+    generate.py): an all-real mask is the unpadded call, greedy or keyed,
+    and a malformed mask raises the JAX package's ValueError, not
+    NotImplementedError."""
     _, port, _ = engines
     ids = torch.ones((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="padded-generate"):
-        port.generate(ids, max_new_tokens=2, attention_mask=torch.ones(1, 4))
-    with pytest.raises(NotImplementedError, match="padded-generate"):
-        port.generate(ids, max_new_tokens=2, do_sample=True, seed=1,
-                      attention_mask=torch.ones(1, 4))
+    for kw in ({}, {"do_sample": True, "seed": 1}):
+        assert torch.equal(
+            port.generate(ids, max_new_tokens=2,
+                          attention_mask=torch.ones(1, 4), **kw),
+            port.generate(ids, max_new_tokens=2, **kw))
+        with pytest.raises(ValueError, match="LEFT-padded"):
+            port.generate(ids, max_new_tokens=2,
+                          attention_mask=torch.tensor([[1, 1, 1, 0]]), **kw)

@@ -375,8 +375,10 @@ def test_append_launch_is_one_call_with_workspace_and_tickets():
     ``ds_decode_append`` per step, with as many arguments as its ctypes
     signature and C declaration, the cached fp32 workspace and zeroed
     int32 tickets of the sizes the split needs, the same split whatever
-    the cache index, and the launch counted. The paged kernels' split
-    decode on the same stream takes the same workspace and tickets."""
+    the cache index, and the launch counted; a left-padded batch's ``pad``
+    goes in as the first-key pointer (null without one) and counts as a
+    launch with a first key. The paged kernels' split decode on the same
+    stream takes the same workspace and tickets."""
     calls = []
 
     class Lib:
@@ -394,11 +396,16 @@ def test_append_launch_is_one_call_with_workspace_and_tickets():
             mock.patch.object(da, "_sm_count", lambda dev: 132), \
             mock.patch.object(da, "_WORKSPACE", {}), \
             mock.patch.object(decode_attention, "launches", 0), \
+            mock.patch.object(decode_attention, "padded_launches", 0), \
             mock.patch.object(decode_attention_paged, "launches", 0):
         for idx in (0, 700, S - tq):
             da._append_launch(q, kc, kc, torch.tensor(idx, dtype=torch.int32),
                               0.125)
-        assert decode_attention.launches == 3
+        pad = torch.tensor([3, 0], dtype=torch.int32)
+        da._append_launch(q, kc, kc, torch.tensor(9, dtype=torch.int32),
+                          0.125, pad)
+        assert decode_attention.launches == 4
+        assert decode_attention.padded_launches == 1
         ws, tickets = da._WORKSPACE[(q.device, 0)]
         # a paged step that needs no more of either
         da._paged_launch(q[:1, :1], kc[:, :16], kc[:, :16],
@@ -410,13 +417,15 @@ def test_append_launch_is_one_call_with_workspace_and_tickets():
     groups = 2
     n = len(da._APPEND_SIG["ds_decode_append"][0])
     assert _c_arity("decode_append") == n
-    assert [fn for fn, _ in calls] == ["ds_decode_append"] * 3 + [
+    assert [fn for fn, _ in calls] == ["ds_decode_append"] * 4 + [
         "ds_decode_paged"]
-    for _, args in calls[:3]:
+    for _, args in calls[:4]:
         assert len(args) == n
-        assert args[5:7] == (ws.data_ptr(), tickets.data_ptr())
-        assert args[7:15] == (1, B, tq, H, D, S, splits, da.MIN_SPLIT_KEYS)
-    assert calls[3][1][6:8] == (ws.data_ptr(), tickets.data_ptr())
+        assert args[6:8] == (ws.data_ptr(), tickets.data_ptr())
+        assert args[8:16] == (1, B, tq, H, D, S, splits, da.MIN_SPLIT_KEYS)
+    assert [args[4] for _, args in calls[:4]] == [None] * 3 + [
+        pad.data_ptr()]
+    assert calls[4][1][6:8] == (ws.data_ptr(), tickets.data_ptr())
     assert ws.dtype == torch.float32
     assert ws.numel() == B * H * groups * splits * da.DEC_ROWS * (D + 2)
     assert tickets.dtype == torch.int32 and tickets.numel() == B * H * groups

@@ -12,7 +12,9 @@
   the serving engine, under the JAX test's staggered mix, emits each
   request's ``generate`` stream and the JAX serving engine's tokens, and
   the same stream again under another mix and through chunked prefill;
-  the shed reasons and config errors are the JAX package's.
+  keyed requests on the serving fast path (prefix cache, chunked prefill,
+  int8 KV, all three) give the JAX engine's tokens, prefix hits and chunk
+  counts; the shed reasons and config errors are the JAX package's.
 
 Everything runs on the CPU in float32 (JAX in ``threefry_partitionable``
 mode inside ``keyed_sample``, as the JAX package draws).
@@ -39,6 +41,7 @@ from deepspeed_tpu_torch.serving.engine import ServingEngine
 from deepspeed_tpu_torch.serving.request import FINISHED, Request
 from deepspeed_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
 from tests.test_torch_gpt2 import jax_engine, port_model
+from tests.test_torch_serving_fast import _stream
 
 _SERVING = {"block_size": 8, "decode_slots": 3}
 _SAMP = {**_SERVING, "sampling": {"enabled": True}}
@@ -283,6 +286,61 @@ def test_chunked_prefill_samples_like_whole_prompt(engines):
         tokens.append(req.tokens)
     assert req.prefill_chunks == 3
     assert tokens[0] == tokens[1]
+
+
+# 4 of the fast-path stream's 5 requests sample (``m``, the motif prompt,
+# is greedy)
+FAST_KNOBS = {"a": KNOBS[0], "b": KNOBS[1], "c": KNOBS[2], "u": KNOBS[0]}
+
+
+def _keyed_fast_stream(srv):
+    """``tests/test_torch_serving_fast.py``'s stream (``a`` alone, then
+    ``b c m u``) with 4 of 5 requests sampled."""
+    prompts = _stream()
+
+    def submit(rid, p):
+        kw = dict(do_sample=True, **FAST_KNOBS[rid]) \
+            if rid in FAST_KNOBS else {}
+        return srv.submit(p, max_new_tokens=6, request_id=rid, **kw)
+
+    reqs = [submit("a", prompts[0])]
+    srv.drain()
+    reqs += [submit(rid, p) for rid, p in zip("bcmu", prompts[1:])]
+    srv.drain()
+    return reqs
+
+
+@pytest.mark.parametrize("extra", [
+    {"prefix_cache": True}, {"prefill_chunk_tokens": 8},
+    {"kv_cache_dtype": "int8"},
+    {"prefix_cache": True, "prefill_chunk_tokens": 8,
+     "kv_cache_dtype": "int8"}], ids=["prefix", "chunked", "int8", "all"])
+def test_keyed_fast_path_matches_jax(engines, extra):
+    """Keyed sampling on the serving fast path: the port's engine gives
+    the JAX engine's tokens, prefix hits and prefill chunk counts, and
+    not every sampled stream is its greedy one."""
+    engine, _, params = engines
+    serving = {**_SAMP, **extra}
+    saved = engine._serving_cfg
+    engine._serving_cfg = JaxServingConfig(**serving)
+    try:
+        ref = _keyed_fast_stream(JaxServingEngine(engine))
+    finally:
+        engine._serving_cfg = saved
+    srv = deepspeed_tpu_torch.init_serving(port_model(params), dtype="fp32",
+                                           device="cpu", serving=serving)
+    ours = _keyed_fast_stream(srv)
+
+    def fields(req):
+        return (req.request_id, req.state, req.tokens, req.prefix_hit_tokens,
+                req.prefill_chunks)
+
+    assert [fields(r) for r in ours] == [fields(r) for r in ref]
+    assert all(r.state == FINISHED for r in ours)
+    greedy = [srv.submit(p, max_new_tokens=6) for p in _stream()]
+    srv.drain()
+    assert any(r.tokens != g.tokens for r, g in zip(ours, greedy)
+               if r.request_id in FAST_KNOBS)
 
 
 def _shed_stream(sched_cls, blocks_cls, cfg_cls, req_cls, serving):

@@ -144,11 +144,21 @@ def test_sampled_request_sheds_like_jax():
 @pytest.mark.parametrize("knob", [
     {"router": {"replicas": 2}}, {"fleet": {}},
     {"gateway": {}}, {"migration": {}}, {"replay": {}},
-    {"bucket_legacy_generate": True},
+    {"migration": {"enabled": True}},
 ])
 def test_unported_serving_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServingConfig(**knob)
+
+
+def test_bucket_legacy_generate_is_ported():
+    """Padded generate() carries it: on by default, as in JAX, and either
+    value is accepted."""
+    assert ServingConfig().bucket_legacy_generate is True
+    assert JaxServingConfig().bucket_legacy_generate is True
+    for value in (True, False):
+        assert ServingConfig(bucket_legacy_generate=value) \
+            .bucket_legacy_generate is value
 
 
 def test_unported_knob_raises_through_init_serving():
