@@ -65,6 +65,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    first step's per-tensor gradients and the first three losses against
    a second engine from the same seed run with the plain versions (which
    takes the same 11 steps, its losses printed beside the kernel path's);
+   then ("zero", 3b) the same model, seed and batch under ZeRO stages 1,
+   2 and 3 through ``initialize`` on an NCCL process group of one rank
+   (``init_distributed`` over a ``FileStore``; no gloo and no group-less
+   fallback): per stage the step-1 gradients as the stage reduces and
+   gathers them within 1e-4 relative L2 of phase 3's, one warm-up and 5
+   timed steps whose losses are within 1e-3 of phase 3's first six
+   (printed with whether they are bit-equal), 12 launches of each flash
+   kernel a step, the all-gather, reduce-scatter and all-reduce calls a
+   step equal to the stage's plan (``ZeroPartition.comm_plan``), and at
+   stage 3 no gathered weight left on a module after the steps and a
+   peak memory at most phase 3's plus the gathered weights of the root
+   unit (embeddings, final norm) and of one block; ms/step,
+   peak memory and the counts are printed with the card's line;
 4. serve 8 requests through GPT-2 125M at full width (bf16, random
    weights from ``--seed``) with ``init_serving``, after one untimed
    warm-up pass of phases 4 and 5: every request finishes
@@ -125,8 +138,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    128, no section; one warm-up and 5 timed steps: ms/step, tokens/s,
    MFU) through the non-causal flash kernels.
 
-Phases 3, 4, 5, 5b, 6, 7 and 8 are the main paths (6, 7 and 8 in two
-legs each):
+Phases 3, 3b, 4, 5, 5b, 6, 7 and 8 are the main paths (6, 7 and 8 in two
+legs each, 3b one window a stage, summed):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -1957,7 +1970,9 @@ def phase_training(seed, card):
     loss must fall. Then a second engine from the same seed runs with the
     plain versions on the card: the first step's per-tensor gradients and
     the first three losses are held against the kernel path's. Returns
-    the training path's launch counts."""
+    the training path's launch counts, and what phase 3b holds the ZeRO
+    stages to: the losses, the step-1 gradients (on the host) and the
+    peak memory of the timed steps."""
     import torch
 
     from deepspeed_tpu_torch.tools.profile_training import (
@@ -2002,6 +2017,9 @@ def phase_training(seed, card):
         f"by the dots policy), flash_bwd_dq "
         f"{counts['flash_bwd_dq'] / TRAIN_STEPS}, flash_bwd_dkv "
         f"{counts['flash_bwd_dkv'] / TRAIN_STEPS} [{card}]")
+    reference = {"losses": losses, "peak_bytes":
+                 torch.cuda.max_memory_allocated(),
+                 "grads": {n: g.cpu() for n, g in kernel_grads.items()}}
     del engine
 
     with plain_versions():
@@ -2028,7 +2046,134 @@ def phase_training(seed, card):
         f" relative L2 max {grad_err[worst]:.3g} at {worst}, median "
         f"{float(np.median(list(grad_err.values()))):.3g} (limit "
         f"{TRAIN_GRAD_RTOL})")
-    return counts
+    return counts, reference
+
+
+# phase 3b: ZeRO stages 1-3 at world size 1 over NCCL; each stage's
+# losses within ZERO_LOSS_ATOL of phase 3's (the same math on the same
+# card: only the flash kernels' summation order may differ between two
+# runs), step-1 gradients within ZERO_GRAD_RTOL relative L2 of phase 3's
+ZERO_STAGES = (1, 2, 3)
+ZERO_STEPS = 5
+ZERO_LOSS_ATOL = 1e-3
+ZERO_GRAD_RTOL = 1e-4
+
+
+def phase_zero(seed, card, reference):
+    """The training path under ZeRO: ``init_distributed`` starts an NCCL
+    process group of one rank (a ``FileStore`` rendezvous), then, per
+    stage 1, 2 and 3, ``deepspeed_tpu_torch.initialize`` builds phase 3's
+    GPT-2 125M from its seed with bench.py's configuration and the stage,
+    and runs its step-1 gradients (backward, reduced and gathered by the
+    stage), one warm-up and ZERO_STEPS timed steps (launch and collective
+    counts zeroed just before, read just after). Each stage's losses and
+    gradients are held to phase 3's, its flash launches a step to phase
+    3's, its collectives a step to the stage's plan, and stage 3's peak
+    memory to phase 3's plus the gathered weights of the root unit and of
+    one block. Returns the launch counts summed over the stages."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.tools.profile_training import (
+        BENCH_CONFIG, bench_batch, bench_model, timed_steps)
+
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_zero"),
+                         "store")
+    comm.init_distributed(init_method=f"file://{store}", rank=0,
+                          world_size=1, verbose=False)
+    total = collections.Counter()
+    try:
+        if tdist.get_backend() != "nccl":
+            raise AssertionError(f"zero: process group backend "
+                                 f"{tdist.get_backend()}, not nccl")
+        for stage in ZERO_STAGES:
+            config = {**BENCH_CONFIG, "zero_optimization": {"stage": stage}}
+            engine = deepspeed_tpu_torch.initialize(
+                model=bench_model(seed), config=config)[0]
+            n_layer = engine.module.config.n_layer
+            batch = bench_batch(engine.module.config.vocab_size, seed,
+                                engine.device)
+            engine.module(batch).backward()
+            grads = engine.gathered_grads()
+            grad_err = {}
+            for name, ref in reference["grads"].items():
+                ref = ref.to(engine.device).float()
+                grad_err[name] = ((grads[name].float() - ref).norm()
+                                  / ref.norm().clamp_min(1e-30)).item()
+            del grads
+            engine.zero_grad()
+            first, _ = timed_steps(engine, batch, 1)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            comm.reset_counts()
+            losses, secs = timed_steps(engine, batch, ZERO_STEPS)
+            counts = launch_counts()
+            collectives = {k: comm.counts.get(k, 0) for k in
+                           ("all_gather", "reduce_scatter", "all_reduce")}
+            peak = torch.cuda.max_memory_allocated()
+            losses = first + losses
+            plan = {k: v * ZERO_STEPS for k, v in engine._zero.comm_plan(
+                1, recompute=engine.module.config.remat).items()}
+            want = reference["losses"][:len(losses)]
+            loss_err = max(abs(a - b) for a, b in zip(losses, want))
+            worst = max(grad_err, key=grad_err.get)
+            what = f"zero stage {stage}"
+            if loss_err > ZERO_LOSS_ATOL:
+                raise AssertionError(f"{what}: losses {losses} vs phase 3's "
+                                     f"{want} (max diff {loss_err})")
+            if grad_err[worst] > ZERO_GRAD_RTOL:
+                raise AssertionError(f"{what}: step-1 gradient {worst} "
+                                     f"relative L2 {grad_err[worst]} (limit "
+                                     f"{ZERO_GRAD_RTOL})")
+            check_per_step(what, counts, ZERO_STEPS,
+                           {"flash_fwd": n_layer, "flash_bwd_dq": n_layer,
+                            "flash_bwd_dkv": n_layer})
+            if collectives != plan:
+                raise AssertionError(f"{what}: collectives {collectives} in "
+                                     f"{ZERO_STEPS} steps, the plan "
+                                     f"{plan}")
+            stale = [e.name for es in engine._zero.unit_entries.values()
+                     for e in es for sub, attr in e.owners
+                     if attr in sub.__dict__]
+            if stale:
+                raise AssertionError(f"{what}: gathered weights outlive the "
+                                     f"step: {stale[:4]}")
+            units = {u: sum(4 * int(np.prod(e.pplan.shape)) for e in es)
+                     for u, es in engine._zero.unit_entries.items()}
+            budget = (units.get(engine.module, 0)
+                      + max((b for u, b in units.items()
+                             if u is not engine.module), default=0))
+            over = peak - reference["peak_bytes"]
+            if stage == 3 and over > budget:
+                raise AssertionError(
+                    f"{what}: peak memory {peak / 1e9:.3f} GB is "
+                    f"{over / 1e9:.3f} GB above phase 3's, more than the "
+                    f"root unit's and one block's gathered weights "
+                    f"({budget / 1e9:.3f} GB)")
+            log(f"zero stage {stage}: NCCL, world size 1; {ZERO_STEPS} "
+                f"steps in {secs:.3f} s ({1e3 * secs / ZERO_STEPS:.1f} "
+                f"ms/step), peak memory {peak / 1e9:.3f} GB (phase 3: "
+                f"{reference['peak_bytes'] / 1e9:.3f} GB; stage-3 budget "
+                f"+{budget / 1e9:.3f} GB); losses "
+                f"{[round(x, 4) for x in losses]}, max |diff| vs phase 3 "
+                f"{loss_err:.3g} (bit-equal: {losses == want}); step-1 "
+                f"gradients relative L2 max {grad_err[worst]:.3g} at "
+                f"{worst}; collectives per step "
+                f"{ {k: v / ZERO_STEPS for k, v in collectives.items()} } "
+                f"= the plan; launches per step flash_fwd "
+                f"{counts['flash_fwd'] / ZERO_STEPS}, flash_bwd_dq "
+                f"{counts['flash_bwd_dq'] / ZERO_STEPS}, flash_bwd_dkv "
+                f"{counts['flash_bwd_dkv'] / ZERO_STEPS} [{card}]")
+            total.update(counts)
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        comm.destroy_process_group()
+    return dict(total)
 
 
 # phase 8: BERT-large MLM with the sparse_attention section. 3 warm-up and
@@ -2418,8 +2563,14 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    by_path = {"training": phase_training(args.seed, card)}
+    by_path = {}
+    by_path["training"], reference = phase_training(args.seed, card)
     log(f"phase 3: training in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["zero"] = phase_zero(args.seed, card, reference)
+    del reference
+    log(f"phase 3b: ZeRO stages {ZERO_STAGES} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     model = GPT2LMHeadModel(GPT2Config.gpt2_125m(), seed=args.seed)
     t0 = time.perf_counter()

@@ -12,10 +12,14 @@ one-card training path
 LAMB, and the flash-attention backward kernels) for GPT-2 and for BERT,
 whose ``sparse_attention`` config section routes attention through the
 block-sparse layout zoo and its kernels (``ops/sparse_attention``).
+Training runs data-parallel over ``torch.distributed`` (``comm``), one
+process per device, with ZeRO stages 0-3 (``runtime/zero``, ``zero``) on
+a ``data x fsdp`` mesh (``parallel/topology.py``).
 
-``DeepSpeedEngine``, ``InferenceEngine``, ``SparseSelfAttention`` and
-``SparseAttentionUtils`` resolve lazily from the package, as in the JAX
-package (whose ``deepspeed.ops.sparse_attention`` path the port keeps).
+``DeepSpeedEngine``, ``InferenceEngine``, ``SparseSelfAttention``,
+``SparseAttentionUtils`` and the ``zero`` and ``comm`` modules resolve
+lazily from the package, as in the JAX package (whose
+``deepspeed.ops.sparse_attention`` path the port keeps).
 """
 
 
@@ -26,18 +30,25 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     """Build a training engine around ``model`` (an ``nn.Module`` whose
     ``forward(batch)`` returns the loss, e.g. ``models.gpt2.
     GPT2ForTraining`` or ``models.bert.BertForTraining``) on the card
-    (``device=None``) or the CPU. A ``sparse_attention`` config section
-    goes to the model's ``with_sparse_attention`` hook.
+    (``device=None``; ``cuda:LOCAL_RANK`` under a process group) or the
+    CPU. A ``sparse_attention`` config section goes to the model's
+    ``with_sparse_attention`` hook.
+
+    ``mesh`` (a :class:`~deepspeed_tpu_torch.parallel.topology.
+    MeshTopology` or an axis dict such as ``{"data": 2, "fsdp": 2}``; the
+    config's ``mesh`` section otherwise) or a ZeRO stage above 0 makes
+    the run data-parallel: one process per device, each calling
+    ``initialize`` with the same arguments, the process group started by
+    :func:`init_distributed` unless one runs (``dist_init_required=False``
+    refuses to start one).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
-    the dataloader is None. ``mesh`` comes with the multi-GPU slice and
-    ``training_data`` with the checkpoint slice (the data-loader cursor);
-    every parameter of ``model`` is trained, so ``model_parameters`` is
-    not taken."""
+    the dataloader is None. ``training_data`` comes with the checkpoint
+    slice (the data-loader cursor); every parameter of ``model`` is
+    trained, so ``model_parameters`` is not taken."""
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
     for name, value, where in (
-            ("mesh", mesh, "the multi-GPU slice"),
             ("training_data", training_data, "the checkpoint slice"),
             ("collate_fn", collate_fn, "the checkpoint slice"),
             ("model_parameters", model_parameters,
@@ -52,8 +63,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = getattr(args, "deepspeed_config", None)
     engine = DeepSpeedEngine(model=model, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, config=config,
-                             device=device)
+                             device=device, mesh=mesh,
+                             dist_init_required=dist_init_required)
     return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+def init_distributed(dist_backend="xla", **kwargs):
+    """Start the job's ``torch.distributed`` process group (NCCL on the
+    card, gloo with ``device="cpu"``); idempotent. See
+    :func:`deepspeed_tpu_torch.comm.init_distributed`."""
+    from deepspeed_tpu_torch.comm.comm import init_distributed as _init
+
+    return _init(dist_backend=dist_backend, **kwargs)
 
 
 def default_inference_config():
@@ -109,6 +130,10 @@ def add_config_arguments(parser):
 def __getattr__(name):
     """Lazy top-level classes (the JAX package's ``__getattr__``), resolved
     on first touch so importing the package stays light."""
+    if name in ("zero", "comm"):
+        import importlib
+
+        return importlib.import_module(f"{__name__}.{name}")
     lazy = {
         "DeepSpeedEngine": ("deepspeed_tpu_torch.runtime.engine",
                             "DeepSpeedEngine"),

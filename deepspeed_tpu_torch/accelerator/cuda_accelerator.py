@@ -6,6 +6,8 @@ the tests' choice. Asking for ``cuda`` on a machine without a usable GPU
 raises; nothing ever falls back to the CPU.
 """
 
+import os
+
 import torch
 
 from .abstract_accelerator import Accelerator
@@ -53,8 +55,16 @@ def get_accelerator() -> Accelerator:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → the card. A CUDA device without a usable GPU raises."""
-    device = torch.device("cuda" if device is None else device)
+    """``None`` → the card: ``cuda:LOCAL_RANK`` under a process group
+    (one process per card), else ``cuda``. A CUDA device without a usable
+    GPU raises."""
+    if device is None:
+        import torch.distributed as dist
+
+        running = dist.is_available() and dist.is_initialized()
+        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+                  if running else torch.device("cuda"))
+    device = torch.device(device)
     if device.type == "cuda" and not get_accelerator().is_available():
         raise RuntimeError(
             f"device {device} requested but torch.cuda.is_available() is "

@@ -36,7 +36,7 @@ UNPORTED = {
     "quant": "the weight-only int8 slice",
     "zero": "the ZeRO-Inference slice",
     "moe": "the MoE slice",
-    "injection_policy": "the multi-GPU slice",
+    "injection_policy": "the multi-GPU slice's tensor-parallel part ([7b])",
 }
 
 # the JAX config's keys that are accepted and have no effect here, with
@@ -151,7 +151,8 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
             raise NotImplementedError(
                 f"inference config tensor_parallel.tp_size "
                 f"{self.tensor_parallel.tp_size} is not ported yet: it "
-                f"comes with the multi-GPU slice of the PyTorch port")
+                f"comes with the multi-GPU slice's tensor-parallel part "
+                f"([7b]) of the PyTorch port")
 
     def inert_notes(self):
         """``(key, why)`` for each inert key set to another value than

@@ -10,6 +10,12 @@ at once. It keeps the JAX interface — ``init(params)`` returns the state,
 ``update(grads, state, params, lr)`` returns the next one — but updates
 the parameters and the moment buffers IN PLACE, where JAX returns new
 arrays. These are not ``torch.optim`` optimizers.
+
+Under ZeRO the engine hands them shards of the masters, gradients and
+moments. Every update but LAMB's is elementwise; LAMB's trust ratio needs
+each parameter's whole norm, so ``update`` takes ``norm_reduce``: a
+function that sums squared per-parameter norms over the ZeRO group where
+a parameter is split (the engine's; None on one rank or unsplit).
 """
 
 from typing import Any, NamedTuple, Optional
@@ -76,7 +82,7 @@ class FusedAdam:
 
     @torch.no_grad()
     def update(self, grads, state: AdamState, params,
-               lr: Optional[float] = None) -> AdamState:
+               lr: Optional[float] = None, norm_reduce=None) -> AdamState:
         lr = self.lr if lr is None else lr
         step = state.step + 1
         bc1, bc2 = _bias_corrections(self.betas, step, self.bias_correction)
@@ -106,7 +112,8 @@ class FusedSGD:
         return AdamState(0, _zeros(params) if self.momentum else None, None)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params, lr=None) -> AdamState:
+    def update(self, grads, state: AdamState, params, lr=None,
+               norm_reduce=None) -> AdamState:
         lr = self.lr if lr is None else lr
         grads = _fp32(grads)
         if self.weight_decay:
@@ -142,7 +149,8 @@ class FusedLamb:
         return AdamState(0, _zeros(params), _zeros(params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params, lr=None) -> AdamState:
+    def update(self, grads, state: AdamState, params, lr=None,
+               norm_reduce=None) -> AdamState:
         lr = self.lr if lr is None else lr
         step = state.step + 1
         bc1, bc2 = _bias_corrections(self.betas, step, self.bias_correction)
@@ -152,6 +160,9 @@ class FusedLamb:
             torch._foreach_add_(update, params, alpha=self.weight_decay)
         w_norm = torch.stack(torch._foreach_norm(params))
         u_norm = torch.stack(torch._foreach_norm(update))
+        if norm_reduce is not None:
+            w_norm, u_norm = norm_reduce(
+                torch.stack([w_norm, u_norm]).square()).sqrt().unbind(0)
         trust = torch.where((w_norm > 0) & (u_norm > 0),
                             (w_norm / u_norm).clamp(self.min_coeff,
                                                     self.max_coeff),

@@ -1,43 +1,55 @@
 """Training configuration (counterpart of ``deepspeed_tpu/runtime/config.py``).
 
-:class:`DeepSpeedConfig` parses the keys the training engine of this slice
-implements: the batch triangle, ``optimizer``, ``scheduler``,
-``gradient_clipping``, ``bf16``, ``fp16``, ``fused_step``,
-``zero_optimization.stage`` (0 only), ``gradient_accumulation_steps``,
-``steps_per_print`` and the ``sparse_attention`` section (handed to the
-model's ``with_sparse_attention`` hook by the engine). A key the JAX
-config accepts but this port does not implement yet raises
+:class:`DeepSpeedConfig` parses the keys the training engine implements:
+the batch triangle, ``optimizer``, ``scheduler``, ``gradient_clipping``,
+``bf16``, ``fp16``, ``fused_step``, ``zero_optimization`` (stages 0-3,
+:class:`~deepspeed_tpu_torch.runtime.zero.config.DeepSpeedZeroConfig`),
+the ``mesh`` section (``data`` and ``fsdp`` axes), the gradient
+reduction's ``prescale_gradients`` / ``gradient_predivide_factor``,
+``communication_data_type`` (recorded, as the JAX engine does: gradients
+reduce in fp32), ``disable_allgather`` (accepted and inert, as in JAX),
+``sparse_gradients`` (recorded), ``zero_allow_untested_optimizer``,
+``gradient_accumulation_steps``, ``steps_per_print`` and the
+``sparse_attention`` section (handed to the model's
+``with_sparse_attention`` hook by the engine). A key the JAX config
+accepts but this port does not implement yet raises
 :class:`NotImplementedError` naming the slice of the port that brings it,
 instead of being accepted and ignored; a key neither knows raises
 :class:`DeepSpeedConfigError`.
+
+The batch triangle's world is the data-parallel one: ``world / (tp x
+pipe x seq x fsdp)`` (fsdp splits weights, never the batch), the world
+being the running process group's, else ``WORLD_SIZE``.
 """
 
 import json
 import os
 from typing import Any, Optional
 
+from pydantic import Field, model_validator
+
+from deepspeed_tpu_torch.parallel.topology import (check_ported_axes,
+                                                   normalize_axis_dict)
 from deepspeed_tpu_torch.runtime import constants as C
-from deepspeed_tpu_torch.runtime.config_utils import \
-    dict_raise_error_on_duplicate_keys
+from deepspeed_tpu_torch.runtime.config_utils import (
+    DeepSpeedConfigModel, dict_raise_error_on_duplicate_keys)
 from deepspeed_tpu_torch.runtime.precision_config import (BF16Config,
                                                           FP16Config)
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 
 
 class DeepSpeedConfigError(Exception):
     pass
 
 
-_MULTI_GPU = "the multi-GPU slice"
+_TP = "the multi-GPU slice's tensor-parallel part ([7b])"
 _TRAINING_FEATURES = "the training-features slice"
 # keys of the JAX training config, and the port's slice that will
 # implement each (ROADMAP.md, Queue 1)
 UNPORTED = {
-    "mesh": _MULTI_GPU, "pipeline": "the pipeline slice",
-    "tensor_parallel": _MULTI_GPU, "comm_quantization":
-        "the compressed-collectives slice",
-    "communication_data_type": _MULTI_GPU, "prescale_gradients": _MULTI_GPU,
-    "gradient_predivide_factor": _MULTI_GPU, "disable_allgather": _MULTI_GPU,
-    "sparse_gradients": _MULTI_GPU,
+    "pipeline": "the pipeline slice",
+    "tensor_parallel": _TP,
+    "comm_quantization": "the compressed-collectives slice ([9])",
     "activation_checkpointing": _TRAINING_FEATURES,
     "progressive_layer_drop": _TRAINING_FEATURES,
     "curriculum_learning": _TRAINING_FEATURES,
@@ -58,16 +70,49 @@ UNPORTED = {
     "dataloader_drop_last": "the checkpoint slice",
     "tuning": "the autotuning slice", "autotuning": "the autotuning slice",
     "aio": "the offload slice",
-    "zero_allow_untested_optimizer": _MULTI_GPU,
     "dump_state": "the telemetry slice",
 }
-_ZERO_KEYS_SLICE = {"offload_optimizer": "the offload slice",
-                    "offload_param": "the offload slice"}
 SUPPORTED = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     C.GRADIENT_ACCUMULATION_STEPS, C.OPTIMIZER, C.SCHEDULER,
     C.GRADIENT_CLIPPING, C.FP16, C.BF16, C.BFLOAT16, C.ZERO_OPTIMIZATION,
-    C.FUSED_STEP, C.STEPS_PER_PRINT, C.SPARSE_ATTENTION})
+    C.FUSED_STEP, C.STEPS_PER_PRINT, C.SPARSE_ATTENTION, C.MESH,
+    C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
+    C.COMMUNICATION_DATA_TYPE, C.DISABLE_ALLGATHER, C.SPARSE_GRADIENTS,
+    C.ZERO_ALLOW_UNTESTED_OPTIMIZER})
+
+
+class MeshConfig(DeepSpeedConfigModel):
+    """Named mesh axis sizes (the JAX ``MeshConfig``): ``data`` may be -1
+    (fill the world). ``model`` is the deprecated alias of ``tp``. This
+    slice runs ``data`` and ``fsdp``; ``tp``, ``pipe``, ``expert`` or
+    ``seq`` above 1, or a ``dcn`` section, raises naming its slice."""
+
+    data: int = -1
+    fsdp: int = 1
+    tp: int = 1
+    model: int = Field(1, json_schema_extra={"deprecated": "alias of tp"})
+    pipe: int = 1
+    expert: int = 1
+    seq: int = 1
+    axis_order: tuple = ("pipe", "data", "fsdp", "expert", "seq", "tp")
+    dcn: dict = Field(default_factory=dict)
+
+    @model_validator(mode="after")
+    def _fold_model_alias(self):
+        if self.model != 1:
+            if self.tp not in (1, self.model):
+                raise ValueError(
+                    f"mesh names both tp={self.tp} and its deprecated "
+                    f"alias model={self.model} with different sizes — "
+                    "keep only tp")
+            object.__setattr__(self, "tp", self.model)
+        check_ported_axes(self.axis_sizes(), normalize_axis_dict(self.dcn))
+        return self
+
+    def axis_sizes(self):
+        return {"data": self.data, "fsdp": self.fsdp, "tp": self.tp,
+                "pipe": self.pipe, "expert": self.expert, "seq": self.seq}
 
 
 def _resolve_batch_triangle(train_batch, micro_batch, gas, dp_world_size):
@@ -125,23 +170,20 @@ def _check_keys(d):
                 f"config key '{key}' is not ported yet: it comes with "
                 f"{UNPORTED[key]} of the PyTorch port")
         raise DeepSpeedConfigError(f"unknown config key '{key}'")
-    zero = dict(d.get(C.ZERO_OPTIMIZATION) or {})
-    stage = zero.pop("stage", 0)
-    if stage != 0:
-        raise NotImplementedError(
-            f"zero_optimization.stage {stage} is not ported yet: ZeRO "
-            f"stages 1-3 come with {_MULTI_GPU} of the PyTorch port")
-    if zero:
-        key = next(iter(zero))
-        raise NotImplementedError(
-            f"zero_optimization.{key} is not ported yet: it comes with "
-            f"{_ZERO_KEYS_SLICE.get(key, _MULTI_GPU)} of the PyTorch port")
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
 
 
 class DeepSpeedConfig:
     """Parsed training config: a dict, a path to a JSON file, or None.
     ``world_size`` is the data-parallel world size of the batch
-    arithmetic (1 on one card)."""
+    arithmetic (default: the world over the non-data axes)."""
 
     def __init__(self, config: Any, world_size: Optional[int] = None):
         if isinstance(config, str):
@@ -163,6 +205,9 @@ class DeepSpeedConfig:
         _check_keys(d)
 
         self.fp16 = FP16Config(**d.get(C.FP16, {}))
+        self.zero_config = DeepSpeedZeroConfig(**d.get(C.ZERO_OPTIMIZATION,
+                                                       {}))
+        self.mesh = MeshConfig(**d.get(C.MESH, {}))
         self.bf16 = BF16Config(**d.get(C.BF16, d.get(C.BFLOAT16, {})))
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
@@ -188,8 +233,24 @@ class DeepSpeedConfig:
         # block-sparse attention section (mode, block, ...): the engine
         # hands it to the model's with_sparse_attention hook
         self.sparse_attention = d.get(C.SPARSE_ATTENTION)
+        # gradient reduction: the mean over the ZeRO group, pre- or
+        # post-scaled as the reference does (runtime/zero/reduce.py)
+        self.prescale_gradients = bool(d.get(C.PRESCALE_GRADIENTS, False))
+        self.gradient_predivide_factor = float(
+            d.get(C.GRADIENT_PREDIVIDE_FACTOR, 1.0))
+        # recorded, as in the JAX engine: gradients reduce in fp32
+        self.communication_data_type = d.get(C.COMMUNICATION_DATA_TYPE)
+        self.disable_allgather = bool(d.get(C.DISABLE_ALLGATHER, False))
+        self.sparse_gradients_enabled = bool(d.get(C.SPARSE_GRADIENTS,
+                                                   False))
+        self.zero_allow_untested_optimizer = bool(
+            d.get(C.ZERO_ALLOW_UNTESTED_OPTIMIZER, False))
 
-        self.world_size = world_size or 1
+        if world_size is None:
+            non_data = (self.mesh.tp * self.mesh.pipe * self.mesh.seq
+                        * self.mesh.fsdp)
+            world_size = max(1, _world_size() // max(1, non_data))
+        self.world_size = world_size
 
         def given(key):
             v = d.get(key)
@@ -200,3 +261,11 @@ class DeepSpeedConfig:
             given(C.TRAIN_BATCH_SIZE),
             given(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU),
             given(C.GRADIENT_ACCUMULATION_STEPS), self.world_size)
+
+    @property
+    def zero_enabled(self) -> bool:
+        return self.zero_config.stage > 0
+
+    @property
+    def zero_optimization_stage(self) -> int:
+        return self.zero_config.stage

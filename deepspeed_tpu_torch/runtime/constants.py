@@ -25,3 +25,10 @@ BFLOAT16 = "bfloat16"  # accepted alias of "bf16"
 ZERO_OPTIMIZATION = "zero_optimization"
 FUSED_STEP = "fused_step"
 SPARSE_ATTENTION = "sparse_attention"
+MESH = "mesh"
+PRESCALE_GRADIENTS = "prescale_gradients"
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+COMMUNICATION_DATA_TYPE = "communication_data_type"
+DISABLE_ALLGATHER = "disable_allgather"
+SPARSE_GRADIENTS = "sparse_gradients"
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"

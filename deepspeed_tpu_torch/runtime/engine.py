@@ -24,6 +24,27 @@ A ``sparse_attention`` section swaps the model onto block-sparse
 attention through its ``with_sparse_attention`` hook (``:244-258``),
 which keeps the model's parameters: here they exist before the hook runs.
 
+Data parallelism and ZeRO (``runtime/zero/``): with a ``mesh`` (the
+``initialize`` argument or the config section), a ZeRO stage above 0, or
+a process group already running, the engine runs one process per device
+over ``torch.distributed`` (starting the group if none runs):
+
+- ``engine(batch)`` takes the GLOBAL micro-batch, as the JAX engine does
+  (``train_micro_batch_size_per_gpu x dp`` rows, ``_shard_batch``); each
+  rank keeps its rows by ``SpecLayout.batch_spec`` (split over ``data x
+  expert`` only: ranks that differ only in ``fsdp`` take the same rows);
+- the loss it returns is the mean over the global micro-batch (each
+  rank's mean, averaged over the data-parallel group: the global mean
+  whenever the ranks hold as many labelled tokens, as GPT-2's shifted
+  labels do);
+- gradients are mean-reduced over the ZeRO group and the optimizer runs
+  on the stage's shards (:class:`~deepspeed_tpu_torch.runtime.zero.stage.
+  ZeroPartition`): the global norm counts every element once, and an
+  fp16 overflow on one rank skips the step on all of them.
+
+With no process group and no mesh, at stage 0, the engine runs on its one
+device as before, with no collective.
+
 Offload, the 1-bit optimizers, compression, MoQ, curriculum, PLD,
 telemetry hooks and the flops profiler are config keys that raise at
 parse time (``runtime/config.py``), naming their slice.
@@ -34,8 +55,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm as dist
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.ops.optimizer import build_basic_optimizer
+from deepspeed_tpu_torch.ops.optimizer import FusedLamb, build_basic_optimizer
+from deepspeed_tpu_torch.parallel import topology as topo_mod
+from deepspeed_tpu_torch.parallel.topology import MeshTopology
+from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (create_loss_scaler,
                                                           has_inf_or_nan,
@@ -43,19 +68,29 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (create_loss_scaler,
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       get_lr_schedule_fn)
 from deepspeed_tpu_torch.runtime.utils import global_norm
+from deepspeed_tpu_torch.runtime.zero.partition import BATCH_AXES, SpecLayout
+from deepspeed_tpu_torch.runtime.zero.reduce import GradScale
+from deepspeed_tpu_torch.runtime.zero.stage import ZeroPartition
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 class DeepSpeedEngine:
     def __init__(self, model=None, optimizer=None, lr_scheduler=None,
-                 config=None, device=None):
+                 config=None, device=None, mesh=None,
+                 dist_init_required=None):
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize requires a "
                              "model")
         self._config = DeepSpeedConfig(config)
+        self.topology = self._init_topology(mesh, device, dist_init_required)
         self.device = resolve_device(device)
         self.fp16_enabled_ = self._config.fp16.enabled
         self.bf16_enabled_ = self._config.bf16.enabled
+        if self._config.disable_allgather:
+            logger.warning(
+                "disable_allgather is accepted but INERT: ZeRO's gathers "
+                "are the stage's plan (runtime/zero/stage.py); there is no "
+                "hand-scheduled allgather to disable")
 
         if self._config.sparse_attention:
             if hasattr(model, "with_sparse_attention"):
@@ -70,15 +105,38 @@ class DeepSpeedEngine:
                     "with_sparse_attention hook — training runs DENSE "
                     "attention (BertForTraining supports the section)")
 
-        # the model's parameters are the fp32 masters
-        self.module = model.to(self.device)
-        self._params = [p for p in self.module.parameters()
-                        if p.requires_grad]
-        bad = sorted({str(p.dtype) for p in self._params
-                      if p.dtype != torch.float32})
+        bad = sorted({str(p.dtype) for p in model.parameters()
+                      if p.requires_grad and p.dtype != torch.float32})
         if bad:
             raise ValueError(f"the engine trains fp32 master parameters; "
                              f"the model has {bad} ones")
+        # the model's parameters are the fp32 masters (their shards under
+        # ZeRO, which places them on the device itself)
+        self._zero = None
+        self.spec_layout = None
+        if self.topology is not None:
+            zc = self._config.zero_config
+            stage3 = zc.stage >= 3
+            self.spec_layout = SpecLayout(
+                self.topology,
+                persistence_threshold=(zc.param_persistence_threshold
+                                       if stage3 else 0),
+                hierarchical_gather=zc.hierarchical_gather and stage3)
+            if (zc.hierarchical_gather and stage3
+                    and not self.spec_layout.hierarchical_active):
+                logger.warning(
+                    "zero_optimization.hierarchical_gather ignored: the "
+                    "mesh has no secondary ZeRO axis (fsdp/expert) of size "
+                    "> 1; parameters keep the flat data-axis partition")
+            self._zero = ZeroPartition(
+                model, self.spec_layout, zc.stage, self.device,
+                GradScale(self._config.prescale_gradients,
+                          self._config.gradient_predivide_factor),
+                zc.reduce_bucket_size, zc.allgather_bucket_size)
+        self.module = model.to(self.device)
+        self._params = (self._zero.masters if self._zero is not None
+                        else [p for p in self.module.parameters()
+                              if p.requires_grad])
 
         # --- optimizer ---
         if optimizer is not None:
@@ -134,13 +192,44 @@ class DeepSpeedEngine:
         self._last_overflow = None
         self.training_dataloader = None
         log_dist(f"DeepSpeedEngine configured: device={self.device} "
+                 f"zero_stage={self.zero_optimization_stage()} "
+                 f"mesh={self.topology} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()} "
                  f"fused_step={self._fused_step}", ranks=[0])
 
+    def _init_topology(self, mesh, device, dist_init_required):
+        """The job's mesh, starting the process group when the run is
+        data-parallel (module docstring); None on one device with no
+        group. Re-resolves the batch triangle over its data-parallel
+        world."""
+        wanted = (mesh is not None or C.MESH in self._config._param_dict
+                  or self._config.zero_enabled or dist.is_initialized())
+        if not wanted and not dist_init_required:
+            return None
+        if not dist.is_initialized():
+            if dist_init_required is False:
+                raise ValueError(
+                    "this run needs a process group (a mesh or a ZeRO "
+                    "stage above 0) and dist_init_required=False")
+            dist.init_distributed(device=device)
+        if isinstance(mesh, MeshTopology):
+            topology = mesh
+        else:
+            sizes = dict(mesh) if mesh is not None \
+                else self._config.mesh.axis_sizes()
+            topology = MeshTopology(axis_sizes=sizes)
+        topo_mod.set_topology(topology)
+        self._config = DeepSpeedConfig(
+            self._config._param_dict,
+            world_size=topology.get_data_parallel_world_size())
+        return topology
+
     # ------------------------------------------------------------------
     # the step
     def _to_device(self, batch):
+        """The batch on the device: this rank's rows of each array under a
+        mesh (``SpecLayout.batch_spec``), sliced on the host."""
         if isinstance(batch, dict):
             return {k: self._to_device(v) for k, v in batch.items()}
         if isinstance(batch, (tuple, list)):
@@ -148,6 +237,10 @@ class DeepSpeedEngine:
         if isinstance(batch, np.ndarray):
             batch = torch.from_numpy(batch)
         if isinstance(batch, torch.Tensor):
+            if self.spec_layout is not None and batch.ndim >= 1:
+                rows = self.spec_layout.batch_sharding(batch.ndim,
+                                                       tuple(batch.shape))
+                batch = rows.local(batch)
             return batch.to(self.device, non_blocking=True)
         return batch
 
@@ -165,22 +258,37 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def _apply_math(self):
         """Unscale → overflow check → clip → update → loss-scale update,
-        on the gradients accumulated in the parameters; clears them."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._params]
+        on the step's gradients (the parameters' ``.grad``, or the ZeRO
+        slots); clears them."""
+        zero = self._zero
+        if zero is not None:
+            grads = zero.reduced_grads()
+        else:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self._params]
         if self.fp16_enabled_:
             torch._foreach_mul_(grads, 1.0 / self._loss_scale())
+        overflow = has_inf_or_nan(grads) if self.fp16_enabled_ else None
+        if zero is not None:
+            # one all-reduce: the split slots' squares and the flag
+            grad_norm, overflow = zero.norm_and_overflow(grads, overflow)
+        else:
+            grad_norm = global_norm(grads)
         # the one host sync of the step, and only under fp16
-        overflow = (bool(has_inf_or_nan(grads)) if self.fp16_enabled_
-                    else False)
-        grad_norm = global_norm(grads)
+        overflow = bool(overflow) if overflow is not None else False
         clip = self._config.gradient_clipping
         if clip and clip > 0:
             torch._foreach_mul_(grads, torch.clamp(clip / (grad_norm + 1e-6),
                                                    max=1.0))
         if not overflow:
+            # LAMB's trust ratio needs whole norms of split masters
+            kwargs = ({"norm_reduce": zero.norm_reduce} if zero is not None
+                      and isinstance(self.optimizer, FusedLamb) else {})
             self._opt_state = self.optimizer.update(
-                grads, self._opt_state, self._params, lr=self._lr())
+                grads, self._opt_state, self._params, lr=self._lr(),
+                **kwargs)
+            if zero is not None:
+                zero.write_back()
         self._loss_scaler = update_scale(self._scaler_config,
                                          self._loss_scaler, overflow)
         self._applied_steps += 1
@@ -195,9 +303,16 @@ class DeepSpeedEngine:
         loss = self.module(batch)
         gas = 1 if self._fused_step else self.gradient_accumulation_steps()
         (loss * (self._loss_scale() / gas)).backward()
+        loss = loss.detach()
+        if self._zero is not None:
+            self._zero.after_micro_step()
+            # the mean over the global micro-batch
+            loss = dist.all_reduce(
+                loss.clone(), op=dist.ReduceOp.AVG,
+                group=self.topology.group(BATCH_AXES))
         if self._fused_step:
             self._last_overflow, self._last_grad_norm = self._apply_math()
-        self._last_loss = loss.detach()
+        self._last_loss = loss
         return self._last_loss
 
     __call__ = forward
@@ -262,10 +377,40 @@ class DeepSpeedEngine:
         return self._config.steps_per_print
 
     def zero_optimization_stage(self):
-        return 0  # stages 1-3 come with the multi-GPU slice
+        return self._config.zero_optimization_stage
 
     def zero_optimization(self):
-        return False
+        return self._config.zero_enabled
+
+    def zero_optimization_partition_gradients(self):
+        return self.zero_optimization_stage() >= 2
+
+    def zero_optimization_partition_weights(self):
+        return self.zero_optimization_stage() >= 3
+
+    def zero_reduce_bucket_size(self):
+        return self._config.zero_config.reduce_bucket_size
+
+    def zero_allgather_bucket_size(self):
+        return self._config.zero_config.allgather_bucket_size
+
+    def zero_param_persistence_threshold(self):
+        return self._config.zero_config.param_persistence_threshold
+
+    def zero_allow_untested_optimizer(self):
+        return self._config.zero_allow_untested_optimizer
+
+    def postscale_gradients(self):
+        return not self._config.prescale_gradients
+
+    def gradient_predivide_factor(self):
+        return self._config.gradient_predivide_factor
+
+    def communication_data_type(self):
+        return self._config.communication_data_type
+
+    def sparse_gradients_enabled(self):
+        return self._config.sparse_gradients_enabled
 
     def fp16_enabled(self):
         return self.fp16_enabled_
@@ -297,15 +442,46 @@ class DeepSpeedEngine:
         return not self._last_overflow
 
     def module_state_dict(self):
-        """Host (CPU) copy of the model parameters."""
-        return {k: v.detach().cpu()
-                for k, v in self.module.state_dict().items()}
+        """Host (CPU) copy of the model's whole parameters; under ZeRO-3
+        the split ones are gathered (every rank must call)."""
+        sd = self.module.state_dict()
+        if self._zero is not None:
+            entries = self._zero.entries
+            for e, t in zip(entries, self._zero.gather_params(entries)):
+                sd[e.name] = t
+        return {k: v.detach().cpu() for k, v in sd.items()}
 
     def load_module_state_dict(self, state_dict, strict=True):
-        """Copy ``state_dict`` into the live parameters, keeping their
-        device and dtype; ``strict=False`` keeps entries it lacks."""
-        self.module.load_state_dict(state_dict, strict=strict)
+        """Copy ``state_dict`` (whole tensors) into the live parameters,
+        keeping their device and dtype, re-sharded under ZeRO (and into
+        the masters); ``strict=False`` keeps entries it lacks."""
+        if self._zero is None:
+            self.module.load_state_dict(state_dict, strict=strict)
+            return
+        names = set(self.module.state_dict())
+        missing = sorted(names - set(state_dict))
+        unexpected = sorted(set(state_dict) - names)
+        if strict and (missing or unexpected):
+            raise RuntimeError(f"load_module_state_dict: missing keys "
+                               f"{missing}, unexpected keys {unexpected}")
+        params = {e.name for e in self._zero.entries}
+        self._zero.load(state_dict)
+        self.module.load_state_dict(
+            {k: v for k, v in state_dict.items() if k not in params},
+            strict=False)
+
+    def gathered_grads(self):
+        """``{name: whole gradient}`` of what the last backward left,
+        reduced over the data-parallel ranks (every rank must call), for
+        checks; the step applies none of it."""
+        if self._zero is None:
+            return {n: p.grad for n, p in self.module.named_parameters()
+                    if p.requires_grad}
+        self._zero.after_micro_step()
+        return self._zero.gather_grads()
 
     def zero_grad(self):
-        for p in self._params:
+        for p in self.module.parameters():
             p.grad = None
+        if self._zero is not None:
+            self._zero.clear()

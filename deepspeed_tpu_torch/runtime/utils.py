@@ -11,12 +11,18 @@ import math
 import torch
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
+def sum_of_squares(tensors) -> torch.Tensor:
+    """The sum of squares of every element, in fp32, as a sum of each
+    tensor's squared norm (the ZeRO engine sums it over ranks)."""
     tensors = [t.float() for t in tensors]
     if not tensors:
         return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    return torch.stack(torch._foreach_norm(tensors)).square().sum()
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    return sum_of_squares(tensors).sqrt()
 
 
 def get_global_norm_of_tensors(tensors, norm_type=2):
@@ -44,5 +50,5 @@ def clip_grad_norm_(tensors, max_norm, norm_type=2):
     return tensors, total
 
 
-__all__ = ["global_norm", "get_global_norm", "get_global_norm_of_tensors",
+__all__ = ["global_norm", "sum_of_squares", "get_global_norm", "get_global_norm_of_tensors",
            "clip_grad_norm_"]

@@ -17,8 +17,14 @@ and the same batch every step, as the bench scripts run them:
 - ``--model bert-large-dense``: the same without the section, at
   ``bench_bert.py``'s 64 x 128 (the non-causal flash kernels).
 
+``--zero-stage K`` runs the workload under ZeRO stage K on an NCCL
+process group of one rank (``init_distributed`` over a ``FileStore``):
+the stage's reduce-scatters, gathers and copies at world size 1, whose
+device time the ``collectives (NCCL)`` and ``concatenation`` families
+show.
+
     python -m deepspeed_tpu_torch.tools.profile_training [--model M]
-        [--seed N] [--steps N] [--out F]
+        [--seed N] [--steps N] [--zero-stage K] [--out F]
 
 Two warm-up steps, then ``--steps`` steps on the host clock (ended by a
 synchronize): tokens/s and MFU against the H100's 989 TF/s bf16 dense
@@ -63,8 +69,7 @@ BENCH_CONFIG = {
     "zero_optimization": {"stage": 0},
     "steps_per_print": 10_000,
 }
-# bench_bert.py:45-55 on one card (ZeRO stage 0: stages 1-3 come with the
-# multi-GPU slice and change nothing on one card)
+# bench_bert.py:45-55 on one card (ZeRO stage 0)
 BERT_CONFIG = {
     "gradient_accumulation_steps": 1,
     "optimizer": {"type": "Adam",
@@ -100,6 +105,8 @@ FAMILIES = (
                          "block_sparse_bwd_dq_sm90_kernel")),
     ("block-sparse dK/dV", ("block_sparse_bwd_dkv_kernel",
                             "block_sparse_bwd_dkv_sm90_kernel")),
+    ("collectives (NCCL)", ("nccl",)),
+    ("concatenation", ("catarraybatchedcopy",)),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
     ("softmax / cross-entropy", ("softmax", "nll_loss", "cross_entropy")),
@@ -226,13 +233,15 @@ def event_ms(fn, repeats=5):
     return start.elapsed_time(end) / repeats
 
 
-def _workload(name, seed):
+def _workload(name, seed, zero_stage=0):
     """(engine, batch, config summary, flops per token, head loss) of a
     workload; the head loss is ``fn(hidden) -> loss`` on the model's real
     labels, for timing the LM / MLM head alone."""
     if name == "gpt2-125m":
         model = bench_model(seed)
-        engine = bench_engine(model)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config={**BENCH_CONFIG, "zero_optimization":
+                                 {"stage": zero_stage}})
         batch = bench_batch(model.config.vocab_size, seed, engine.device)
         labels = shift_labels(batch["input_ids"])
         wte = model.model.wte
@@ -243,7 +252,10 @@ def _workload(name, seed):
 
         return (engine, batch,
                 {"model": "gpt2_125m", "batch": BATCH, "seq": SEQ,
-                 **BENCH_CONFIG}, flops_per_token(model), head)
+                 **BENCH_CONFIG, "zero_optimization": {"stage": zero_stage}},
+                flops_per_token(model), head)
+    if zero_stage:
+        raise ValueError("--zero-stage runs the gpt2-125m workload")
     sparse = name == "bert-large-sparse"
     model = bert_model(seed, sparse=sparse)
     engine = bert_engine(model, sparse=sparse)
@@ -264,13 +276,15 @@ def _workload(name, seed):
             bert_flops_per_token(engine.module, shape[1], density), head)
 
 
-def run(seed: int, steps: int, model: str = "gpt2-125m"):
+def run(seed: int, steps: int, model: str = "gpt2-125m",
+        zero_stage: int = 0):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
-    engine, batch, summary, fpt, head_loss = _workload(model, seed)
+    engine, batch, summary, fpt, head_loss = _workload(model, seed,
+                                                       zero_stage)
     tokens_per_step = batch["input_ids"].numel()
     warm, _ = timed_steps(engine, batch, 2)
     torch.cuda.reset_peak_memory_stats()
@@ -306,11 +320,13 @@ def run(seed: int, steps: int, model: str = "gpt2-125m"):
                          dtype=torch.bfloat16, device=engine.device,
                          requires_grad=True)
     head_ms = event_ms(lambda: head_loss(hidden).backward())
-    grads = [torch.randn_like(p) for p in engine._params]
+    grads = [torch.randn_like(p) for p in engine.module.parameters()]
 
     def apply():
-        for p, g in zip(engine._params, grads):
+        for p, g in zip(engine.module.parameters(), grads):
             p.grad = g
+        if engine._zero is not None:  # as a ZeRO step reduces them
+            engine._zero.after_micro_step()
         engine._apply_math()
 
     optimizer_ms = event_ms(apply)
@@ -348,12 +364,29 @@ def main():
                                  "bert-large-dense"))
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--zero-stage", type=int, default=0,
+                        choices=(0, 1, 2, 3))
     parser.add_argument("--out", default="",
                         help="also write the JSON object to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a card")
-    line = json.dumps(run(args.seed, args.steps, args.model))
+    if args.zero_stage:
+        import os
+        import tempfile
+
+        from deepspeed_tpu_torch import comm
+
+        store = os.path.join(tempfile.mkdtemp(prefix="profile_zero"),
+                             "store")
+        comm.init_distributed(init_method=f"file://{store}", rank=0,
+                              world_size=1)
+    try:
+        line = json.dumps(run(args.seed, args.steps, args.model,
+                              args.zero_stage))
+    finally:
+        if args.zero_stage:
+            comm.destroy_process_group()
     print(line)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,6 +1,8 @@
 """The port's training and inference configs against the JAX package's on
-the same inputs: duplicate keys in a JSON training config, and the JAX
-inference config's keys that need no unported slice."""
+the same inputs: duplicate keys in a JSON training config, the
+data-parallel keys (``mesh``, ``zero_optimization``, the gradient
+reduction's keys) and the batch triangle over the data-parallel world,
+and the JAX inference config's keys that need no unported slice."""
 
 import pytest
 
@@ -120,3 +122,64 @@ def test_tensor_parallel_above_one_names_the_multi_gpu_slice(kwargs):
 def test_unknown_inference_key_still_fails():
     with pytest.raises(Exception, match="Extra inputs"):
         DeepSpeedInferenceConfig(not_a_key=1)
+
+
+# the data-parallel slice's training keys, each parsed by both packages
+# with WORLD_SIZE=4 (the batch triangle's world: 4 / (tp pipe seq fsdp))
+DATA_PARALLEL_CASES = {
+    "mesh": {"train_micro_batch_size_per_gpu": 2,
+             "mesh": {"data": 2, "fsdp": 2}},
+    "mesh_fill": {"train_batch_size": 16, "mesh": {"data": -1,
+                                                   "fsdp": 2}},
+    "model_alias": {"train_micro_batch_size_per_gpu": 1,
+                    "mesh": {"model": 1, "data": 4}},
+    "zero_stage3": {"train_batch_size": 8, "zero_optimization": {
+        "stage": 3, "stage3_param_persistence_threshold": 7,
+        "stage3_max_live_parameters": 9, "hierarchical_gather": True,
+        "reduce_bucket_size": 1000, "allgather_bucket_size": 2000,
+        "offload_optimizer": {"device": "none"}}},
+    "zero_deprecated": {"train_batch_size": 8, "zero_optimization": {
+        "stage": 2, "stage3_gather_fp16_weights_on_model_save": True,
+        "cpu_offload": False}},
+    "reduction_keys": {"train_batch_size": 8, "prescale_gradients": True,
+                       "gradient_predivide_factor": 2.0,
+                       "communication_data_type": "fp32",
+                       "disable_allgather": True, "sparse_gradients": True,
+                       "zero_allow_untested_optimizer": True},
+}
+
+
+@pytest.mark.parametrize("case", list(DATA_PARALLEL_CASES))
+def test_data_parallel_keys_match_jax(case, monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    d = DATA_PARALLEL_CASES[case]
+    jax, port = JaxConfig(dict(d)), DeepSpeedConfig(dict(d))
+    for name in ("world_size", "train_batch_size",
+                 "train_micro_batch_size_per_gpu",
+                 "gradient_accumulation_steps", "prescale_gradients",
+                 "gradient_predivide_factor", "communication_data_type",
+                 "disable_allgather", "sparse_gradients_enabled",
+                 "zero_allow_untested_optimizer", "zero_enabled",
+                 "zero_optimization_stage"):
+        assert getattr(port, name) == getattr(jax, name), name
+    assert port.mesh.model_dump() == jax.mesh.model_dump()
+    skip = {"offload_optimizer", "offload_param"}
+    assert port.zero_config.model_dump(exclude=skip) == \
+        jax.zero_config.model_dump(exclude=skip)
+
+
+@pytest.mark.parametrize("d,where", [
+    ({"mesh": {"tp": 2}}, r"\[7b\]"), ({"mesh": {"seq": 2}}, r"\[12.7\]"),
+    ({"mesh": {"expert": 2}}, r"\[12.6\]"), ({"mesh": {"pipe": 2}},
+                                              r"\[11\]"),
+    ({"mesh": {"dcn": {"data": 2}}}, r"\[7b\]"),
+    ({"tensor_parallel": {"policy": "gpt2"}}, r"\[7b\]"),
+    ({"comm_quantization": {"enabled": True}}, r"\[9\]"),
+    ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, "offload"),
+    ({"zero_optimization": {"cpu_offload_param": True}}, "offload")],
+    ids=["tp", "seq", "expert", "pipe", "dcn", "tensor_parallel",
+         "comm_quantization", "offload_param", "cpu_offload_param"])
+def test_keys_of_later_slices_raise_naming_them(d, where):
+    JaxConfig({"train_batch_size": 1, **d})  # the JAX package takes them
+    with pytest.raises(NotImplementedError, match=where):
+        DeepSpeedConfig({"train_batch_size": 1, **d})

@@ -48,14 +48,26 @@ def _no_gpu_env():
     return env
 
 
+# the data-parallel slice's modules, which the walk below must reach
+DATA_PARALLEL = ("comm.comm", "comm.backend", "parallel.topology",
+                 "utils.groups", "module_inject.policies",
+                 "runtime.zero.config", "runtime.zero.partition",
+                 "runtime.zero.reduce", "runtime.zero.stage", "zero")
+
+
 def test_import_pulls_in_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import deepspeed_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        f"missing = [m for m in {DATA_PARALLEL!r} "
+        "if 'deepspeed_tpu_torch.' + m not in names]\n"
+        "assert not missing, missing\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
-        "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
+        "print(len(names), bad)\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=_no_gpu_env(), capture_output=True, text=True,
@@ -99,6 +111,14 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
             model=BertForTraining(BertConfig.tiny(), device="meta"),
             config={"train_batch_size": 1,
                     "sparse_attention": {"mode": "fixed", "block": 16}})
+    with pytest.raises(RuntimeError, match="cuda"):
+        deepspeed_tpu_torch.initialize(  # ZeRO: NCCL on the card
+            model=GPT2ForTraining(GPT2Config.tiny(), device="meta"),
+            config={"train_batch_size": 1,
+                    "zero_optimization": {"stage": 1}})
+    with pytest.raises(RuntimeError, match="cuda"):
+        deepspeed_tpu_torch.init_distributed()  # NCCL needs the card
+    assert not deepspeed_tpu_torch.comm.is_initialized()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -367,7 +367,7 @@ def test_config_batch_triangle():
 
 
 @pytest.mark.parametrize("config,slice_name", [
-    ({"zero_optimization": {"stage": 2}}, "multi-GPU"),
+    ({"mesh": {"tp": 2}}, "multi-GPU"),
     ({"zero_optimization": {"stage": 0,
                             "offload_optimizer": {"device": "cpu"}}},
      "offload"),

@@ -1,0 +1,436 @@
+"""Spawned gloo ranks for the port's multi-rank tests.
+
+:func:`run_ranks` starts ``world`` processes (``spawn``), each of which
+joins one gloo process group through a ``FileStore`` under the test's
+temporary directory (no TCP port, so parallel test workers cannot
+collide), runs one of the programs below, and writes its result for the
+parent. The parent joins with a hard timeout and kills every child, so a
+hung collective fails its test instead of stalling the run.
+
+This module imports only numpy, torch and the port: the children never
+import JAX. Weights and batches arrive as files the parent wrote.
+"""
+
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+import torch
+
+RANK_TIMEOUT = 240.0
+
+
+def run_ranks(program, world, tmp_path, args=None, timeout=RANK_TIMEOUT):
+    """Run ``program(rank, world, args)`` on ``world`` gloo ranks; returns
+    the list of their results, by rank."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = os.path.join(str(tmp_path), f"ranks-{program.__name__}")
+    os.makedirs(out, exist_ok=True)
+    store = os.path.join(out, "store")
+    procs = [ctx.Process(target=_child, args=(program, rank, world, store,
+                                              out, args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errors = []
+    for rank, p in enumerate(procs):
+        err = os.path.join(out, f"{rank}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {rank}:\n{f.read()}")
+    if hung:
+        raise TimeoutError(f"ranks {hung} of {program.__name__} still ran "
+                           f"after {timeout} s (killed)\n"
+                           + "\n".join(errors))
+    if any(p.exitcode != 0 for p in procs) or errors:
+        raise RuntimeError(f"{program.__name__} failed: exit codes "
+                           f"{[p.exitcode for p in procs]}\n"
+                           + "\n".join(errors))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out, f"{rank}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def shared_dir(tmp_path_factory):
+    """A directory every test worker of this pytest run shares."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    base = tmp_path_factory.getbasetemp()
+    path = base.parent / f"torch-ranks-{uid}" if uid else base / "torch-ranks"
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def cached(tmp_path_factory, name, run):
+    """``run(directory)``'s result, computed once for the whole run: the
+    first worker to ask runs it, the others read its result."""
+    from filelock import FileLock
+
+    shared = shared_dir(tmp_path_factory)
+    with FileLock(str(shared / f"{name}.lock")):
+        path = shared / f"{name}.pkl"
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        result = run(shared)
+        with open(path, "wb") as f:
+            pickle.dump(result, f)
+        return result
+
+
+def _child(program, rank, world, store, out, args):
+    try:
+        # one thread, at a lower priority: the ranks share the machine
+        # with the other test workers (and their timing tests)
+        os.nice(10)
+        torch.set_num_threads(1)
+        from deepspeed_tpu_torch import comm
+
+        comm.init_distributed(init_method=f"file://{store}", rank=rank,
+                              world_size=world, device="cpu", timeout=120,
+                              verbose=False)
+        result = program(rank, world, args)
+        with open(os.path.join(out, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+        comm.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+def collectives(rank, world, args):
+    """Every collective of ``deepspeed_tpu_torch.comm`` on a
+    ``{"data": 2, "fsdp": 2}`` mesh; rank r's inputs are made from r."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
+                                                       set_topology)
+
+    backend = comm.init_distributed(device="cpu")  # runs: kept
+    again = comm.init_distributed(device="cpu")
+    topo = MeshTopology(axis_sizes={"data": 2, "fsdp": 2})
+    set_topology(topo)
+    x = torch.arange(24, dtype=torch.float32).view(4, 6) + 10 * rank
+    res = {"idempotent": backend is again and comm.is_initialized(),
+           "rank": comm.get_rank(), "world": comm.get_world_size(),
+           "coord": tuple(topo.coord)}
+    for group in (None, "data", "fsdp", ("data", "fsdp")):
+        key = group if isinstance(group, (str, type(None))) \
+            else "+".join(group)
+        res[f"ranks/{key}"] = comm.get_all_ranks_from_group(group)
+        res[f"group_rank/{key}"] = comm.get_rank(group)
+        res[f"group_size/{key}"] = comm.get_world_size(group)
+        for op in ("SUM", "AVG", "MAX", "MIN", "PRODUCT"):
+            t = x.clone() / 10 + 1
+            comm.all_reduce(t, op=getattr(comm.ReduceOp, op), group=group)
+            res[f"all_reduce/{op}/{key}"] = _np(t)
+        res[f"all_gather/{key}"] = _np(comm.all_gather(x, group=group))
+        res[f"all_gather_tiled1/{key}"] = _np(
+            comm.all_gather(x, group=group, axis=1, tiled=True))
+        res[f"reduce_scatter/{key}"] = _np(
+            comm.reduce_scatter(x, group=group))
+        res[f"reduce_scatter_avg1/{key}"] = _np(
+            comm.reduce_scatter(x[:, :4], group=group, axis=1,
+                                op=comm.ReduceOp.AVG))
+        res[f"all_to_all/{key}"] = _np(
+            comm.all_to_all_single(x, group=group, split_axis=0,
+                                   concat_axis=1))
+        res[f"broadcast/{key}"] = _np(comm.broadcast(
+            x.clone(), src=comm.get_world_size(group) - 1, group=group))
+        ring = [(i, (i + 1) % comm.get_world_size(group))
+                for i in range(comm.get_world_size(group))]
+        res[f"ppermute_ring/{key}"] = _np(comm.ppermute(x, ring,
+                                                        group=group))
+        res[f"ppermute_pair/{key}"] = _np(comm.ppermute(x, [(0, 1)],
+                                                        group=group))
+    res["all_gather_base"] = _np(comm.all_gather_base(
+        torch.empty(4 * 24), x.reshape(-1)))
+    res["reduce_scatter_untiled"] = _np(comm.reduce_scatter(
+        x, tiled=False))
+    t = x.clone()
+    comm.reduce(t, dst=2)
+    res["reduce"] = _np(t) if rank == 2 else None
+    g = comm.gather(x, dst=1)
+    res["gather"] = None if g is None else _np(g)
+    t = torch.empty(4, 6)
+    comm.scatter(t, scatter_list=[x + 100 * i for i in range(world)]
+                 if rank == 3 else None, src=3)
+    res["scatter"] = _np(t)
+    t = torch.zeros(4, 6)
+    if rank == 0:
+        comm.send(x, dst=3)
+    elif rank == 3:
+        comm.recv(t, src=0)
+    res["send_recv"] = _np(t)
+    t = torch.zeros(4, 6)
+    if rank == 1:
+        comm.isend(x, dst=2, group="data+fsdp".split("+")).wait()
+    elif rank == 2:
+        comm.irecv(t, src=1, group=("data", "fsdp")).wait()
+    res["isend_irecv"] = _np(t)
+    res["inference_all_reduce"] = _np(comm.inference_all_reduce(
+        x.clone(), group="fsdp"))
+    res["reduce_scatter_base"] = _np(comm.reduce_scatter_base(
+        x, group="data"))
+    from deepspeed_tpu_torch.runtime.zero.reduce import reduce_gradients
+
+    # two buckets of 48 fp32 bytes: [x[2:]] then [x[:2]] (reverse order)
+    res["reduce_gradients"] = [_np(t) for t in reduce_gradients(
+        [x[:2], x[2:]], group="data", bucket_bytes=48)]
+    from deepspeed_tpu_torch.utils import groups
+
+    res["groups"] = (groups.get_data_parallel_world_size(),
+                     groups.get_data_parallel_rank(),
+                     groups.get_model_parallel_world_size(),
+                     groups.get_pipe_parallel_world_size(),
+                     comm.get_all_ranks_from_group(
+                         groups.get_data_parallel_group()))
+    comm.barrier()
+    comm.monitored_barrier(timeout=60)
+    res["counts"] = dict(comm.counts)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# ZeRO training
+# ---------------------------------------------------------------------------
+def zero_config(stage, gas=1, fused=True, optimizer="AdamW", **zero):
+    """The bench keys at a tiny batch, fp32 (``test_torch_training.py``'s
+    ``bench_config``), with a ZeRO stage."""
+    params = {"lr": 6e-4, "weight_decay": 0.1}
+    return {"train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": optimizer, "params": params},
+            "gradient_clipping": 1.0,
+            "bf16": {"enabled": False},
+            "fused_step": fused,
+            "zero_optimization": {"stage": stage, **zero},
+            "steps_per_print": 10_000}
+
+
+def _gpt2(args, **extra):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.utils.params import training_model_from_jax
+
+    cfg = GPT2Config.tiny(dtype=torch.float32, remat=True,
+                          remat_policy="dots", **extra)
+    return training_model_from_jax(args["weights"], cfg)
+
+
+def train(rank, world, args):
+    """Each case of ``args["cases"]`` (name -> config) for
+    ``args["steps"]`` steps on ``args["batches"]`` (global micro-batches)
+    over ``args["mesh"]``: losses of every micro-step, pre-clip grad norms,
+    the gathered final parameters (rank 0), the shapes each rank holds,
+    and the collectives each step launched against the stage's plan."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+
+    topo = MeshTopology(axis_sizes=args["mesh"])
+    out = {}
+    for name, config in args["cases"].items():
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_gpt2(args), config=config, mesh=topo, device="cpu")
+        gas = engine.gradient_accumulation_steps()
+        losses, norms = [], []
+        comm.reset_counts()
+        for i, ids in enumerate(args["batches"][:args["steps"] * gas]):
+            loss = engine({"input_ids": ids})
+            engine.backward(loss)
+            engine.step()
+            losses.append(float(loss))
+            if (i + 1) % gas == 0:
+                norms.append(engine.get_global_grad_norm())
+        counts = dict(comm.counts)
+        zero = engine._zero
+        plan = zero.comm_plan(
+            gas, recompute=True,
+            lamb=config["optimizer"]["type"].lower() == "lamb")
+        out[name] = {
+            "losses": losses, "norms": norms,
+            "counts": {k: counts.get(k, 0) for k in plan},
+            "plan": {k: v * args["steps"] for k, v in plan.items()},
+            "param_shapes": {e.name: tuple(e.param.shape)
+                             for e in zero.entries},
+            "master_shapes": {e.name: tuple(e.master.shape)
+                              for e in zero.entries},
+            "applied": engine.was_step_applied()}
+        params = engine.module_state_dict()
+        if rank == 0:
+            out[name]["params"] = {k: _np(v) for k, v in params.items()}
+    return out
+
+
+def overflow(rank, world, args):
+    """fp16 dynamic scaling where only rank 0's rows overflow: the
+    element they make inf lies in rank 0's optimizer shard alone, and
+    every rank must skip the step."""
+    import deepspeed_tpu_torch
+    from torch import nn
+
+    class Probe(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = nn.Parameter(torch.ones(4, 8))
+
+        def forward(self, batch):
+            return (self.w * batch["x"]).sum()
+
+    x = np.ones((world, 4, 8), np.float32)
+    x[0, 0, 0] = 1e38  # times the 2^16 loss scale: inf in fp32
+    config = {"train_micro_batch_size_per_gpu": 1,
+              "optimizer": {"type": "Adam", "params": {"lr": 0.1}},
+              "fp16": {"enabled": True}, "fused_step": True,
+              "zero_optimization": {"stage": args["stage"]},
+              "steps_per_print": 10_000}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=Probe(), config=config, mesh={"data": world}, device="cpu")
+    grads = engine._zero.entries[0]
+    engine({"x": x})
+    skipped = (engine.get_skipped_steps(), engine.was_step_applied())
+    w = _np(engine.module.w)
+    engine({"x": np.ones_like(x)})
+    return {"skipped": skipped, "w": w, "w_after": _np(engine.module.w),
+            "shard": tuple(grads.master.shape),
+            "loss_scale": engine.loss_scale}
+
+
+def gathered(rank, world, args):
+    """``zero.GatheredParameters`` at stage 3 on ``{"data": 2, "fsdp":
+    2}``: whole parameters inside, rank 1's write broadcast on exit and
+    re-sharded; then a step runs from the written weights."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import zero
+
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_gpt2(args), config={**zero_config(
+            3, stage3_param_persistence_threshold=0),
+            "mesh": {"data": 2, "fsdp": 2}}, device="cpu")
+    params = list(engine.module.parameters())
+    res = {"shards": [tuple(p.shape) for p in params]}
+    with zero.GatheredParameters(params, modifier_rank=1):
+        res["inside"] = [tuple(p.shape) for p in params]
+        res["wte_inside"] = _np(engine.module.model.wte)
+        with torch.no_grad():
+            engine.module.model.wte[0] = 7.0 if rank == 1 else -1.0
+    res["after"] = [tuple(p.shape) for p in params]
+    sd = engine.module_state_dict()
+    res["wte_row0"] = _np(sd["model.wte"][0])
+    res["wte_rest"] = _np(sd["model.wte"][1:])
+    # with no modifier, the block writes nothing back
+    with zero.GatheredParameters(params):
+        with torch.no_grad():
+            engine.module.model.wte[1] = 5.0
+    res["wte_row1_read_only"] = _np(engine.module_state_dict()
+                                    ["model.wte"][1])
+    loss = engine({"input_ids": args["batches"][0]})
+    res["loss"] = float(loss)
+    res["step_applied"] = engine.was_step_applied()
+    # load_module_state_dict re-shards whole tensors into the shards and
+    # the masters: the trained weights come back as they were saved
+    saved = engine.module_state_dict()
+    engine.load_module_state_dict(
+        {k: torch.zeros_like(v) for k, v in saved.items()})
+    res["zeroed"] = float(sum(v.abs().sum() for v in
+                              engine.module_state_dict().values()))
+    engine.load_module_state_dict(saved)
+    res["reloaded"] = max(float((v - saved[k]).abs().max()) for k, v in
+                          engine.module_state_dict().items())
+    # zero.Init partitions the model before initialize, which keeps its
+    # shards: the first step's loss and gradient norm equal an engine
+    # built from the whole model
+    config = {**zero_config(3, stage3_param_persistence_threshold=0),
+              "mesh": {"data": 2, "fsdp": 2}}
+    runs = []
+    for init in (True, False):
+        model = _gpt2(args)
+        if init:
+            zero.Init(config_dict_or_path=config).materialize(model)
+            res["init_shapes"] = [tuple(p.shape) for p in model.parameters()]
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=config, device="cpu")
+        runs.append((float(engine({"input_ids": args["batches"][0]})),
+                     engine.get_global_grad_norm()))
+    res["init_runs"] = runs
+    res.update(_stage3_lifetimes(args, config))
+    return res
+
+
+def _stage3_lifetimes(args, config):
+    """Stage 3's gathered weights: after the forward only the root
+    unit's are alive (the LM head keeps ``wte`` for its backward), after
+    the backward none; the first step's loss and gradient norm under
+    "full" remat and without remat equal stage 0's."""
+    import gc
+    import weakref
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.zero import stage as zero_stage
+
+    calls = []
+    gather = zero_stage.all_gather_flat
+
+    def recording(shards, plans):
+        whole = gather(shards, plans)
+        calls.append([weakref.ref(t) for t in whole])
+        return whole
+
+    zero_stage.all_gather_flat = recording
+    try:
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_gpt2(args), config=config, device="cpu")
+        batch = {"input_ids": torch.from_numpy(args["batches"][0])}
+        loss = engine.module(engine._to_device(batch))
+        gc.collect()
+        after_forward = [sum(r() is not None for r in c) for c in calls]
+        loss.backward()
+        del loss
+        gc.collect()
+        after_backward = [sum(r() is not None for r in c) for c in calls]
+    finally:
+        zero_stage.all_gather_flat = gather
+    out = {"alive_after_forward": after_forward,
+           "alive_after_backward": after_backward}
+    for remat in ("full", None):
+        extra = {"remat": False} if remat is None else {
+            "remat_policy": remat}
+        steps = []
+        for stage in (0, 3):
+            from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+            from deepspeed_tpu_torch.utils.params import \
+                training_model_from_jax
+
+            cfg = GPT2Config.tiny(dtype=torch.float32, **{
+                "remat": True, "remat_policy": "dots", **extra})
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=training_model_from_jax(args["weights"], cfg),
+                config={**config, "zero_optimization": {
+                    "stage": stage, "stage3_param_persistence_threshold": 0}},
+                device="cpu")
+            steps.append((float(engine(batch)),
+                          engine.get_global_grad_norm()))
+        out[f"remat_{remat}"] = steps
+    return out
