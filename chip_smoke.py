@@ -49,6 +49,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    scale (1 +- 2^-23) at several scales, subnormal x, +-inf) and its
    edges (one element, n = 16 m + 7, an unaligned view; an empty tensor
    launches nothing) — and
+   the flash forward, append, paged and int8 paged kernels also at
+   tensor-parallel serving's 6 heads a rank (GPT-2 125M at tp=2, phase
+   9: generate's 2 x 128 prefill and a 1024-token one on views cut from
+   the fused QKV projection, generate's idx 128 / 159 steps, serving's
+   and leg A's decode steps, leg A's first and last chunks) — and
    time kernel, plain version and (where one exists) the PyTorch library
    call computing the same function (for block-sparse attention SDPA with
    the layout expanded to a boolean mask), beside the least time the card
@@ -136,10 +141,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    unchanged) the first 3 losses and the step-1 gradients against the
    plain versions; then the dense leg ("bert_dense": bench_bert.py's 64 x
    128, no section; one warm-up and 5 timed steps: ms/step, tokens/s,
-   MFU) through the non-causal flash kernels.
+   MFU) through the non-causal flash kernels;
+9. "tensor_parallel": GPT-2 125M (bf16, weights from ``--seed``) at
+   ``tensor_parallel={"tp_size": 2}``: 2 spawned ranks on ``cuda:0``,
+   joined through a ``FileStore`` on an explicit gloo group (NCCL refuses
+   two ranks on one device; gloo carries CUDA tensors through the host),
+   each calling ``init_inference`` / ``init_serving`` with the same
+   arguments: ``generate`` on phase 5's 2 x 128 prompt (32 new), phase
+   4's requests, and leg A's stream on 4 requests. Both ranks' tokens
+   bit for bit equal; tokens equal to this process's tp=1 run of the same
+   workloads until its two best scores lie within 0.05, each step's
+   logits within 0.05 of tp=1's while the tokens before it agree; every
+   launch of kernels 1, 7, 8 and 9 at 6 heads (kernel 9 from both
+   sources); 24 all-reduces a forward and no all-gather (vocab 50257
+   does not split); each rank's split weights and pools half of tp=1's
+   bytes. The ms of a decode step per rank is
+   printed for information: host-staged gloo, nothing of NCCL's speed.
 
-Phases 3, 3b, 4, 5, 5b, 6, 7 and 8 are the main paths (6, 7 and 8 in two
-legs each, 3b one window a stage, summed):
+Phases 3, 3b, 4, 5, 5b, 6, 7, 8 and 9 are the main paths (6, 7 and 8 in
+two legs each, 3b one window a stage, summed; 9's launch counts are rank
+0's, zeroed in the rank before its workloads):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -148,7 +169,8 @@ the card's name and power limit (``nvidia-smi``), and before that one
 JSON object with the 13 rows of the kernel table (TPU kernels 1-13; no
 path calls kernel 13, the quantizer, so its launches are 0) and row 7's
 padded case (``decode_append_padded``: its launches with a first key):
-each one's launches on each path, error, times and bound.
+each one's launches on each path (``tensor_parallel`` among them), error,
+times and bound.
 Without a card (``torch.cuda.is_available()`` false) it exits 2.
 """
 
@@ -195,6 +217,13 @@ PAGED_CASES = (([0, 137, 602, 1000], 1), ([0, 137, 602, 1019], 5),
                ([408, 440, 500, 630, 800, 955, 411, 445], 1),
                ([0], 256), ([256], 136), ([200], 100), ([384], 8),
                ([384], 7))
+# the paged checks at tensor-parallel serving's shapes (phase 9): GPT-2
+# 125M's 12 heads over 2 ranks, 6 a rank; serving's decode step, leg A's
+# decode step, its first chunk and its partial last one
+TP_HEADS = 6
+TP_PAGED_CASES = (([0, 137, 602, 1000], 1),
+                  ([408, 440, 500, 630, 800, 955, 411, 445], 1),
+                  ([0], 256), ([256], 136))
 # Tolerances of kernel vs plain version on the same inputs:
 # fp32 — the same math in another summation order (and exp per key or
 #   per tile instead of per row): 1e-4 absolute and relative;
@@ -331,9 +360,14 @@ def pairs(tq, tk, causal):
 def rand_heads(b, h, t, d, layout, dtype, gen):
     """A random ``[B, H, T, D]`` operand: contiguous for ``bhtd``, a
     transposed view of a contiguous ``[B, T, H, D]`` tensor for ``bthd``
-    (what :func:`flash_attention_bthd` hands the kernels)."""
+    (what :func:`flash_attention_bthd` hands the kernels), and for
+    ``qkv`` the same view of the first third of a fused ``[B, T, 3 H D]``
+    projection output (a column-parallel ``c_attn``'s, under tp)."""
     import torch
 
+    if layout == "qkv":
+        fused = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda")
+        return fused.to(dtype)[..., :h * d].view(b, t, h, d).transpose(1, 2)
     if layout == "bthd":
         return (torch.randn((b, t, h, d), generator=gen, device="cuda")
                 .to(dtype).transpose(1, 2))
@@ -349,7 +383,10 @@ def shape_name(b, h, tq, tk, d, layout, causal=True):
 # in both layouts, a ragged [B, T, H, D] case, Tq != Tk both ways (rows
 # that see no key), head dims 16, 32 and 128 alone (64 query rows a CTA)
 # and with 128 rows a CTA (B * H * ceil(Tq / 128) >= 132; at Tq = 50 the
-# second warpgroup of each CTA has no row), and BERT's dense leg last
+# second warpgroup of each CTA has no row), tensor-parallel serving's
+# prefills at 6 heads a rank (phase 9: generate's 2 x 128 and a 1024-token
+# serving bucket, on views cut from the fused projection), and BERT's
+# dense leg last
 # (bench_bert.py: B=64 T=128, 16 heads, non-causal); (B, H, Tq, Tk, D,
 # layout, causal)
 FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
@@ -367,6 +404,8 @@ FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
               (8, 8, 300, 300, 32, "bthd", True),
               (4, 16, 512, 512, 128, "bhtd", True),
               (16, 12, 50, 80, 64, "bthd", True),
+              (2, 6, 128, 128, 64, "qkv", True),
+              (1, 6, 1024, 1024, 64, "qkv", True),
               (64, 16, 128, 128, 64, "bthd", False))
 # the flash shapes that are timed: GPT-2 training's and BERT's dense leg
 TIMED_FLASH = ((16, 12, 1024), (64, 16, 128))
@@ -408,7 +447,7 @@ def check_flash(dtype, gen):
         name = shape_name(B, H, Tq, Tk, D, layout, causal)
         ro, rlse = flash_attention_reference(q, k, v, causal=causal)
         o, lse = flash_attention(q, k, v, causal=causal)
-        if layout == "bthd":  # through the [B, T, H, D] entry
+        if layout != "bhtd":  # through the [B, T, H, D] entry
             qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
 
             def kernel():
@@ -889,13 +928,15 @@ def check_block_sparse(dtype, gen):
 # that end on a split boundary (512 keys: two splits of exactly
 # MIN_SPLIT_KEYS = 256), keys that end inside the first split (47
 # keys: one split, which writes O itself), and generate()'s own first and
-# last steps (a 128-token prompt, 32 new tokens: idx 128 and 159)
+# last steps (a 128-token prompt, 32 new tokens: idx 128 and 159), and
+# the same two steps at tensor-parallel generate's 6 heads a rank
 APPEND_CASES = ((2, 12, 64, 1024, 0, 1), (2, 12, 64, 1024, 255, 1),
                 (2, 12, 64, 1024, 1000, 1), (2, 12, 64, 1024, 255, 3),
                 (2, 12, 64, 1024, 1019, 5), (1, 12, 64, 1024, 1000, 1),
                 (2, 12, 128, 1024, 1000, 1), (2, 12, 64, 1024, 511, 1),
                 (2, 12, 64, 1024, 46, 1), (2, 12, 64, 1024, 128, 1),
-                (2, 12, 64, 1024, 159, 1))
+                (2, 12, 64, 1024, 159, 1), (2, TP_HEADS, 64, 1024, 128, 1),
+                (2, TP_HEADS, 64, 1024, 159, 1))
 
 
 # the append kernel with a per-row first key (left-padded generate()):
@@ -1000,7 +1041,8 @@ def _paged_tables(lengths, tq, bs, mb, nb, rng):
 
 
 def check_paged(dtype, gen, rng, int8=False):
-    """The paged kernel against its plain version at PAGED_CASES: over
+    """The paged kernel against its plain version at PAGED_CASES (12
+    heads) and TP_PAGED_CASES (TP_HEADS): over
     pools of q's dtype, or (``int8``) over int8 pools with fp32 scales
     quantized row-wise from random K/V, the garbage block filled with
     values that must never reach the output. Each row names the kernel
@@ -1018,10 +1060,11 @@ def check_paged(dtype, gen, rng, int8=False):
                       da.decode_attention_paged_int8_reference) if int8 else
                      (da.decode_attention_paged,
                       da.decode_attention_paged_reference))
-    bs, mb, H, D = 16, 64, 12, 64
+    bs, mb, D = 16, 64, 64
     dt, name = str(dtype)[6:], "paged int8" if int8 else "paged"
     rows = []
-    for lengths, tq in PAGED_CASES:
+    for H, (lengths, tq) in ([(12, c) for c in PAGED_CASES]
+                             + [(TP_HEADS, c) for c in TP_PAGED_CASES]):
         nb = 1 + max(4, len(lengths)) * mb
         k, v = (torch.randn((nb, bs, H, D), generator=gen, device="cuda")
                 for _ in range(2))
@@ -1046,8 +1089,8 @@ def check_paged(dtype, gen, rng, int8=False):
         splits = kernel.last_splits
         want = plain(*args)
         torch.cuda.synchronize()
-        shape = (f"slots={len(lengths)} bs={bs} MB={mb} lengths={lengths} "
-                 f"T_q={tq}")
+        shape = (f"slots={len(lengths)} H={H} bs={bs} MB={mb} "
+                 f"lengths={lengths} T_q={tq}")
         err = compare(f"{name} {shape} {dtype}", got, want, dt)
         if len(ran) != 1:
             raise AssertionError(f"{name} {shape} {dtype}: sources {ran} "
@@ -1136,14 +1179,12 @@ def plain_versions():
                               fa.flash_attention_backward_dq_reference), \
             mock.patch.object(fa, "_dkv_launch",
                               fa.flash_attention_backward_dkv_reference), \
-            mock.patch("deepspeed_tpu_torch.models.gpt2.decode_attention",
-                       da.decode_attention_reference), \
-            mock.patch("deepspeed_tpu_torch.models.gpt2."
-                       "decode_attention_paged",
-                       da.decode_attention_paged_reference), \
-            mock.patch("deepspeed_tpu_torch.models.gpt2."
-                       "decode_attention_paged_int8",
-                       da.decode_attention_paged_int8_reference):
+            mock.patch.object(da, "_append_launch",
+                              da.decode_attention_reference), \
+            mock.patch.object(da, "_paged_launch",
+                              da.decode_attention_paged_reference), \
+            mock.patch.object(da, "_paged_int8_launch",
+                              da.decode_attention_paged_int8_reference):
         yield
 
 
@@ -1197,28 +1238,25 @@ def submit_all(prompts, max_new):
     return run
 
 
-def serve(srv, run):
-    """Serve through the fresh ServingEngine ``srv`` (``run(srv)`` submits
-    and drains, returning the requests), recording the logits of every
-    prefill (the whole-prompt call, or the final chunk) and of each
-    request's first decode step. Returns (requests, seconds, stats,
-    prefill_logits {rid: row}, first_decode_logits {rid: rows}): a decode
+def record_steps(srv):
+    """Wrap the fresh ServingEngine ``srv``'s sampling to record, for each
+    request, the logits behind every token it samples: ``{rid: [rows]}``,
+    filled as ``srv`` serves; entry 0 the prefill's (the whole-prompt
+    call, or the final chunk) as one row ``[1, V]``, then each decode
     step's one row, or a verify step's k + 1 rows."""
-    import torch
-
-    prefill_logits, first_decode = {}, {}
+    steps = {}
     current = {"rid": None}
     sample, prefill, chunk = srv._sample, srv._prefill, srv._chunk_call
 
     def record(logits):
         rows = logits.float().cpu()
         if current["rid"] is not None:
-            prefill_logits[current["rid"]] = rows[0]
+            steps.setdefault(current["rid"], []).append(rows[:1])
         else:
             rows = rows.reshape(srv.config.decode_slots, -1, rows.shape[-1])
             for slot, req in srv.sched.running():
                 if slot not in srv._prefilling:
-                    first_decode.setdefault(req.request_id, rows[slot])
+                    steps.setdefault(req.request_id, []).append(rows[slot])
         return sample(logits)
 
     def tracked(fn):
@@ -1233,12 +1271,26 @@ def serve(srv, run):
 
     srv._sample = record
     srv._prefill, srv._chunk_call = tracked(prefill), tracked(chunk)
+    return steps
+
+
+def serve(srv, run):
+    """Serve through the fresh ServingEngine ``srv`` (``run(srv)`` submits
+    and drains, returning the requests), recording the logits of every
+    prefill and of each request's first decode step
+    (:func:`record_steps`). Returns (requests, seconds, stats,
+    prefill_logits {rid: row}, first_decode_logits {rid: rows}): a decode
+    step's one row, or a verify step's k + 1 rows."""
+    import torch
+
+    steps = record_steps(srv)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = run(srv)
     torch.cuda.synchronize()
-    return (reqs, time.perf_counter() - t0, srv.stats(), prefill_logits,
-            first_decode)
+    return (reqs, time.perf_counter() - t0, srv.stats(),
+            {rid: s[0][0] for rid, s in steps.items()},
+            {rid: s[1] for rid, s in steps.items() if len(s) > 1})
 
 
 def against_plain(what, reqs, pf, fd, ref_reqs, ref_pf, ref_fd):
@@ -1595,14 +1647,14 @@ def leg_prefix_chunk_int8(model, seed, card):
     int8 = engine()
     serve(init_serving(int8), stream)  # warm-up: uncounted, untimed
     rows_seen = []
-    int8_kernel = gpt2_mod.decode_attention_paged_int8
+    int8_kernel = gpt2_mod.decode_attention_paged_int8_tp
 
     def spy(q, *args, **kwargs):
         rows_seen.append(q.shape[1])
         return int8_kernel(q, *args, **kwargs)
 
     srv = init_serving(int8)
-    with mock.patch.object(gpt2_mod, "decode_attention_paged_int8", spy):
+    with mock.patch.object(gpt2_mod, "decode_attention_paged_int8_tp", spy):
         reset_launch_counts()
         reqs, secs, stats, pf, fd = serve(srv, stream)
         counts = launch_counts()
@@ -2365,6 +2417,351 @@ def phase_bert(seed, card):
     return sparse_counts, dense_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: tensor-parallel inference and serving
+# ---------------------------------------------------------------------------
+TP_SIZE = 2
+TP_NEW = 32
+TP_FAST_REQUESTS = 4
+# the ranks' hard limit: a hung collective fails the phase instead of the
+# whole run
+TP_TIMEOUT = 600
+
+
+def tp_workloads(seed, vocab):
+    """Phase 9's two serving streams, each ``(label, serving section,
+    run)`` (``run(srv)`` submits and drains, returning the requests):
+    phase 4's requests, and leg A's stream on its first
+    TP_FAST_REQUESTS prompts."""
+    from deepspeed_tpu_torch.tools.profile_serving import (
+        FAST_SERVING, MAX_NEW_TOKENS, SERVING, fast_path_prompts,
+        serve_fast_path, serving_prompts)
+
+    prompts = serving_prompts(vocab, seed)
+    fast = fast_path_prompts(vocab, seed)[:TP_FAST_REQUESTS]
+    return (("serving", SERVING, submit_all(prompts, MAX_NEW_TOKENS)),
+            ("fast_path", FAST_SERVING,
+             lambda srv: serve_fast_path(srv, fast, MAX_NEW_TOKENS)))
+
+
+def run_tp_workloads(model, seed, engine_kw):
+    """generate() on phase 5's 2 x 128 prompt (TP_NEW new tokens), then
+    the serving and fast-path streams of :func:`tp_workloads`, each on a
+    fresh engine built with ``engine_kw``. Returns {workload: result}:
+    per row or request its tokens, prompt length, every step's logits,
+    and the pools' bytes; for generate also the host ms of a decode step and the
+    bytes of the weights tp splits (this engine's, and the whole
+    tensors' in its dtype)."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference, init_serving
+
+    out = {}
+    engine = init_inference(model, **engine_kw)
+    ids = generate_ids(engine, seed)
+    run_generate(engine, ids, 2)  # warm-up: uncounted in the timing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_generate(engine, ids, 1)
+    t1 = time.perf_counter()
+    tokens, calls = run_generate(engine, ids, TP_NEW)
+    t2 = time.perf_counter()
+    T = ids.shape[1]
+    split = {n for n, spec in engine.param_shardings.items()
+             if spec is not None}
+    esize = next(engine.module.parameters()).element_size()
+    out["generate"] = {
+        "tokens": [row[T:].tolist() for row in tokens],
+        "prompt_lens": [T] * len(tokens),
+        "steps": [[c[b:b + 1] for c in calls] for b in range(len(tokens))],
+        "decode_step_ms": 1e3 * ((t2 - t1) - (t1 - t0)) / (TP_NEW - 1),
+        "split_params": len(split),
+        "split_bytes": (
+            sum(p.numel() * p.element_size()
+                for n, p in engine.module.named_parameters() if n in split),
+            sum(p.numel() * esize for n, p in model.named_parameters()
+                if n in split))}
+    for label, section, run in tp_workloads(seed, model.config.vocab_size):
+        srv = init_serving(init_inference(model, serving=section,
+                                          **engine_kw))
+        steps = record_steps(srv)
+        reqs = run(srv)
+        for r in reqs:
+            if r.state != "finished":
+                raise AssertionError(f"tensor parallel {label} "
+                                     f"{r.request_id}: {r.state} "
+                                     f"({r.finish_reason})")
+        out[label] = {
+            "tokens": [list(r.tokens) for r in reqs],
+            "prompt_lens": [r.prompt_len for r in reqs],
+            "steps": [steps[r.request_id] for r in reqs],
+            "pool_bytes": pool_bytes(srv), "stats": srv.stats()}
+    return out
+
+
+def tp_rank_main(rank, world, store, seed, out_dir):
+    """One tp rank of phase 9 (a spawned process): join the gloo group on
+    ``cuda:0``, build GPT-2 125M from ``seed`` on the host, and run
+    :func:`run_tp_workloads` at ``tensor_parallel.tp_size = world``;
+    writes its launch and collective counts, the heads of every launch of
+    kernels 1, 7, 8 and 9, its weight bytes and its results."""
+    import pickle
+    import traceback
+
+    try:
+        # both ranks on the one card
+        os.environ["LOCAL_RANK"] = "0"
+        import torch
+        import torch.distributed as tdist
+
+        from deepspeed_tpu_torch import comm
+        from deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+        from deepspeed_tpu_torch.ops import decode_attention as da
+        from deepspeed_tpu_torch.ops import flash_attention as fa
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        comm.init_distributed(dist_backend="gloo",
+                              init_method=f"file://{store}", rank=rank,
+                              world_size=world, timeout=TP_TIMEOUT,
+                              verbose=False)
+        backend = tdist.get_backend()
+        if backend != "gloo":
+            raise AssertionError(f"tp ranks on backend {backend}, not gloo")
+        model = gpt2_mod.GPT2LMHeadModel(gpt2_mod.GPT2Config.gpt2_125m(),
+                                         seed=seed)
+        heads = collections.defaultdict(collections.Counter)
+        forwards = [0]
+
+        def spy(name, fn, dim):
+            def call(q, *args, **kwargs):
+                heads[name][q.shape[dim]] += 1
+                return fn(q, *args, **kwargs)
+            return call
+
+        forward = gpt2_mod.GPT2LMHeadModel.forward
+
+        def counted(self, *args, **kwargs):
+            forwards[0] += 1
+            return forward(self, *args, **kwargs)
+
+        with mock.patch.object(fa, "_fwd_launch",
+                               spy("flash_fwd", fa._fwd_launch, 1)), \
+                mock.patch.object(da, "_append_launch",
+                                  spy("decode_append", da._append_launch,
+                                      2)), \
+                mock.patch.object(da, "_paged_launch",
+                                  spy("decode_paged", da._paged_launch,
+                                      2)), \
+                mock.patch.object(da, "_paged_int8_launch",
+                                  spy("decode_paged_int8",
+                                      da._paged_int8_launch, 2)), \
+                mock.patch.object(gpt2_mod.GPT2LMHeadModel, "forward",
+                                  counted):
+            reset_launch_counts()
+            for wrapper in (da.decode_attention_paged,
+                            da.decode_attention_paged_int8):
+                wrapper.source_launches = {}
+            comm.reset_counts()
+            results = run_tp_workloads(
+                model, seed, {"tensor_parallel": {"tp_size": world}})
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            collectives = dict(comm.counts)
+        # the two collectives tp runs, on CUDA tensors over gloo (the
+        # vocab-parallel head's all-gather has no caller at vocab 50257)
+        x = torch.arange(6, device="cuda", dtype=torch.bfloat16).view(2, 3)
+        gathered = comm.all_gather(x + rank, group="tp", axis=-1, tiled=True)
+        summed = comm.all_reduce(x + rank, group="tp")
+        want = torch.cat([x + r for r in range(world)], dim=-1)
+        if not (torch.equal(gathered, want) and torch.equal(
+                summed, sum(x + r for r in range(world)))):
+            raise AssertionError(f"tp rank {rank}: gloo all_gather / "
+                                 f"all_reduce of CUDA tensors gave "
+                                 f"{gathered.tolist()} / {summed.tolist()}")
+        res = {"backend": backend, "results": results, "counts": counts,
+               "sources": {"decode_paged_int8": dict(
+                   da.decode_attention_paged_int8.source_launches)},
+               "collectives": collectives, "forwards": forwards[0],
+               "heads": {k: dict(v) for k, v in heads.items()}}
+        comm.destroy_process_group()
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_tp_ranks(seed, world):
+    """Run :func:`tp_rank_main` on ``world`` spawned processes joined
+    through a ``FileStore``; returns their results by rank. Every child
+    is joined within TP_TIMEOUT or killed."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp")
+    store = os.path.join(out_dir, "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank_main,
+                         args=(rank, world, store, seed, out_dir))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    errors = []
+    for rank, p in enumerate(procs):
+        err = os.path.join(out_dir, f"{rank}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {rank}:\n{f.read()}")
+        elif p.exitcode != 0:
+            errors.append(f"rank {rank}: exit code {p.exitcode}")
+    if errors:
+        raise AssertionError("tensor parallel ranks failed:\n"
+                             + "\n".join(errors))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def hold_to_tp1(label, got, want):
+    """Hold one tp workload's rows to the tp=1 run's: each step's logits
+    (the prefill's first; step t's give token t) within LOGITS_ATOL for
+    as long as the two rows' tokens before it agree, and tokens equal
+    until the tp=1 run's two best scores lie within LOGITS_ATOL. Returns
+    (tokens agreeing, steps held before a near tie, logit steps held,
+    max logit error)."""
+    agree = held = logit_steps = 0
+    err = 0.0
+    for i, (toks, ref) in enumerate(zip(got["tokens"], want["tokens"])):
+        what = f"tensor parallel {label} row {i}"
+        steps, ref_steps = got["steps"][i], want["steps"][i]
+        for t, (z, ref_z) in enumerate(zip(steps, ref_steps)):
+            if toks[:t] != ref[:t]:
+                break
+            err = max(err, check_logits(f"{what} step {t}", z, ref_z))
+            logit_steps += 1
+        a, h = agree_until_tie(what, toks, ref, ref_steps,
+                               want["prompt_lens"][i])
+        agree, held = agree + a, held + h
+    return agree, held, logit_steps, err
+
+
+def phase_tensor_parallel(seed, card):
+    """Tensor-parallel inference and serving of GPT-2 125M at tp=2 on the
+    one card: the tp=1 references here (generate, serving, leg A on 4
+    requests, every step's logits kept), then TP_SIZE spawned ranks on
+    ``cuda:0`` over a gloo group run the same workloads through
+    ``init_inference(tensor_parallel=...)`` / ``init_serving``. NCCL
+    refuses two ranks on one device, and gloo carries CUDA tensors
+    through the host: this proves the per-rank shapes, the sliced
+    weights and the row-parallel sums, not NCCL's speed. Holds every
+    rank's tokens bit for bit to rank 0's and to the tp=1 tokens up to a
+    near tie, each step's logits to tp=1's while the tokens before it
+    agree, kernels 1, 7, 8 and 9 at 6 heads each launch, 2 * n_layer
+    all-reduces a forward and no all-gather (vocab 50257 does not split),
+    and half of tp=1's split weight and pool bytes on each rank. Returns rank 0's launch counts."""
+    import torch
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    model = GPT2LMHeadModel(GPT2Config.gpt2_125m(), seed=seed)
+    n_layer = model.config.n_layer
+    want = run_tp_workloads(model, seed, {})
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_tp_ranks(seed, TP_SIZE)
+    secs = time.perf_counter() - t0
+    first = ranks[0]
+    for rank, res in enumerate(ranks):
+        got = res["results"]
+        for label in want:
+            if got[label]["tokens"] != first["results"][label]["tokens"]:
+                raise AssertionError(f"tensor parallel {label}: rank {rank}"
+                                     f"'s tokens differ from rank 0's")
+        for name in ("flash_fwd", "decode_append", "decode_paged",
+                     "decode_paged_int8"):
+            if set(res["heads"].get(name, {})) != {TP_HEADS}:
+                raise AssertionError(f"tensor parallel rank {rank}: {name}"
+                                     f" launched at heads "
+                                     f"{res['heads'].get(name)}, not only "
+                                     f"{TP_HEADS}")
+        sources = set(res["sources"]["decode_paged_int8"])
+        if sources != {"decode_paged_int8", "decode_paged_int8_sm90"}:
+            raise AssertionError(f"tensor parallel rank {rank}: kernel 9 "
+                                 f"ran from {sources}, not both sources")
+        coll, fwd = res["collectives"], res["forwards"]
+        if coll.get("all_reduce") != 2 * n_layer * fwd or \
+                coll.get("all_gather", 0):
+            raise AssertionError(f"tensor parallel rank {rank}: {coll} over "
+                                 f"{fwd} forwards, not {2 * n_layer} "
+                                 f"all-reduces and no all-gather each")
+        local, whole = got["generate"]["split_bytes"]
+        if not local or 2 * local != whole:
+            raise AssertionError(f"tensor parallel rank {rank}: {local} "
+                                 f"bytes of split weights, not half of "
+                                 f"tp=1's {whole}")
+        if got["serving"]["stats"]["tp"] != TP_SIZE:
+            raise AssertionError(f"tensor parallel rank {rank}: stats() "
+                                 f"tp {got['serving']['stats']['tp']}")
+        for label in ("serving", "fast_path"):
+            if 2 * got[label]["pool_bytes"] != want[label]["pool_bytes"]:
+                raise AssertionError(
+                    f"tensor parallel rank {rank} {label}: pool bytes "
+                    f"{got[label]['pool_bytes']}, not half of tp=1's "
+                    f"{want[label]['pool_bytes']}")
+    summary = []
+    for label in want:
+        agree, held, steps, err = hold_to_tp1(
+            label, first["results"][label], want[label])
+        total = sum(len(t) for t in want[label]["tokens"])
+        summary.append(f"{label} tokens equal to tp=1 {agree}/{total} "
+                       f"(held {held} before a near tie), logits held to "
+                       f"tp=1's at {steps} steps (every step while the "
+                       f"tokens before it agree), max |logit diff| "
+                       f"{err:.4g}")
+    gen = [r["results"]["generate"]["decode_step_ms"] for r in ranks]
+    log(f"tensor parallel: {TP_SIZE} ranks on cuda:0 over gloo (NCCL "
+        f"refuses two ranks on one device; gloo stages CUDA tensors through"
+        f" the host), GPT-2 125M bf16 at {TP_HEADS} heads a rank, in "
+        f"{secs:.1f} s: every rank's tokens bit for bit rank 0's; "
+        + "; ".join(summary)
+        + f"; kernels 1/7/8/9 at {TP_HEADS} heads on every launch "
+        f"({ {k: v for k, v in first['heads'].items()} }), kernel 9 sources "
+        f"{first['sources']['decode_paged_int8']}; all-reduces "
+        f"{first['collectives'].get('all_reduce')} over "
+        f"{first['forwards']} forwards ({2 * n_layer} each), all-gathers "
+        f"{first['collectives'].get('all_gather', 0)}; split weights "
+        f"{first['results']['generate']['split_params']} tensors, "
+        f"{first['results']['generate']['split_bytes'][0]} of "
+        f"{first['results']['generate']['split_bytes'][1]} bytes a rank; "
+        f"pool bytes a rank "
+        f"serving {first['results']['serving']['pool_bytes']} / fast path "
+        f"{first['results']['fast_path']['pool_bytes']} (tp=1: "
+        f"{want['serving']['pool_bytes']} / "
+        f"{want['fast_path']['pool_bytes']}); stats tp "
+        f"{first['results']['serving']['stats']['tp']}; launches "
+        f"{first['counts']} [{card}]")
+    log(f"tensor parallel, for information only: a generate decode step "
+        f"{[round(x, 3) for x in gen]} ms per rank at tp={TP_SIZE} over "
+        f"gloo host-staged all-reduces (says nothing of NCCL tensor-"
+        f"parallel speed), {want['generate']['decode_step_ms']:.3f} ms at "
+        f"tp=1 [{card}]")
+    return first["counts"]
+
+
 # the thirteen TPU kernels, rows 1-13 of PERF.md's table, each with: its
 # port source, the TPU kernel it replaces, the path whose count is
 # "launches" (None: no path calls it, and "launches" sums every path's),
@@ -2600,6 +2997,10 @@ def main():
     by_path["bert_sparse"], by_path["bert_dense"] = phase_bert(args.seed,
                                                                card)
     log(f"phase 8: BERT-large sparse and dense training in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["tensor_parallel"] = phase_tensor_parallel(args.seed, card)
+    log(f"phase 9: tensor-parallel inference and serving at tp={TP_SIZE} in "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernel_line(kernel_rows, by_path)}))

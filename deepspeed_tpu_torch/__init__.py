@@ -14,7 +14,9 @@ whose ``sparse_attention`` config section routes attention through the
 block-sparse layout zoo and its kernels (``ops/sparse_attention``).
 Training runs data-parallel over ``torch.distributed`` (``comm``), one
 process per device, with ZeRO stages 0-3 (``runtime/zero``, ``zero``) on
-a ``data x fsdp`` mesh (``parallel/topology.py``).
+a ``data x fsdp`` mesh (``parallel/topology.py``); inference and serving
+run tensor-parallel on a ``tp`` mesh, one process a rank
+(``module_inject``).
 
 ``DeepSpeedEngine``, ``InferenceEngine``, ``SparseSelfAttention``,
 ``SparseAttentionUtils`` and the ``zero`` and ``comm`` modules resolve
@@ -86,7 +88,11 @@ def default_inference_config():
 
 def init_inference(model, config=None, **kwargs):
     """Build an :class:`~deepspeed_tpu_torch.inference.engine.
-    InferenceEngine` (``device=None`` is the card)."""
+    InferenceEngine` (``device=None`` is the card). With
+    ``tensor_parallel={"tp_size": N}`` every one of N ranks of a process
+    group (``init_distributed``) calls it with the same arguments and the
+    whole model, and serves its slice; ``mesh=`` (a ``MeshTopology`` or an
+    axis dict) names the tp mesh instead."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
     return InferenceEngine(model, config=config, **kwargs)
@@ -99,9 +105,11 @@ def init_serving(model, config=None, draft_model=None, **kwargs):
     a ``serving`` block) or an existing InferenceEngine whose config has
     one. ``draft_model`` is the draft of ``serving.speculative``'s
     ``"draft_model"`` proposer: a callable ``(context, k) -> tokens`` or
-    an engine with ``.generate`` (e.g. a small InferenceEngine). The
-    multi-replica router, fleet and gateway blocks come with the
-    multi-GPU serving slice and raise at config time."""
+    an engine with ``.generate`` (e.g. a small InferenceEngine). Under
+    ``tensor_parallel`` (or ``mesh=``) every rank builds and drives the
+    engine with the same calls. The multi-replica router, fleet and
+    gateway blocks come with the serving fleet slice and raise at config
+    time."""
     from deepspeed_tpu_torch.serving.engine import ServingEngine
 
     return ServingEngine(model, config=config, draft_model=draft_model,

@@ -3,13 +3,13 @@
 
 ``dtype`` resolves to a torch dtype. The JAX config's keys that need no
 unported slice are accepted under the same names, aliases and defaults:
-``max_out_tokens`` takes effect, the rest are inert on one card (the
-engine logs a note for each one set to another value than its default,
-:data:`INERT`), and ``tensor_parallel``/``tp``/``mp_size`` take a size
-of 1. Sections the port does not implement yet raise
-:class:`NotImplementedError` naming the slice of the port that brings
-them, instead of being accepted and ignored; so does a tensor-parallel
-size above 1.
+``max_out_tokens``, ``tensor_parallel`` (``tp``, ``mp_size``) and
+``injection_policy`` (``injection_dict``, ``injection_policy_tuple``)
+take effect, the rest are inert (the engine logs a note for each one set
+to another value than its default, :data:`INERT`). Sections the port
+does not implement yet raise :class:`NotImplementedError` naming the
+slice of the port that brings them, instead of being accepted and
+ignored.
 """
 
 from typing import Any, Dict, Optional
@@ -36,7 +36,6 @@ UNPORTED = {
     "quant": "the weight-only int8 slice",
     "zero": "the ZeRO-Inference slice",
     "moe": "the MoE slice",
-    "injection_policy": "the multi-GPU slice's tensor-parallel part ([7b])",
 }
 
 # the JAX config's keys that are accepted and have no effect here, with
@@ -51,12 +50,13 @@ INERT = {
     "return_tuple": "forward returns the logits tensor",
     "replace_method": "no module is replaced",
     "transposed_mode": "weight layouts are canonical",
-    "training_mp_size": "the weights come with the model, at one card",
+    "training_mp_size": "the weights come with the model, whole; the "
+                        "engine slices them for tensor_parallel.tp_size",
     "set_empty_params": "the weights come with the model",
     "config": "the model carries its own config",
-    "injection_policy_tuple": "no module is replaced",
     "min_out_tokens": "no kernel workspace needs a floor here",
-    "mpu": "one card has no model-parallel unit",
+    "mpu": "the tp group is the process group's "
+           "(deepspeed_tpu_torch.comm.init_distributed)",
     "ep_size": "MoE comes with the MoE slice",
     "ep_group": "MoE comes with the MoE slice",
     "ep_mp_group": "MoE comes with the MoE slice",
@@ -80,8 +80,10 @@ def resolve_dtype(dtype) -> torch.dtype:
 
 
 class DeepSpeedTPConfig(DeepSpeedConfigModel):
-    """The JAX config's ``tensor_parallel`` section; the port runs on one
-    card, so a ``tp_size`` above 1 raises in the master config."""
+    """The JAX config's ``tensor_parallel`` section: ``tp_size`` ranks,
+    one process each, on a process group of exactly that many ranks
+    (``mpu`` and ``tp_group`` are accepted as in JAX; the group is the
+    running process group's)."""
 
     enabled: bool = True
     tp_size: int = 1
@@ -114,6 +116,9 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     training_mp_size: int = 1
     set_empty_params: bool = False
     config: Optional[Dict] = Field(None, alias="args")
+    # a policy name, a TPPolicy, the reference's {module: (row outputs,)}
+    # dict or a bare tuple of row outputs (module_inject.get_tp_policy)
+    injection_policy: Optional[Any] = Field(None, alias="injection_dict")
     injection_policy_tuple: Optional[tuple] = None
     min_out_tokens: int = Field(1, alias="min_tokens")
     # legacy fields: mp_size and mpu move into tensor_parallel as in the
@@ -147,12 +152,9 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
             # the JAX config's path: mp_size -> tensor_parallel.tp_size
             data["tensor_parallel"] = {"tp_size": data.pop("mp_size")}
         super().__init__(strict=strict, **data)
-        if self.tensor_parallel.tp_size != 1:
-            raise NotImplementedError(
-                f"inference config tensor_parallel.tp_size "
-                f"{self.tensor_parallel.tp_size} is not ported yet: it "
-                f"comes with the multi-GPU slice's tensor-parallel part "
-                f"([7b]) of the PyTorch port")
+        if self.tensor_parallel.tp_size < 1:
+            raise ValueError(f"tensor_parallel.tp_size must be >= 1, got "
+                             f"{self.tensor_parallel.tp_size}")
 
     def inert_notes(self):
         """``(key, why)`` for each inert key set to another value than

@@ -17,8 +17,15 @@ at its first real one (the append kernel's per-row first key). With a
 ``serving`` section, ``bucket_legacy_generate`` left-pads every prompt up
 to the serving bucket set the same way, and strips the pads on return.
 
-Not in this slice: weight-only int8, tensor parallelism, telemetry and
-resilience.
+Tensor parallelism (``tensor_parallel={"tp_size": N}``): one process a
+tp rank, each calling the engine with the same arguments on a process
+group of exactly ``N`` ranks (``comm.init_distributed``). Each rank holds
+the whole model on the host, keeps its slices by the injection policy
+(``module_inject``, :meth:`GPT2LMHeadModel.tp_specs`) and moves only
+those to its device; every rank returns the same tokens, since the
+row-parallel all-reduce gives each rank the same bits.
+
+Not in this slice: weight-only int8, telemetry and resilience.
 """
 
 from typing import Optional
@@ -28,6 +35,12 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+from deepspeed_tpu_torch.module_inject.policies import (
+    get_tp_policy, shard_params_with_policy)
+from deepspeed_tpu_torch.parallel.topology import (FLEET_SLICE,
+                                                   MeshTopology,
+                                                   resolve_tp_topology)
 from deepspeed_tpu_torch.models.decode_utils import validate_left_padded_mask
 from deepspeed_tpu_torch.ops.sampling import keyed_sample
 from deepspeed_tpu_torch.serving.config import (ServingConfig, bucket_for,
@@ -84,11 +97,18 @@ def sample_logits(logits, generator, temperature, do_sample: bool,
 
 class InferenceEngine:
     """``InferenceEngine(model, config=None, device=None, seed=0,
-    **config_kwargs)``: ``device=None`` is the card; ``seed`` seeds the
-    sampling generator (the weights come with the model)."""
+    mesh=None, **config_kwargs)``: ``device=None`` is the card; ``seed``
+    seeds the sampling generator (the weights come with the model, whole);
+    ``mesh`` a :class:`~deepspeed_tpu_torch.parallel.topology.
+    MeshTopology` (or an axis dict) whose ``tp`` axis shards the model,
+    by default ``resolve_tp_topology(tensor_parallel.tp_size)``.
+
+    ``topo``, ``mp_world_size``, ``policy`` and ``param_shardings`` (each
+    whole-model parameter name -> its spec over ``tp``, None where
+    replicated) are the JAX engine's attributes."""
 
     def __init__(self, model, config=None, device=None, seed: int = 0,
-                 **kwargs):
+                 mesh=None, **kwargs):
         if config is None:
             config = DeepSpeedInferenceConfig(**kwargs)
         elif isinstance(config, dict):
@@ -99,7 +119,23 @@ class InferenceEngine:
         self._config = config
         warn_inert_options(config)
         self.device = resolve_device(device)
+        # TP group (reference _create_model_parallel_group)
+        if mesh is None:
+            self.topo = resolve_tp_topology(config.tensor_parallel.tp_size)
+        else:
+            self.topo = mesh if isinstance(mesh, MeshTopology) \
+                else MeshTopology(axis_sizes=mesh)
+        self.mp_world_size = self.topo.get_model_parallel_world_size()
+        if self.mp_world_size > 1 and \
+                self.topo.world_size != self.mp_world_size:
+            raise NotImplementedError(
+                f"inference on mesh {self.topo.shape}: every axis but tp "
+                f"is 1 (data replicas of a server come with {FLEET_SLICE} "
+                f"of the PyTorch port)")
+        self.policy = get_tp_policy(config.injection_policy
+                                    or config.injection_policy_tuple)
         self.model_config = model.config
+        model = self._shard(model)
         # reference _convert_to_dtype: weights cast once, moved to the
         # device, frozen (inference only: the kernels have no backward)
         self.module = model.to(device=self.device, dtype=config.dtype)
@@ -111,13 +147,35 @@ class InferenceEngine:
         # the decode-mode modules sharing the weights, unpadded and padded
         self._decode_models = {}
         log_dist(f"InferenceEngine: device={self.device} "
-                 f"dtype={config.dtype}", ranks=[0])
+                 f"dtype={config.dtype} tp={self.mp_world_size}", ranks=[0])
+
+    def _shard(self, model):
+        """This rank's tensor-parallel slice of the whole ``model`` (still
+        on the host), built on ``meta`` and given this rank's slices of
+        the weights; the model itself at tp 1. Sets ``param_shardings``."""
+        tp_size = self.mp_world_size
+        if tp_size <= 1:
+            self.param_shardings = {n: None for n, _ in
+                                    model.named_parameters()}
+            return model
+        rank = self.topo.get_tensor_parallel_rank()
+        specs = model.tp_specs(self.policy, tp_size)
+        local, _ = shard_params_with_policy(model.state_dict(), self.policy,
+                                            rank, tp_size, specs=specs)
+        tp = TensorParallel(group=self.topo.get_tensor_parallel_group(),
+                            size=tp_size, rank=rank, specs=specs)
+        sliced = type(model)(model.config, device="meta", tp=tp)
+        sliced.load_state_dict(local, assign=True)
+        self.param_shardings = specs
+        return sliced
 
     # ------------------------------------------------------------------
     def mode_module(self, config):
         """A module of the same family in another mode (``for_decode``,
-        ``for_paged_decode``) sharing this engine's weight tensors."""
-        module = type(self.module)(config, device="meta")
+        ``for_paged_decode``) sharing this engine's weight tensors (and
+        its tensor-parallel slice)."""
+        module = type(self.module)(config, device="meta",
+                                   tp=getattr(self.module, "tp", None))
         module.load_state_dict(self.module.state_dict(), assign=True)
         return module
 

@@ -23,6 +23,18 @@ KV caches and pools are tensors updated IN PLACE (``index_copy_``) where
 the JAX model returns new arrays and the serving engine donates the old
 ones: one allocation lives for the whole generation or serving run.
 
+Tensor parallelism (``GPT2LMHeadModel(config, tp=TensorParallel(...))``,
+built by the inference engine from this rank's slices,
+:meth:`GPT2LMHeadModel.tp_specs`): ``c_attn`` is column-parallel, split
+per Q, K and V, so the rank keeps ``n_head / tp`` heads, and the
+attention ``c_proj`` row-parallel; the MLP's ``c_fc`` column- and
+``c_proj`` row-parallel; ``wte`` vocab-parallel where the policy splits
+the vocab (a masked lookup and an all-reduce; the tied head's local
+logits all-gathered). That is ``2 * n_layer`` all-reduces a forward, plus
+the vocabulary's pair. Attention stays whole on every rank where the
+heads do not divide by tp, as the JAX wrappers fall back to the plain
+call; the caches and pools hold the rank's heads.
+
 ALiBi, rotary, parallel residuals, local windows, dropout and
 progressive layer drop belong to other model families or later slices.
 """
@@ -41,9 +53,17 @@ from deepspeed_tpu_torch.models.decode_utils import (decode_positions,
                                                      row_positions)
 from deepspeed_tpu_torch.models.remat_utils import (REMAT_POLICIES,
                                                     checkpointed)
-from deepspeed_tpu_torch.ops.attention import attention, attention_reference
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.module_inject.layers import (ColumnParallelLinear,
+                                                      RowParallelLinear,
+                                                      tp_all_reduce)
+from deepspeed_tpu_torch.module_inject.policies import (decode_cache_specs,
+                                                        get_tp_policy)
+from deepspeed_tpu_torch.ops.attention import attention_reference
 from deepspeed_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_paged, decode_attention_paged_int8)
+    decode_attention_paged_int8_tp, decode_attention_paged_tp,
+    decode_attention_tp)
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention_bthd_tp
 from deepspeed_tpu_torch.ops.quantizer import quantize_rowwise
 
 
@@ -144,14 +164,17 @@ class GPT2Config:
 
 class KVCache:
     """Append KV cache of one decode batch: per-layer ``[B, n_positions,
-    H, D]`` key/value buffers, the 0-d int32 device index of the next free
-    row (read by the decode kernel on the card, never synced to the host)
-    and its host mirror ``length``; ``pad``, the ``[B]`` int32 device
-    tensor of each row's left-padded prefix, set by a padded prefill
-    (``None`` when unpadded)."""
+    H, D]`` key/value buffers (``H = heads``, this rank's heads; all of
+    them by default), the 0-d int32 device index of the next free row
+    (read by the decode kernel on the card, never synced to the host) and
+    its host mirror ``length``; ``pad``, the ``[B]`` int32 device tensor
+    of each row's left-padded prefix, set by a padded prefill (``None``
+    when unpadded)."""
 
-    def __init__(self, config: GPT2Config, batch: int, device):
-        shape = (batch, config.n_positions, config.n_head, config.head_dim)
+    def __init__(self, config: GPT2Config, batch: int, device,
+                 heads: Optional[int] = None):
+        shape = (batch, config.n_positions, heads or config.n_head,
+                 config.head_dim)
         self.keys = [torch.zeros(shape, dtype=config.dtype, device=device)
                      for _ in range(config.n_layer)]
         self.values = [torch.zeros_like(k) for k in self.keys]
@@ -165,9 +188,11 @@ class PagedKVCache:
     block_size, H, D]`` key/value pools shared by every sequence, in the
     compute dtype or (``paged_kv_dtype="int8"``) as int8 codes with
     per-layer ``[num_blocks, block_size, H, 1]`` fp32 ``key_scales`` /
-    ``value_scales`` side pools (empty lists otherwise)."""
+    ``value_scales`` side pools (empty lists otherwise). ``heads``: this
+    rank's heads (all of them by default)."""
 
-    def __init__(self, config: GPT2Config, device):
+    def __init__(self, config: GPT2Config, device,
+                 heads: Optional[int] = None):
         if config.paged_num_blocks <= 1 or config.paged_block_size <= 0:
             raise ValueError(
                 f"paged decode needs paged_num_blocks > 1 (got "
@@ -175,7 +200,7 @@ class PagedKVCache:
                 f"sink) and paged_block_size > 0 (got "
                 f"{config.paged_block_size})")
         shape = (config.paged_num_blocks, config.paged_block_size,
-                 config.n_head, config.head_dim)
+                 heads or config.n_head, config.head_dim)
         quant = config.paged_kv_dtype == "int8"
         dtype = torch.int8 if quant else config.dtype
         self.keys = [torch.zeros(shape, dtype=dtype, device=device)
@@ -192,8 +217,41 @@ class PagedKVCache:
         return self.keys + self.values + self.key_scales + self.value_scales
 
 
-def _dense(layer: nn.Linear, x, dtype):
-    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+def _dense(layer, x, dtype):
+    """A dense layer in ``dtype``: an ``nn.Linear`` (weights cast at use)
+    or a column- / row-parallel layer holding this rank's slice."""
+    if isinstance(layer, nn.Linear):
+        return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    return layer(x, dtype)
+
+
+def _pair_tp(tp, column: str):
+    """``tp`` where its specs split the column-parallel weight
+    ``column`` (:meth:`GPT2LMHeadModel.tp_specs` splits a column / row
+    pair only as a pair), else None: the pair stays whole."""
+    return tp if tp is not None and tp.split(column) is not None else None
+
+
+def _cache_heads(config: GPT2Config, tp) -> int:
+    """This rank's heads of every KV cache and pool under its attention's
+    ``tp`` (None: attention whole): the head dim as
+    :func:`~deepspeed_tpu_torch.module_inject.policies.decode_cache_specs`
+    splits it."""
+    size = tp.size if tp is not None else 1
+    shape = (1, 1, config.n_head, config.head_dim)
+    split = decode_cache_specs({"keys": shape}, size)["keys"] is not None
+    return config.n_head // size if split else config.n_head
+
+
+def _pair(column, row, tp, device):
+    """The layers of one projection pair, ``column`` and ``row`` each an
+    ``(in, out)`` feature count: whole ``nn.Linear``s, or this rank's
+    column- and row-parallel slices."""
+    if tp is None:
+        return (nn.Linear(*column, device=device),
+                nn.Linear(*row, device=device))
+    return (ColumnParallelLinear(*column, tp.size, device=device),
+            RowParallelLinear(*row, tp, device=device))
 
 
 def _layer_norm(ln: nn.LayerNorm, x, dtype):
@@ -203,12 +261,17 @@ def _layer_norm(ln: nn.LayerNorm, x, dtype):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, config: GPT2Config, device=None):
+    """Causal self-attention over ``n_head`` heads, or under a tensor-
+    parallel ``tp`` that splits its pair over this rank's ``n_head /
+    tp``."""
+
+    def __init__(self, config: GPT2Config, device=None, tp=None):
         super().__init__()
         self.config = config
-        self.c_attn = nn.Linear(config.n_embd, 3 * config.n_embd,
-                                device=device)
-        self.c_proj = nn.Linear(config.n_embd, config.n_embd, device=device)
+        C = config.n_embd
+        self.tp = tp
+        self.n_head = config.n_head // (tp.size if tp else 1)
+        self.c_attn, self.c_proj = _pair((C, 3 * C), (C, C), tp, device)
 
     def forward(self, x, keys=None, values=None, step=None, scales=None):
         """``keys``/``values``: this layer's cache buffers (decode mode);
@@ -217,9 +280,9 @@ class CausalSelfAttention(nn.Module):
         computed once for all layers (see
         :meth:`GPT2LMHeadModel.forward`)."""
         cfg = self.config
-        B, T, C = x.shape
-        H, D = cfg.n_head, cfg.head_dim
-        q, k, v = _dense(self.c_attn, x, cfg.dtype).split(C, dim=-1)
+        B, T, _ = x.shape
+        H, D = self.n_head, cfg.head_dim
+        q, k, v = _dense(self.c_attn, x, cfg.dtype).split(H * D, dim=-1)
         q4, k4, v4 = (t.view(B, T, H, D) for t in (q, k, v))
         y4 = None
         if cfg.decode and cfg.paged:
@@ -241,11 +304,11 @@ class CausalSelfAttention(nn.Module):
             # below; every other call attends the pool
             if not step["prefill"]:
                 if scales is None:
-                    y4 = decode_attention_paged(
+                    y4 = decode_attention_paged_tp(
                         q4.contiguous(), keys, values, step["block_tables"],
                         step["lengths"])
                 else:
-                    y4 = decode_attention_paged_int8(
+                    y4 = decode_attention_paged_int8_tp(
                         q4.contiguous(), keys, values, scales[0], scales[1],
                         step["block_tables"], step["lengths"])
         elif cfg.decode:
@@ -254,30 +317,35 @@ class CausalSelfAttention(nn.Module):
             values.index_copy_(1, step["write_rows"], v4)
             if not step["prefill"]:
                 # a padded batch's rows start at their first real key
-                y4 = decode_attention(q4.contiguous(), keys, values,
-                                      step["index"], pad=step["pad"])
+                y4 = decode_attention_tp(q4.contiguous(), keys, values,
+                                         step["index"], pad=step["pad"])
         if y4 is None:
             # the causal forward (training included) and every prefill:
-            # causal attention over the call's own keys; a left-padded
-            # prompt also masks its pad keys (the plain masked attention,
-            # as in the JAX model: pad queries see only pad keys, and
-            # their outputs are never used)
+            # causal attention over the call's own keys, through the flash
+            # kernel on this rank's heads; a left-padded prompt also masks
+            # its pad keys (the plain masked attention, as in the JAX
+            # model: pad queries see only pad keys, and their outputs are
+            # never used)
             mask = step.get("key_valid") if step else None
-            attend = attention_reference if cfg.use_flash is False \
-                else attention
-            y4 = attend(q4.transpose(1, 2), k4.transpose(1, 2),
-                        v4.transpose(1, 2), causal=True,
-                        mask=mask).transpose(1, 2)
-        return _dense(self.c_proj, y4.reshape(B, T, C), cfg.dtype)
+            if mask is None and cfg.use_flash is not False:
+                y4 = flash_attention_bthd_tp(q4, k4, v4, causal=True)
+            else:
+                y4 = attention_reference(
+                    q4.transpose(1, 2), k4.transpose(1, 2),
+                    v4.transpose(1, 2), causal=True,
+                    mask=mask).transpose(1, 2)
+        return _dense(self.c_proj, y4.reshape(B, T, H * D), cfg.dtype)
 
 
 class MLP(nn.Module):
-    def __init__(self, config: GPT2Config, device=None):
+    """The tanh-GELU MLP, whole or (under a ``tp`` that splits its pair)
+    as this rank's column / row slices."""
+
+    def __init__(self, config: GPT2Config, device=None, tp=None):
         super().__init__()
         self.config = config
-        self.c_fc = nn.Linear(config.n_embd, 4 * config.n_embd, device=device)
-        self.c_proj = nn.Linear(4 * config.n_embd, config.n_embd,
-                                device=device)
+        C = config.n_embd
+        self.c_fc, self.c_proj = _pair((C, 4 * C), (4 * C, C), tp, device)
 
     def forward(self, x):
         dt = self.config.dtype
@@ -286,16 +354,19 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Sequential residual: ``x + attn(ln_1 x)``, then ``+ mlp(ln_2 ·)``."""
+    """Sequential residual: ``x + attn(ln_1 x)``, then ``+ mlp(ln_2 ·)``;
+    ``attn_tp`` / ``mlp_tp``: the tensor-parallel group that splits each
+    pair, or None where it stays whole."""
 
-    def __init__(self, config: GPT2Config, device=None):
+    def __init__(self, config: GPT2Config, device=None, attn_tp=None,
+                 mlp_tp=None):
         super().__init__()
         self.config = config
         eps = config.layer_norm_epsilon
         self.ln_1 = nn.LayerNorm(config.n_embd, eps=eps, device=device)
-        self.attn = CausalSelfAttention(config, device=device)
+        self.attn = CausalSelfAttention(config, device=device, tp=attn_tp)
         self.ln_2 = nn.LayerNorm(config.n_embd, eps=eps, device=device)
-        self.mlp = MLP(config, device=device)
+        self.mlp = MLP(config, device=device, tp=mlp_tp)
 
     def forward(self, x, keys=None, values=None, step=None, scales=None):
         dt = self.config.dtype
@@ -311,22 +382,70 @@ class GPT2LMHeadModel(nn.Module):
     a ``torch.Generator`` seeded with ``seed`` — the JAX model's init
     distributions — so the same seed gives the same weights on every
     device; ``device="meta"`` builds the structure without weights.
+    ``tp`` (a :class:`~deepspeed_tpu_torch.module_inject.layers.
+    TensorParallel` whose ``specs`` are :meth:`tp_specs`') builds this
+    rank's tensor-parallel slice of the model; it takes its weights from
+    the inference engine (``load_state_dict``), not from ``seed``.
     """
 
-    def __init__(self, config: GPT2Config, device=None, seed: int = 0):
+    def __init__(self, config: GPT2Config, device=None, seed: int = 0,
+                 tp=None):
         super().__init__()
         self.config = config
+        self.tp = tp
         C = config.n_embd
-        self.wte = nn.Parameter(torch.empty(config.vocab_size, C,
-                                            device=device))
+        # vocab-parallel embedding and tied head where tp splits the vocab
+        self.vocab_tp = tp if tp is not None and tp.split("wte") == 0 \
+            else None
+        vocab = config.vocab_size // (self.vocab_tp.size if self.vocab_tp
+                                      else 1)
+        self.wte = nn.Parameter(torch.empty(vocab, C, device=device))
         self.wpe = nn.Parameter(torch.empty(config.n_positions, C,
                                             device=device))
-        self.h = nn.ModuleList(Block(config, device=device)
-                               for _ in range(config.n_layer))
+        self.h = nn.ModuleList(
+            Block(config, device=device,
+                  attn_tp=_pair_tp(tp, f"h.{i}.attn.c_attn.weight"),
+                  mlp_tp=_pair_tp(tp, f"h.{i}.mlp.c_fc.weight"))
+            for i in range(config.n_layer))
         self.ln_f = nn.LayerNorm(C, eps=config.layer_norm_epsilon,
                                  device=device)
-        if torch.device(device or "cpu").type != "meta":
+        if torch.device(device or "cpu").type != "meta" and tp is None:
             self.init_weights(torch.Generator().manual_seed(seed))
+
+    def tp_specs(self, policy, tp_size: int) -> dict:
+        """``{name: PartitionSpec or None}`` of the whole model's
+        parameters at ``tp_size`` tp ranks under ``policy`` (a name, a
+        ``TPPolicy`` or the reference's injection forms): the policy's
+        ``spec_for``, except that a column / row pair splits only as a
+        pair, attention only where ``n_head`` divides by ``tp_size``, and
+        the vocabulary only on its vocab dim. The inference engine slices
+        the weights by these specs and builds the model's ``tp`` slice
+        from them."""
+        policy = get_tp_policy(policy)
+        specs = {name: policy.spec_for(name, tuple(p.shape), tp_size)
+                 for name, p in self.named_parameters()}
+
+        def whole(*names):
+            for n in names:
+                specs[n] = None
+
+        def splits(name, dim):
+            spec = specs.get(name)
+            return spec is not None and spec[dim] is not None
+
+        for i in range(self.config.n_layer):
+            for mod, col, row in (("attn", "c_attn", "c_proj"),
+                                  ("mlp", "c_fc", "c_proj")):
+                p = f"h.{i}.{mod}."
+                names = [p + f"{n}.{w}" for n in (col, row)
+                         for w in ("weight", "bias")]
+                if not (splits(p + col + ".weight", 0)
+                        and splits(p + row + ".weight", 1)) or (
+                        mod == "attn" and self.config.n_head % tp_size):
+                    whole(*names)
+        if not splits("wte", 0):
+            whole("wte")
+        return specs
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -355,9 +474,10 @@ class GPT2LMHeadModel(nn.Module):
         """A fresh cache for this decode-mode model: a :class:`KVCache`
         of ``batch`` rows, or the :class:`PagedKVCache` pools."""
         device = device or self.wte.device
+        heads = _cache_heads(self.config, self.h[0].attn.tp)
         if self.config.paged:
-            return PagedKVCache(self.config, device)
-        return KVCache(self.config, batch, device)
+            return PagedKVCache(self.config, device, heads)
+        return KVCache(self.config, batch, device, heads)
 
     def _step(self, input_ids, cache, paging, attention_mask):
         """Cache addressing shared by every layer of one call, and the
@@ -416,7 +536,7 @@ class GPT2LMHeadModel(nn.Module):
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache from new_cache()")
         step, pos = self._step(input_ids, cache, paging, attention_mask)
-        x = self.wte[input_ids].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
+        x = self._embed(input_ids) + self.wpe[pos].to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
             if cfg.decode:
@@ -434,9 +554,28 @@ class GPT2LMHeadModel(nn.Module):
         x = _layer_norm(self.ln_f, x, cfg.dtype)
         return x if return_hidden else self.lm_head(x)
 
+    def _embed(self, input_ids):
+        """Token embeddings in the compute dtype. Vocab-parallel: each
+        rank looks up the ids in its rows of the table (zeros elsewhere),
+        and the all-reduce sums the one real row per token."""
+        dtype = self.config.dtype
+        if self.vocab_tp is None:
+            return self.wte[input_ids].to(dtype)
+        rows = self.wte.shape[0]
+        local = input_ids - self.vocab_tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        e = torch.where(inside[..., None],
+                        self.wte[local.clamp(0, rows - 1)].to(dtype), 0)
+        return tp_all_reduce(e, self.vocab_tp.group)
+
     def lm_head(self, hidden):
-        """Tied-embedding logits in fp32 (:func:`head_logits`)."""
-        return head_logits(hidden, self.wte)
+        """Tied-embedding logits in fp32 (:func:`head_logits`);
+        vocab-parallel, this rank's logits all-gathered."""
+        logits = head_logits(hidden, self.wte)
+        if self.vocab_tp is None:
+            return logits
+        return comm.all_gather(logits, group=self.vocab_tp.group, axis=-1,
+                               tiled=True)
 
 
 # ---------------------------------------------------------------------------

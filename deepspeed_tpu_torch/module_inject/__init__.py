@@ -1,14 +1,26 @@
-"""Tensor-parallel policies (counterpart of ``deepspeed_tpu/
-module_inject``). The column- and row-parallel layers (``layers.py``)
-come with the multi-GPU slice's tensor-parallel part ([7b])."""
+"""Tensor-parallel policies and layers (counterpart of
+``deepspeed_tpu/module_inject``)."""
 
+from deepspeed_tpu_torch.module_inject.layers import (  # noqa: F401
+    ColumnParallelLinear,
+    RowParallelLinear,
+    TensorParallel,
+    column_parallel_linear,
+    injected_mlp,
+    row_parallel_linear,
+    tp_all_reduce,
+)
 from deepspeed_tpu_torch.module_inject.policies import (  # noqa: F401
+    AUTO_POLICY,
     COLUMN,
     REPLICATE,
     ROW,
     VOCAB,
     TPPolicy,
+    decode_cache_specs,
     family_for,
     get_tp_policy,
     register_tp_policy,
+    shard_params_with_policy,
+    specs_from_policy,
 )

@@ -1,0 +1,161 @@
+"""Tensor-parallel layers (counterpart of ``deepspeed_tpu/module_inject/
+layers.py``, the reference ``LinearLayer`` / ``LinearAllreduce``).
+
+The JAX module runs each layer under ``shard_map`` over the ``tp`` mesh
+axis, one controller for every shard. Here every tp rank is one process
+holding its own shards, so the functions below take THIS rank's shards in
+the port's ``[out, in]`` layout and issue the row-parallel sum through
+``comm.all_reduce`` on the tp group:
+
+- a column-parallel weight ``[out/tp, in]`` (with its bias ``[out/tp]``)
+  gives this rank's slice of the output features, with no collective;
+- a row-parallel weight ``[out, in/tp]`` takes this rank's slice of the
+  input features, and the partial products are summed over the group;
+  the row bias (whole on every rank) is added ONCE, after the sum, as
+  ``LinearAllreduce`` does: added before it, every rank's copy would be
+  summed too.
+
+:class:`TensorParallel` names a rank's place in its tp group; the models
+hold one (or None) and :class:`ColumnParallelLinear` /
+:class:`RowParallelLinear` hold the shards.
+"""
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepspeed_tpu_torch import comm
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """This rank's place in its tp group: ``group`` (a process group),
+    ``size`` ranks, this one ``rank``; ``specs`` maps each parameter name
+    of the whole model to its ``PartitionSpec`` over the tp axis (None:
+    replicated)."""
+
+    group: object
+    size: int
+    rank: int
+    specs: dict = dataclasses.field(default_factory=dict)
+
+    def split(self, name: str) -> Optional[int]:
+        """The dim of parameter ``name`` split over tp, or None."""
+        spec = self.specs.get(name)
+        if spec is None:
+            return None
+        return next(i for i, e in enumerate(spec) if e is not None)
+
+
+def tp_all_reduce(x, group, comm_dtype: str = "none"):
+    """Sum ``x`` over the tp ``group`` (in place; returns it). ``"none"``
+    is a plain sum; ``"int8"`` (the JAX package's EQuARX tier) comes with
+    the compressed collectives; a group of one returns ``x``."""
+    if comm_dtype == "int8":
+        raise NotImplementedError(
+            "tp_all_reduce(comm_dtype='int8') is not ported yet: it comes "
+            "with the compressed-collectives slice ([9]) of the PyTorch "
+            "port")
+    if comm_dtype not in ("none", "", None):
+        raise ValueError(
+            f"tp collective tier must be 'none' or 'int8', got "
+            f"{comm_dtype!r} (the 1-bit tier is error-feedback-stateful "
+            "and gradient-only)")
+    if group is None or comm.get_world_size(group) <= 1:
+        return x
+    return comm.all_reduce(x, group=group)
+
+
+_ACTIVATIONS = {
+    "gelu": lambda h: F.gelu(h, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "relu": F.relu,
+    "silu": F.silu,
+    "identity": lambda h: h,
+}
+
+
+def column_parallel_linear(x, w, b=None):
+    """Reference ``LinearLayer``: ``x @ w.T + b`` with this rank's
+    ``[out/tp, in]`` weight: this rank's slice of the output features, no
+    collective (feed it a row-parallel partner or an all-gather)."""
+    return F.linear(x, w, b)
+
+
+def row_parallel_linear(x, w, b=None, group=None, comm_dtype="none"):
+    """Reference ``LinearAllreduce``: this rank's input slice ``x [...,
+    in/tp]`` times its ``[out, in/tp]`` weight, summed over the tp
+    ``group``, then the (whole) bias."""
+    y = tp_all_reduce(F.linear(x, w), group, comm_dtype)
+    return y if b is None else y + b
+
+
+def injected_mlp(x, w_in, b_in, w_out, b_out, group=None,
+                 activation: str = "gelu", comm_dtype: str = "none"):
+    """The column -> row MLP: ``act(x @ w_in.T + b_in) @ w_out.T`` summed
+    over ``group``, plus ``b_out`` after the sum: ONE collective per MLP.
+    ``w_in`` / ``b_in`` are this rank's column shards, ``w_out`` its row
+    shard."""
+    h = _ACTIVATIONS[activation](column_parallel_linear(x, w_in, b_in))
+    return row_parallel_linear(h, w_out, b_out, group, comm_dtype)
+
+
+class ColumnParallelLinear(nn.Module):
+    """This rank's ``[out/tp, in]`` slice of a linear layer (and its
+    ``[out/tp]`` bias): ``forward(x, dtype)`` computes its slice of the
+    output features in ``dtype`` (the weights cast at each use, as the
+    models' dense layers do)."""
+
+    def __init__(self, in_features: int, out_features: int, tp_size: int,
+                 bias: bool = True, device=None):
+        super().__init__()
+        if out_features % tp_size:
+            raise ValueError(f"{out_features} output features do not split "
+                             f"over {tp_size} tp ranks")
+        self.in_features, self.out_features = in_features, out_features
+        self.tp_size = tp_size
+        local = out_features // tp_size
+        self.weight = nn.Parameter(torch.empty(local, in_features,
+                                               device=device))
+        self.bias = (nn.Parameter(torch.empty(local, device=device))
+                     if bias else None)
+
+    def forward(self, x, dtype=None):
+        dtype = dtype or x.dtype
+        return column_parallel_linear(
+            x, self.weight.to(dtype),
+            None if self.bias is None else self.bias.to(dtype))
+
+
+class RowParallelLinear(nn.Module):
+    """This rank's ``[out, in/tp]`` slice of a linear layer and its whole
+    ``[out]`` bias: ``forward(x, dtype)`` takes this rank's input slice
+    and returns the whole output, summed over ``tp.group``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 tp: TensorParallel, bias: bool = True, device=None):
+        super().__init__()
+        if in_features % tp.size:
+            raise ValueError(f"{in_features} input features do not split "
+                             f"over {tp.size} tp ranks")
+        self.in_features, self.out_features = in_features, out_features
+        self.tp = tp
+        self.weight = nn.Parameter(torch.empty(
+            out_features, in_features // tp.size, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device))
+                     if bias else None)
+
+    def forward(self, x, dtype=None):
+        dtype = dtype or x.dtype
+        return row_parallel_linear(
+            x, self.weight.to(dtype),
+            None if self.bias is None else self.bias.to(dtype),
+            self.tp.group)
+
+
+__all__ = ["ColumnParallelLinear", "RowParallelLinear", "TensorParallel",
+           "column_parallel_linear", "injected_mlp", "row_parallel_linear",
+           "tp_all_reduce"]

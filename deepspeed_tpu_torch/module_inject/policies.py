@@ -10,15 +10,19 @@ and ``.``. Shapes are the port's: an ``nn.Linear`` weight is ``[out, in]``
 where a flax ``Dense`` kernel is ``[in, out]``, so a column-parallel
 weight shards its dim 0 and a row-parallel one its dim 1.
 
-At a tp size of 1, the only size this slice runs, every base spec is
-replicated (None). The column- and row-parallel layers come with the
-multi-GPU slice's tensor-parallel part ([7b]).
+At a tp size of 1 every base spec is replicated (None). Above 1, the
+inference engine asks :func:`shard_params_with_policy` for this rank's
+slices of a whole state dict (a fused QKV weight split per Q, K and V),
+and the models hold them in the column- and row-parallel layers of
+``layers.py``; :func:`decode_cache_specs` splits the KV caches and pools
+on their head dim.
 """
 
 import re
 from typing import Dict, Optional, Sequence, Tuple
 
 from deepspeed_tpu_torch.parallel.topology import AXIS_TP
+from deepspeed_tpu_torch.runtime.state_dict_factory import shard_qkv_for_tp
 from deepspeed_tpu_torch.runtime.zero.partition import PartitionSpec as P
 
 COLUMN = "column"
@@ -181,9 +185,27 @@ def register_tp_policy(policy: TPPolicy):
     _POLICIES[policy.name] = policy
 
 
-def get_tp_policy(name: str = "auto") -> TPPolicy:
+def get_tp_policy(name="auto") -> TPPolicy:
+    """A policy by name, a :class:`TPPolicy`, or the reference's
+    ``injection_policy`` forms (the JAX engine's ``_resolve_policy``): a
+    dict ``{module_or_segment: role}`` (``{"c_proj": "row"}``) or
+    ``{module: ("attn.c_proj", ...)}`` naming row-parallel outputs, or a
+    bare tuple of them (``injection_policy_tuple``); the user's rules go
+    first, then the auto policy's. None is the auto policy."""
+    if name is None:
+        name = "auto"
     if isinstance(name, TPPolicy):
         return name
+    if isinstance(name, (tuple, list)):
+        name = {"_tuple": tuple(name)}
+    if isinstance(name, dict):
+        rules = []
+        for key, val in name.items():
+            if isinstance(val, str):
+                rules.append((str(key), val))
+            else:
+                rules.extend((str(n).rsplit(".", 1)[-1], ROW) for n in val)
+        return TPPolicy("user", rules + AUTO_POLICY.rules)
     if name not in _POLICIES:
         raise ValueError(
             f"unknown TP policy {name!r}; have {sorted(_POLICIES)}")
@@ -196,3 +218,54 @@ def specs_from_policy(policy: TPPolicy, named_shapes, mesh,
     tp_size = int(mesh.shape.get(axis, 1))
     return {name: policy.spec_for(name, tuple(shape), tp_size, axis)
             for name, shape in dict(named_shapes).items()}
+
+
+def shard_params_with_policy(state_dict, policy, tp_rank: int,
+                             tp_size: int, specs=None,
+                             axis: str = AXIS_TP):
+    """``(local_state_dict, specs)``: rank ``tp_rank``'s slice of each
+    tensor of a whole ``state_dict`` along the dim its spec splits over
+    ``axis`` (``specs`` if given, else the policy's), the whole tensor
+    where it is replicated. A tensor whose path has a ``c_attn`` segment
+    is a fused Q|K|V projection and is split per Q, K and V
+    (:func:`~deepspeed_tpu_torch.runtime.state_dict_factory.
+    shard_qkv_for_tp`)."""
+    if specs is None:
+        policy = get_tp_policy(policy)
+        specs = {name: policy.spec_for(name, tuple(t.shape), tp_size, axis)
+                 for name, t in state_dict.items()}
+    local = {}
+    for name, t in state_dict.items():
+        spec = specs.get(name)
+        if spec is None:
+            local[name] = t
+            continue
+        dim = next(i for i, e in enumerate(spec) if e is not None)
+        if "c_attn" in _segments(name):
+            local[name] = shard_qkv_for_tp(t, tp_size, tp_rank, out_axis=dim)
+        else:
+            local[name] = t.chunk(tp_size, dim=dim)[tp_rank].contiguous()
+    return local, specs
+
+
+CACHE_LEAVES = ("keys", "values", "key_scales", "value_scales")
+
+
+def decode_cache_specs(named_shapes, tp_size: int, axis: str = AXIS_TP):
+    """``{name: spec or None}`` of a decode cache's tensors under tensor
+    parallelism: the append caches ``[B, S, H, D]``, the block pools
+    ``[num_blocks, block_size, H, D]`` and their int8 scale side pools
+    ``[..., H, 1]`` (names whose first segment is one of
+    :data:`CACHE_LEAVES`) split their head dim (-2) over ``axis`` when
+    the heads divide, as the attention heads do: each tp rank owns its
+    heads' pool. Everything else is replicated."""
+    out = {}
+    for name, shape in dict(named_shapes).items():
+        spec = None
+        if (re.split(r"[/.]", name)[0] in CACHE_LEAVES and tp_size > 1
+                and len(shape) >= 2 and shape[-2] % tp_size == 0):
+            entries = [None] * len(shape)
+            entries[-2] = axis
+            spec = P(*entries)
+        out[name] = spec
+    return out

@@ -27,8 +27,15 @@ workspace of :func:`_split_workspace`):
   ``csrc/decode_paged_int8.cu`` (the split decode) for every other call.
 
 Each has its plain PyTorch version beside it; a CPU tensor takes it, a
-CUDA tensor launches the kernel or raises. The tensor-parallel wrappers
-come with the multi-GPU slice.
+CUDA tensor launches the kernel or raises.
+
+The tensor-parallel wrappers (:func:`decode_attention_tp`,
+:func:`decode_attention_paged_tp`, :func:`decode_attention_paged_int8_tp`;
+``shard_map`` wrappers in JAX) take this rank's heads of the query and of
+its caches or pools and call the same kernel, with no collective: decode
+attention reduces over positions, never across heads. The base wrappers'
+buffer checks hold the query's and the caches' head counts to each other.
+The model's decode calls go through them.
 """
 
 import ctypes
@@ -494,6 +501,37 @@ def decode_attention_paged_int8(q, k_pool, v_pool, k_scale, v_scale,
     scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
     return _paged_int8_launch(q, k_pool, v_pool, k_scale, v_scale,
                               block_tables, lengths, scale)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel wrappers: this rank's heads, the same kernels
+# ---------------------------------------------------------------------------
+def decode_attention_tp(q, k_cache, v_cache, cache_index,
+                        softmax_scale=None, pad=None):
+    """Tensor-parallel :func:`decode_attention` (JAX
+    ``decode_attention_tp``): q and the append caches hold this rank's
+    heads; one launch of kernel 7 on them."""
+    return decode_attention(q, k_cache, v_cache, cache_index,
+                            softmax_scale=softmax_scale, pad=pad)
+
+
+def decode_attention_paged_tp(q, k_pool, v_pool, block_tables, lengths,
+                              softmax_scale=None):
+    """Tensor-parallel :func:`decode_attention_paged`: the pools hold this
+    rank's heads of every block (a per-rank pool), the block tables and
+    lengths are every rank's; one launch of kernel 8."""
+    return decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
+                                  softmax_scale=softmax_scale)
+
+
+def decode_attention_paged_int8_tp(q, k_pool, v_pool, k_scale, v_scale,
+                                   block_tables, lengths, softmax_scale=None):
+    """Tensor-parallel :func:`decode_attention_paged_int8`: the int8
+    pools and their scale side pools hold this rank's heads; one launch
+    of kernel 9 (either source)."""
+    return decode_attention_paged_int8(
+        q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+        softmax_scale=softmax_scale)
 
 
 # kernel launches by each wrapper (chip_smoke.py zeroes and reads them);

@@ -37,6 +37,10 @@ residuals named ``flash_o``/``flash_lse``.
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel, or raises, for a CUDA tensor; ``.launches`` on each
 public wrapper counts its kernel's launches.
+
+:func:`flash_attention_bthd_tp` is the tensor-parallel entry (JAX
+``flash_attention_bthd_tp``, a ``shard_map`` there): each rank already
+holds its heads, so it runs kernel 1 on them, with no collective.
 """
 
 import ctypes
@@ -415,6 +419,17 @@ def flash_attention_bthd(q, k, v, causal=True, softmax_scale=None):
     o, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), causal, softmax_scale)
     return o.transpose(1, 2)
+
+
+def flash_attention_bthd_tp(q, k, v, causal=True, softmax_scale=None):
+    """Tensor-parallel :func:`flash_attention_bthd` (JAX
+    ``flash_attention_bthd_tp``): ``[B, T, H, D]`` inputs holding this
+    rank's heads (the column-parallel projection's output), run through
+    the forward kernel with no collective; attention never reduces across
+    heads. A live ``seq`` axis (Ulysses) is refused by
+    :class:`~deepspeed_tpu_torch.parallel.topology.MeshTopology`, naming
+    the sequence-parallel slice ([12.7])."""
+    return flash_attention_bthd(q, k, v, causal, softmax_scale)
 
 
 def flash_attention_backward(q, k, v, do, lse, delta, causal=True,

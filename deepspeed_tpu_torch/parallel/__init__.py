@@ -18,5 +18,6 @@ from deepspeed_tpu_torch.parallel.topology import (  # noqa: F401
     get_topology,
     normalize_axis_dict,
     reset_topology,
+    resolve_tp_topology,
     set_topology,
 )

@@ -15,10 +15,12 @@ subset that can be active, in the same order on every rank (as
 ``torch.distributed.new_group`` requires); :meth:`MeshTopology.group`
 resolves an axis name or a tuple of axis names to this rank's group.
 
-The data-parallel slice of the port runs the ``data`` and ``fsdp`` axes.
-A ``tp``, ``pipe``, ``expert`` or ``seq`` axis above 1, or a ``dcn``
-section, raises :class:`NotImplementedError` naming the slice that brings
-it.
+The port runs the ``data``, ``fsdp`` and ``tp`` axes: data-parallel
+training on ``data x fsdp`` and tensor-parallel serving on ``tp``
+(:func:`resolve_tp_topology`). A ``pipe``, ``expert`` or ``seq`` axis
+above 1, or a ``dcn`` section, raises :class:`NotImplementedError`
+naming the slice that brings it; so does a ``tp`` axis in training
+(:func:`check_training_axes`).
 """
 
 import collections
@@ -45,12 +47,14 @@ AXIS_ALIASES = {"model": AXIS_TP}
 
 # the axes of a later slice of the port, and that slice
 UNPORTED_AXES = {
-    AXIS_TP: "the multi-GPU slice's tensor-parallel part ([7b])",
     AXIS_PIPE: "the pipeline slice ([11])",
     AXIS_EXPERT: "the MoE slice ([12.6])",
     AXIS_SEQ: "the sequence-parallel slice ([12.7])",
 }
-DCN_SLICE = "the multi-GPU slice's tensor-parallel part ([7b])"
+TP_TRAINING_SLICE = ("the multi-GPU slice's tensor-parallel training part "
+                     "([7d])")
+DCN_SLICE = TP_TRAINING_SLICE
+FLEET_SLICE = "the serving fleet slice ([7c])"
 
 
 def normalize_axis_dict(axis_sizes: Dict[str, int]) -> Dict[str, int]:
@@ -211,6 +215,20 @@ def check_ported_axes(axis_sizes: Dict[str, int], dcn_axis_sizes=None):
             f"with {DCN_SLICE} of the PyTorch port")
 
 
+def check_training_axes(axis_sizes: Dict[str, int], dcn_axis_sizes=None):
+    """:func:`check_ported_axes`, and raise for a ``tp`` axis above 1:
+    the port serves under tensor parallelism but does not train under
+    it yet."""
+    sizes = normalize_axis_dict(axis_sizes)
+    if int(sizes.get(AXIS_TP, 1)) > 1:
+        raise NotImplementedError(
+            f"mesh axis 'tp' of size {sizes[AXIS_TP]} in training is not "
+            f"ported yet: it comes with {TP_TRAINING_SLICE} of the PyTorch "
+            f"port (tensor-parallel inference and serving run: "
+            f"init_inference(tensor_parallel=...))")
+    check_ported_axes(sizes, dcn_axis_sizes)
+
+
 def _active_subsets(active: Sequence[str]):
     """Every subset of the active axes, in one order for every rank."""
     for k in range(len(active) + 1):
@@ -224,7 +242,9 @@ class MeshTopology:
     ``world_size`` and ``rank`` default to the running process group's
     (1 and 0 without one); pass them to compute coordinates and comm
     lists with no process group. The groups exist only while a process
-    group runs, and are built here, on every rank in one order.
+    group runs, and are built here, on every rank in one order; a mesh of
+    one rank (``world_size=1``) under a larger group is this rank alone,
+    with no groups.
     """
 
     def __init__(self, axis_sizes: Optional[Dict[str, int]] = None,
@@ -251,12 +271,12 @@ class MeshTopology:
         # axis subset (canonical order, size > 1 axes only) -> this rank's
         # process group over it
         self._groups = {}
-        if running:
-            if dist.get_world_size() != self.world_size:
-                raise ValueError(
-                    f"mesh {self.shape} spans {self.world_size} ranks but "
-                    f"the process group has {dist.get_world_size()}")
+        if running and dist.get_world_size() == self.world_size:
             self._build_groups(dist)
+        elif running and self.world_size != 1:
+            raise ValueError(
+                f"mesh {self.shape} spans {self.world_size} ranks but "
+                f"the process group has {dist.get_world_size()}")
 
     def _build_groups(self, dist):
         world = list(range(self.world_size))
@@ -337,6 +357,14 @@ class MeshTopology:
 
     def get_tensor_parallel_world_size(self) -> int:
         return self.axis_sizes[AXIS_TP]
+
+    def get_tensor_parallel_rank(self) -> int:
+        """This rank's index along the tp axis (its rank in the tp
+        group)."""
+        return int(getattr(self.coord, AXIS_TP))
+
+    def get_model_parallel_rank(self) -> int:
+        return self.get_tensor_parallel_rank()
 
     def get_fsdp_world_size(self) -> int:
         return self.axis_sizes[AXIS_FSDP]
@@ -427,3 +455,39 @@ def get_topology(create_if_missing: bool = True) -> Optional[MeshTopology]:
 def reset_topology():
     global _WORLD_TOPOLOGY
     _WORLD_TOPOLOGY = None
+
+
+def resolve_tp_topology(tp_size: int) -> MeshTopology:
+    """The serving engines' mesh (reference ``_create_model_parallel_
+    group``): the job's topology when its tp axis already has ``tp_size``
+    ranks, else a ``{"tp": tp_size}`` mesh, made the job's.
+
+    One process per tp rank: above 1, a process group of exactly
+    ``tp_size`` ranks must run (``comm.init_distributed``), since every
+    rank holds one shard. A larger world would hold data replicas of a
+    server, which the serving fleet brings. A size of 1 needs no group
+    and runs on each rank alone."""
+    import torch.distributed as dist
+
+    tp_size = int(tp_size)
+    if tp_size > 1:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"tensor_parallel.tp_size {tp_size} needs a process group "
+                f"of {tp_size} ranks, one a shard: call deepspeed_tpu_torch"
+                f".comm.init_distributed() on every rank first")
+        if dist.get_world_size() != tp_size:
+            raise NotImplementedError(
+                f"tensor_parallel.tp_size {tp_size} on a world of "
+                f"{dist.get_world_size()} ranks: inference runs on a world "
+                f"of exactly tp_size ranks; data replicas of a server come "
+                f"with {FLEET_SLICE} of the PyTorch port")
+    existing = get_topology(create_if_missing=False)
+    if existing is not None and existing.axis_size(AXIS_TP) == tp_size:
+        return existing
+    if tp_size == 1:
+        # no group needed: this rank serves alone, whatever the world
+        return MeshTopology(axis_sizes={AXIS_TP: 1}, world_size=1, rank=0)
+    topo = MeshTopology(axis_sizes={AXIS_TP: tp_size})
+    set_topology(topo)
+    return topo

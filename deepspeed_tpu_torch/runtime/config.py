@@ -28,7 +28,7 @@ from typing import Any, Optional
 
 from pydantic import Field, model_validator
 
-from deepspeed_tpu_torch.parallel.topology import (check_ported_axes,
+from deepspeed_tpu_torch.parallel.topology import (check_training_axes,
                                                    normalize_axis_dict)
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import (
@@ -42,7 +42,7 @@ class DeepSpeedConfigError(Exception):
     pass
 
 
-_TP = "the multi-GPU slice's tensor-parallel part ([7b])"
+_TP = "the multi-GPU slice's tensor-parallel training part ([7d])"
 _TRAINING_FEATURES = "the training-features slice"
 # keys of the JAX training config, and the port's slice that will
 # implement each (ROADMAP.md, Queue 1)
@@ -84,8 +84,8 @@ SUPPORTED = frozenset({
 
 class MeshConfig(DeepSpeedConfigModel):
     """Named mesh axis sizes (the JAX ``MeshConfig``): ``data`` may be -1
-    (fill the world). ``model`` is the deprecated alias of ``tp``. This
-    slice runs ``data`` and ``fsdp``; ``tp``, ``pipe``, ``expert`` or
+    (fill the world). ``model`` is the deprecated alias of ``tp``.
+    Training runs ``data`` and ``fsdp``; ``tp``, ``pipe``, ``expert`` or
     ``seq`` above 1, or a ``dcn`` section, raises naming its slice."""
 
     data: int = -1
@@ -107,7 +107,8 @@ class MeshConfig(DeepSpeedConfigModel):
                     f"alias model={self.model} with different sizes — "
                     "keep only tp")
             object.__setattr__(self, "tp", self.model)
-        check_ported_axes(self.axis_sizes(), normalize_axis_dict(self.dcn))
+        check_training_axes(self.axis_sizes(),
+                            normalize_axis_dict(self.dcn))
         return self
 
     def axis_sizes(self):

@@ -207,6 +207,9 @@ class DeepSpeedEngine:
                   or self._config.zero_enabled or dist.is_initialized())
         if not wanted and not dist_init_required:
             return None
+        if mesh is not None:
+            topo_mod.check_training_axes(
+                mesh.axis_sizes if isinstance(mesh, MeshTopology) else mesh)
         if not dist.is_initialized():
             if dist_init_required is False:
                 raise ValueError(

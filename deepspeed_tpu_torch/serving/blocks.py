@@ -8,7 +8,10 @@ expressed as a per-sequence *block table* (logical block j of sequence s
 lives in pool block ``table[j]``). Sequences of different lengths share
 the one allocation, and a finished sequence's blocks return to the free
 list immediately — the next admission reuses them without touching the
-device.
+device. Under tensor parallelism each rank's pools hold its heads of
+every block (``[num_blocks, block_size, H / tp, D]``) and every rank
+keeps this accounting alike, so one block table addresses every rank's
+pool.
 
 Block 0 is the reserved garbage sink (``GARBAGE_BLOCK``): it is never
 allocated, table rows pad with it, and bucketed-prefill pad tokens (and

@@ -50,6 +50,14 @@ length after prefill or the final chunk, ``length + 1`` at a decode step),
 so its stream equals ``generate(do_sample=True, seed=...)``'s and the JAX
 engine's under any batch mix; greedy requests beside it keep the argmax.
 
+Under tensor parallelism (an engine with ``tensor_parallel.tp_size`` N)
+every rank runs this engine with the same calls: its pools hold its
+``n_head / N`` heads of every block, and the block tables, the block
+manager and the scheduler are every rank's alike, so each rank makes the
+same decisions and emits the same tokens. Deadlines read each rank's own
+``clock``: give the ranks one clock, or a deadline that expires on one
+rank alone parts them.
+
 Not in this slice, each rejected at config time with the slice that
 brings it (``serving/config.py``): router/fleet/gateway, migration
 (``export_sequence``/``import_sequence`` raise too). Telemetry, span
@@ -608,6 +616,7 @@ class ServingEngine:
         s = self.sched.stats
         total = max(1, s["submitted"])
         return {
+            "tp": self.engine.mp_world_size,
             "prefix_cache": prefix_stats,
             "speculative": spec_stats,
             "finished": s["finished"], "shed": s["shed"],

@@ -59,6 +59,24 @@ def get_model_parallel_world_size():
     return _t().get_model_parallel_world_size()
 
 
+def get_model_parallel_rank():
+    """This device's rank along the tp axis."""
+    return _t().get_model_parallel_rank()
+
+
+def get_tensor_parallel_group():
+    return _t().get_tensor_parallel_group()
+
+
+def get_tensor_parallel_world_size():
+    return _t().get_tensor_parallel_world_size()
+
+
+def get_tensor_parallel_rank():
+    """This device's rank in its tensor-parallel group."""
+    return _t().get_tensor_parallel_rank()
+
+
 def get_expert_parallel_group(name=None):
     return _t().get_expert_parallel_group()
 

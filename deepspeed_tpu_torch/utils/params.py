@@ -12,7 +12,10 @@ drive it:
 - a flax ``Dense`` kernel is ``[in, out]``, an ``nn.Linear`` weight
   ``[out, in]``; LayerNorm ``scale`` is the ``weight``.
 
-No JAX import: the tree is plain nested dicts of numpy arrays.
+No JAX import: the tree is plain nested dicts of numpy arrays. With
+``tp_size`` above 1 it gives one tensor-parallel rank's slices
+(:func:`shard_for_rank`), so both packages compute the same thing on
+the same weights at any tp size.
 :func:`training_model_from_jax` builds the port's
 :class:`~deepspeed_tpu_torch.models.gpt2.GPT2ForTraining` on those weights
 (the JAX training engine's ``GPT2ForTraining`` has the same tree).
@@ -49,9 +52,15 @@ def _index(node, i):
     return node[i]
 
 
-def params_from_jax(tree, config) -> dict:
+def params_from_jax(tree, config, tp_rank: int = 0, tp_size: int = 1,
+                    policy="auto") -> dict:
     """State dict of the port's GPT-2 (fp32 tensors on the CPU) from the
-    JAX model's flax params (``{"params": ...}`` or the bare tree)."""
+    JAX model's flax params (``{"params": ...}`` or the bare tree); with
+    ``tp_size`` above 1, tp rank ``tp_rank``'s slices of it (the ones the
+    inference engine keeps under ``policy``: :func:`shard_for_rank`)."""
+    if tp_size > 1:
+        return shard_for_rank(params_from_jax(tree, config), config,
+                              tp_rank, tp_size, policy)
     tree = tree.get("params", tree)
 
     def t(x):
@@ -71,6 +80,21 @@ def params_from_jax(tree, config) -> dict:
             sd[f"h.{i}.{name}.weight"] = t(layer[name]["scale"])
             sd[f"h.{i}.{name}.bias"] = t(layer[name]["bias"])
     return sd
+
+
+def shard_for_rank(state_dict, config, tp_rank: int, tp_size: int,
+                   policy="auto") -> dict:
+    """Tp rank ``tp_rank``'s slices of the port's whole GPT-2
+    ``state_dict`` at ``tp_size`` ranks: the specs of
+    :meth:`~deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel.tp_specs`,
+    the fused ``c_attn`` split per Q, K and V."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.module_inject.policies import \
+        shard_params_with_policy
+
+    specs = GPT2LMHeadModel(config, device="meta").tp_specs(policy, tp_size)
+    return shard_params_with_policy(state_dict, policy, tp_rank, tp_size,
+                                    specs=specs)[0]
 
 
 def training_model_from_jax(tree, config):

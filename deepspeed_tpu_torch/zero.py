@@ -48,8 +48,8 @@ class Init:
         return False
 
     def _layout(self):
-        from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
-                                                           get_topology)
+        from deepspeed_tpu_torch.parallel.topology import (
+            MeshTopology, check_training_axes, get_topology)
         from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
         from deepspeed_tpu_torch.runtime.zero.partition import SpecLayout
 
@@ -58,6 +58,7 @@ class Init:
             topo = MeshTopology(axis_sizes=topo)
         if topo is None:
             topo = get_topology()
+        check_training_axes(topo.axis_sizes)
         zc = DeepSpeedConfig(self.config).zero_config
         return SpecLayout(topo,
                           persistence_threshold=zc.param_persistence_threshold,

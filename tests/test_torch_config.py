@@ -114,9 +114,13 @@ def test_tensor_parallel_size_one_is_accepted(kwargs):
                                     dict(tensor_parallel={"enabled": True},
                                          mp_size=2)])
 def test_tensor_parallel_above_one_names_the_multi_gpu_slice(kwargs):
-    assert JaxInferenceConfig(**kwargs).tensor_parallel.tp_size > 1
-    with pytest.raises(NotImplementedError, match="the multi-GPU slice"):
-        DeepSpeedInferenceConfig(**kwargs)
+    """Tensor-parallel inference is ported: the port takes these configs
+    as JAX does, with the same ``tp_size``."""
+    jax = JaxInferenceConfig(**kwargs)
+    assert jax.tensor_parallel.tp_size > 1
+    port = DeepSpeedInferenceConfig(**kwargs)
+    assert port.tensor_parallel.tp_size == jax.tensor_parallel.tp_size
+    assert port.tensor_parallel.enabled == jax.tensor_parallel.enabled
 
 
 def test_unknown_inference_key_still_fails():
@@ -169,11 +173,11 @@ def test_data_parallel_keys_match_jax(case, monkeypatch):
 
 
 @pytest.mark.parametrize("d,where", [
-    ({"mesh": {"tp": 2}}, r"\[7b\]"), ({"mesh": {"seq": 2}}, r"\[12.7\]"),
+    ({"mesh": {"tp": 2}}, r"\[7d\]"), ({"mesh": {"seq": 2}}, r"\[12.7\]"),
     ({"mesh": {"expert": 2}}, r"\[12.6\]"), ({"mesh": {"pipe": 2}},
                                               r"\[11\]"),
-    ({"mesh": {"dcn": {"data": 2}}}, r"\[7b\]"),
-    ({"tensor_parallel": {"policy": "gpt2"}}, r"\[7b\]"),
+    ({"mesh": {"dcn": {"data": 2}}}, r"\[7d\]"),
+    ({"tensor_parallel": {"policy": "gpt2"}}, r"\[7d\]"),
     ({"comm_quantization": {"enabled": True}}, r"\[9\]"),
     ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, "offload"),
     ({"zero_optimization": {"cpu_offload_param": True}}, "offload")],

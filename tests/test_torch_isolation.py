@@ -24,11 +24,13 @@ from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2ForTraining,
                                              GPT2LMHeadModel)
 from deepspeed_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_paged, decode_attention_paged_int8)
+    decode_attention, decode_attention_paged, decode_attention_paged_int8,
+    decode_attention_paged_int8_tp, decode_attention_paged_tp,
+    decode_attention_tp)
 from deepspeed_tpu_torch.models.bert import BertConfig, BertForTraining
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_dkv,
-    flash_attention_bthd)
+    flash_attention_bthd, flash_attention_bthd_tp)
 from deepspeed_tpu_torch.ops.quantizer import stochastic_quantize
 from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
@@ -53,6 +55,8 @@ DATA_PARALLEL = ("comm.comm", "comm.backend", "parallel.topology",
                  "utils.groups", "module_inject.policies",
                  "runtime.zero.config", "runtime.zero.partition",
                  "runtime.zero.reduce", "runtime.zero.stage", "zero")
+# the tensor-parallel slice's modules
+TENSOR_PARALLEL = ("module_inject.layers", "runtime.state_dict_factory")
 
 
 def test_import_pulls_in_no_jax():
@@ -63,7 +67,7 @@ def test_import_pulls_in_no_jax():
         "p.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        f"missing = [m for m in {DATA_PARALLEL!r} "
+        f"missing = [m for m in {DATA_PARALLEL + TENSOR_PARALLEL!r} "
         "if 'deepspeed_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -102,6 +106,9 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
     model = GPT2LMHeadModel(GPT2Config.tiny(), device="meta")
     with pytest.raises(RuntimeError, match="cuda"):
         deepspeed_tpu_torch.init_inference(model)  # default device: card
+    with pytest.raises(RuntimeError, match="cuda"):
+        deepspeed_tpu_torch.init_inference(  # a tp rank: the card
+            model, tensor_parallel={"tp_size": 2})
     with pytest.raises(RuntimeError, match="cuda"):
         deepspeed_tpu_torch.initialize(  # the training engine: the card
             model=GPT2ForTraining(GPT2Config.tiny(), device="meta"),
@@ -142,6 +149,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
         decode_attention_paged(q4, q4, q4, idx, idx)
     with pytest.raises(ValueError, match="cuda or cpu"):
         decode_attention_paged_int8(q4, q4, q4, q4, q4, idx, idx)
+    # the tensor-parallel wrappers: the same kernels
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_bthd_tp(q, q, q)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention_tp(q4, q4, q4, idx)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention_paged_tp(q4, q4, q4, idx, idx)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention_paged_int8_tp(q4, q4, q4, q4, q4, idx, idx)
     # the block-sparse wrappers, and SparseSelfAttention's kernel path
     qs = torch.empty((1, 4, 256, 64), device="meta")
     lses = torch.empty((1, 4, 256), device="meta")

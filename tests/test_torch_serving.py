@@ -171,7 +171,7 @@ def test_unported_knob_raises_through_init_serving():
 
 @pytest.mark.parametrize("key,value", [
     ("telemetry", {"enabled": True}), ("quant", {}),
-    ("tensor_parallel", {"tp_size": 2}), ("checkpoint", "/x"),
+    ("moe", {"enabled": True}), ("checkpoint", "/x"),
     ("dtype", "int8"),
 ])
 def test_unported_inference_keys_raise(key, value):

@@ -9,7 +9,8 @@
   ``nn.Linear`` weight ``[out, in]``, so kernel specs are compared
   reversed); batch specs; ``bucket_by_bytes``.
 - Training: the port on 4 gloo ranks (``tests/torch_ranks.py``: one
-  spawn runs every case of a mesh, shared by the test workers) against
+  spawn runs every program of this file, every case of both meshes
+  included, shared by the test workers) against
   the JAX engine on a 4-device mesh of the conftest's CPU devices, from
   the same weights and global micro-batches: a tiny fp32 GPT-2 (2 layers,
   width 64, "dots" remat, AdamW, clip 1.0) at ZeRO stages 0-3, fused and
@@ -105,22 +106,41 @@ def jax_params():
 
 
 _PORT = {}
+# the one spawn of this file's programs runs them one after another
+ZERO_RANKS_TIMEOUT = 900
+
+
+def zero_ranks(tmp_path_factory, jax_params):
+    """Every program of this file on one spawn of 4 gloo ranks: the
+    training cases of each mesh, the overflow at stages 1 and 3 and
+    ``GatheredParameters``; ``{name: each rank's results}``."""
+    if not _PORT:
+        programs = []
+        for mesh_name, mesh in MESHES.items():
+            programs.append((f"train-{mesh_name}", torch_ranks.train, {
+                "mesh": mesh, "cases": case_configs(mesh_name),
+                "steps": STEPS, "batches": global_batches(mesh, 2 * STEPS),
+                "weights": jax_params}))
+        for stage in (1, 3):
+            programs.append((f"overflow-{stage}", torch_ranks.overflow,
+                             {"stage": stage}))
+        programs.append(("gathered", torch_ranks.gathered, {
+            "weights": jax_params,
+            "batches": global_batches(MESHES["data2_fsdp2"], 1)}))
+        ranks = torch_ranks.cached(
+            tmp_path_factory, "zero-ranks",
+            lambda d: torch_ranks.run_ranks(
+                torch_ranks.programs, 4, d / "zero", programs,
+                timeout=ZERO_RANKS_TIMEOUT))
+        _PORT.update({name: [r[name] for r in ranks]
+                      for name, _, _ in programs})
+    return _PORT
 
 
 def port_runs(mesh_name, tmp_path_factory, jax_params):
-    """Every training case of ``mesh_name`` on 4 gloo ranks (one
-    spawn); each rank's results."""
-    if mesh_name not in _PORT:
-        mesh = MESHES[mesh_name]
-        args = {"mesh": mesh, "cases": case_configs(mesh_name),
-                "steps": STEPS,
-                "batches": global_batches(mesh, 2 * STEPS),
-                "weights": jax_params}
-        _PORT[mesh_name] = torch_ranks.cached(
-            tmp_path_factory, f"train-{mesh_name}",
-            lambda d: torch_ranks.run_ranks(torch_ranks.train, 4, d / mesh_name,
-                                            args))
-    return _PORT[mesh_name]
+    """Every training case of ``mesh_name`` on the 4 gloo ranks; each
+    rank's results."""
+    return zero_ranks(tmp_path_factory, jax_params)[f"train-{mesh_name}"]
 
 
 def jax_run(mesh, config, jax_params):
@@ -335,12 +355,9 @@ def test_rank_shard_shapes_follow_the_layout(mesh_name, stage, jax_params,
 # overflow and GatheredParameters
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
-def overflow_runs(tmp_path_factory):
-    return {stage: torch_ranks.cached(tmp_path_factory, f"overflow-{stage}",
-                           lambda d, s=stage: torch_ranks.run_ranks(
-                               torch_ranks.overflow, 4, d / f"of{s}",
-                               {"stage": s}))
-            for stage in (1, 3)}
+def overflow_runs(tmp_path_factory, jax_params):
+    runs = zero_ranks(tmp_path_factory, jax_params)
+    return {stage: runs[f"overflow-{stage}"] for stage in (1, 3)}
 
 
 @pytest.mark.parametrize("stage", [1, 3])
@@ -360,11 +377,7 @@ def test_one_rank_overflow_skips_every_rank(overflow_runs, stage):
 
 @pytest.fixture(scope="module")
 def gathered_runs(tmp_path_factory, jax_params):
-    args = {"weights": jax_params,
-            "batches": global_batches(MESHES["data2_fsdp2"], 1)}
-    return torch_ranks.cached(tmp_path_factory, "gathered",
-                   lambda d: torch_ranks.run_ranks(torch_ranks.gathered, 4,
-                                                   d / "gathered", args))
+    return zero_ranks(tmp_path_factory, jax_params)["gathered"]
 
 
 def test_gathered_parameters_write_back(gathered_runs, jax_params):

@@ -93,6 +93,12 @@ def cached(tmp_path_factory, name, run):
         return result
 
 
+def programs(rank, world, args):
+    """Several programs on one spawn of ranks: each ``(name, program,
+    program_args)`` of ``args`` in turn; their results by name."""
+    return {name: program(rank, world, a) for name, program, a in args}
+
+
 def _child(program, rank, world, store, out, args):
     try:
         # one thread, at a lower priority: the ranks share the machine
@@ -433,4 +439,177 @@ def _stage3_lifetimes(args, config):
             steps.append((float(engine(batch)),
                           engine.get_global_grad_norm()))
         out[f"remat_{remat}"] = steps
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel inference and serving
+# ---------------------------------------------------------------------------
+TP_SERVING = {"block_size": 8, "decode_slots": 3}
+TP_PAGED = {"enabled": True, "decode_slots": 2, "block_size": 8,
+            "max_model_len": 64}
+TP_SAMP = {**TP_SERVING, "sampling": {"enabled": True}}
+TP_KNOBS = dict(seed=101, temperature=0.8, top_p=0.9)
+TP_FAST = {**TP_SERVING, "prefix_cache": True, "prefill_chunk_tokens": 8,
+           "kv_cache_dtype": "int8"}
+TP_SPEC = {**TP_SERVING, "speculative": {"num_speculative_tokens": 4}}
+
+
+def tp_generate_inputs():
+    """(greedy prompt, keyed ids, padded ids and mask) of the tp tests."""
+    keyed = np.random.default_rng(2).integers(1, 256, (2, 6))
+    ids = np.array([[7, 23, 56, 11, 9], [0, 0, 3, 17, 42]], np.int64)
+    mask = np.array([[1, 1, 1, 1, 1], [0, 0, 1, 1, 1]], np.int64)
+    return np.array([[3, 1, 4, 1, 5]]), keyed, (ids, mask)
+
+
+def tp_fast_stream(srv):
+    """A shared 16-token system prompt: ``a`` served alone first, then
+    ``c`` extending it inside its partial last block (copy-on-write), a
+    tiled motif and one that shares nothing; 6 new tokens each."""
+    rng = np.random.default_rng(0)
+    system = rng.integers(1, 256, 16)
+    motif = rng.integers(1, 256, 4)
+    a = np.concatenate([system, rng.integers(1, 256, 3)])
+    rest = [np.concatenate([system, rng.integers(1, 256, 9)]),
+            np.concatenate([a, rng.integers(1, 256, 2)]),
+            np.concatenate([system, np.tile(motif, 3)]), np.tile(motif, 4)]
+    reqs = [srv.submit(a, max_new_tokens=6, request_id="a")]
+    srv.drain()
+    reqs += [srv.submit(p, max_new_tokens=6, request_id=rid)
+             for rid, p in zip("bcmu", rest)]
+    srv.drain()
+    return [r.tokens for r in reqs]
+
+
+def _tiny_model(weights, **extra):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config.tiny(dtype=torch.float32, **extra)
+    model = GPT2LMHeadModel(cfg, device="meta")
+    model.load_state_dict(weights, assign=True)
+    return model
+
+
+def _tp_layers(rank, world, args):
+    """The column / row / MLP functions and modules on this rank's
+    shards of ``args["layers"]`` (flax-layout ``[in, out]`` numpy)."""
+    from deepspeed_tpu_torch.module_inject import layers
+
+    lay = {k: torch.from_numpy(v) for k, v in args["layers"].items()}
+    w_in, w_out = lay["w_in"].T, lay["w_out"].T         # [out, in]
+    w_in_r = w_in.chunk(world, 0)[rank]
+    b_in_r = lay["b_in"].chunk(world, 0)[rank]
+    w_out_r = w_out.chunk(world, 1)[rank].contiguous()
+    h_r = lay["h"].chunk(world, -1)[rank]
+    group = torch.distributed.group.WORLD
+    tp = layers.TensorParallel(group=group, size=world, rank=rank)
+    col = layers.ColumnParallelLinear(w_in.shape[1], w_in.shape[0], world)
+    row = layers.RowParallelLinear(w_out.shape[1], w_out.shape[0], tp)
+    with torch.no_grad():
+        col.weight.copy_(w_in_r)
+        col.bias.copy_(b_in_r)
+        row.weight.copy_(w_out_r)
+        row.bias.copy_(lay["b_out"])
+        return {
+            "column": _np(layers.column_parallel_linear(lay["x"], w_in_r,
+                                                        b_in_r)),
+            "row": _np(layers.row_parallel_linear(h_r, w_out_r,
+                                                  lay["b_out"], group)),
+            "row_nobias": _np(layers.row_parallel_linear(h_r, w_out_r,
+                                                         None, group)),
+            "mlp": _np(layers.injected_mlp(lay["x"], w_in_r, b_in_r, w_out_r,
+                                           lay["b_out"], group)),
+            "modules": _np(row(torch.nn.functional.gelu(
+                col(lay["x"]), approximate="tanh")))}
+
+
+def _generate(engine, ids, n, mask=None, **kw):
+    out = engine.generate(torch.from_numpy(np.asarray(ids)),
+                          max_new_tokens=n,
+                          attention_mask=None if mask is None
+                          else torch.from_numpy(mask), **kw)
+    return _np(out)[:, np.asarray(ids).shape[1]:].tolist()
+
+
+def tensor_parallel(rank, world, args):
+    """Tensor-parallel inference and serving at ``tp_size = world`` on a
+    tiny fp32 GPT-2 made from ``args["weights"]`` (the port's whole state
+    dict): the layers, this rank's slices and specs, greedy / keyed /
+    padded ``generate``, paged, sampled and fast-path serving, the
+    all-reduces a forward, and (``args["wide3"]``) the 3-head model whose
+    attention stays whole; on 4 ranks also a tp=2 engine, which must
+    raise, and a tp=1 engine, which serves alone."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils import groups
+    from deepspeed_tpu_torch.utils.params import shard_for_rank
+
+    def engine(**kw):
+        return deepspeed_tpu_torch.init_inference(
+            _tiny_model(args["weights"]), dtype="fp32", device="cpu",
+            tensor_parallel={"tp_size": world}, **kw)
+
+    out = {"layers": _tp_layers(rank, world, args)}
+    greedy, keyed, (pad_ids, pad_mask) = tp_generate_inputs()
+    eng = engine()
+    out["greedy"] = _generate(eng, greedy, 6)
+    comm.reset_counts()
+    eng.forward(torch.from_numpy(greedy))
+    out["forward_counts"] = dict(comm.counts)
+    out["local"] = {k: _np(v) for k, v in eng.module.state_dict().items()}
+    out["shard_for_rank"] = {
+        k: _np(v) for k, v in shard_for_rank(
+            args["weights"], eng.model_config, rank, world).items()}
+    out["specs"] = {k: None if s is None else tuple(s)
+                    for k, s in eng.param_shardings.items()}
+    out["mp_world_size"] = eng.mp_world_size
+    out["groups"] = (groups.get_tensor_parallel_world_size(),
+                     groups.get_tensor_parallel_rank(),
+                     groups.get_model_parallel_world_size(),
+                     groups.get_model_parallel_rank(),
+                     comm.get_all_ranks_from_group(
+                         groups.get_tensor_parallel_group()),
+                     comm.get_all_ranks_from_group("tp"))
+    if world == 4:
+        try:
+            deepspeed_tpu_torch.init_inference(
+                _tiny_model(args["weights"]), dtype="fp32", device="cpu",
+                tensor_parallel={"tp_size": 2})
+            out["tp2_on_world4"] = None
+        except NotImplementedError as e:
+            out["tp2_on_world4"] = str(e)
+        # tp 1 needs no group: each rank serves alone
+        alone = deepspeed_tpu_torch.init_inference(
+            _tiny_model(args["weights"]), dtype="fp32", device="cpu",
+            tensor_parallel={"tp_size": 1})
+        out["tp1_on_world4"] = (_generate(alone, greedy, 6),
+                                alone.topo.world_size)
+        return out
+    out["keyed"] = _generate(eng, keyed, 6, do_sample=True, **TP_KNOBS)
+    out["padded"] = _generate(eng, pad_ids, 6, mask=pad_mask)
+    srv = deepspeed_tpu_torch.init_serving(engine(serving=TP_PAGED))
+    req = srv.submit([11, 23, 42, 7], max_new_tokens=8)
+    srv.drain()
+    out["paged"] = req.tokens
+    out["paged_pools"] = [tuple(p.shape) for p in srv.cache.pools()]
+    out["paged_stats_tp"] = srv.stats()["tp"]
+    srv = deepspeed_tpu_torch.init_serving(engine(serving=TP_SAMP))
+    req = srv.submit([5, 17, 42, 9], max_new_tokens=4, do_sample=True,
+                     seed=7, temperature=0.8, top_p=0.9)
+    srv.drain()
+    out["sampled"] = req.tokens
+    srv = deepspeed_tpu_torch.init_serving(engine(serving=TP_FAST))
+    out["fast"] = tp_fast_stream(srv)
+    out["fast_pools"] = [tuple(p.shape) for p in srv.cache.pools()]
+    out["spec"] = tp_fast_stream(deepspeed_tpu_torch.init_serving(
+        engine(serving=TP_SPEC)))
+    eng3 = deepspeed_tpu_torch.init_inference(
+        _tiny_model(args["wide3"], n_embd=96, n_head=3), dtype="fp32",
+        device="cpu", tensor_parallel={"tp_size": world})
+    out["wide3"] = {
+        "greedy": _generate(eng3, greedy, 6),
+        "shapes": {k: tuple(v.shape)
+                   for k, v in eng3.module.state_dict().items()},
+        "cache_heads": eng3.module.new_cache(1).keys[0].shape[2]}
     return out
