@@ -156,11 +156,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sources); 24 all-reduces a forward and no all-gather (vocab 50257
    does not split); each rank's split weights and pools half of tp=1's
    bytes. The ms of a decode step per rank is
-   printed for information: host-staged gloo, nothing of NCCL's speed.
+   printed for information: host-staged gloo, nothing of NCCL's speed;
+10. "tp_training": GPT-2 125M (bf16, dots remat, fused AdamW, clip 1.0,
+   weights from ``--seed``) trained through ``initialize(config={"mesh":
+   {"tp": 2}})`` on 2 spawned gloo ranks on ``cuda:0``, micro-batch 4 x
+   1024, three engines: ZeRO stage 0, stage 3, and stage 0 with
+   ``partition_activations``; each one's step-1 gradients (merged whole
+   from the ranks' slices), one warm-up and 3 timed steps. Both ranks'
+   losses and replicated parameters bit-equal; stage 0's losses within
+   0.05 of a tp=1 engine's on the same seed and batch (run first, in this
+   process) and its step-1 gradients within 5 % relative L2 a tensor;
+   stage 3 within 1e-3 (losses) and 1e-4 (gradients) of stage 0;
+   ``partition_activations`` bit-equal to stage 0; collectives a step
+   equal to the plan (``ZeroPartition.comm_plan`` plus
+   ``GPT2ForTraining.comm_plan``); 12 launches a step of each flash
+   kernel, every one at 6 heads; no dO copied for TMA; the split weights
+   half of tp=1's bytes a rank. Phase 2 holds kernels 1-3 at this shape
+   (B=4 H=6, q, k and v cut from one fused projection, dO as the
+   row-parallel projection hands it back) and at tp=4's one head a rank
+   (B=2 H=1 T=64 D=16). ms a step and peak memory a rank are printed for
+   information: host-staged gloo.
 
-Phases 3, 3b, 4, 5, 5b, 6, 7, 8 and 9 are the main paths (6, 7 and 8 in
-two legs each, 3b one window a stage, summed; 9's launch counts are rank
-0's, zeroed in the rank before its workloads):
+Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9 and 10 are the main paths (6, 7 and 8
+in two legs each, 3b one window a stage and 10 one an engine, summed; 9's
+and 10's launch counts are rank 0's, zeroed in the rank before each
+window):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -221,6 +241,10 @@ PAGED_CASES = (([0, 137, 602, 1000], 1), ([0, 137, 602, 1019], 5),
 # 125M's 12 heads over 2 ranks, 6 a rank; serving's decode step, leg A's
 # decode step, its first chunk and its partial last one
 TP_HEADS = 6
+# tensor-parallel training (phase 10): GPT-2 125M at tp=2 on micro-batches
+# of TPT_BATCH x 1024 tokens, a size the two ranks' gloo all-reduces
+# (staged through the host) finish in seconds a step
+TPT_BATCH = 4
 TP_PAGED_CASES = (([0, 137, 602, 1000], 1),
                   ([408, 440, 500, 630, 800, 955, 411, 445], 1),
                   ([0], 256), ([256], 136))
@@ -385,8 +409,9 @@ def shape_name(b, h, tq, tk, d, layout, causal=True):
 # and with 128 rows a CTA (B * H * ceil(Tq / 128) >= 132; at Tq = 50 the
 # second warpgroup of each CTA has no row), tensor-parallel serving's
 # prefills at 6 heads a rank (phase 9: generate's 2 x 128 and a 1024-token
-# serving bucket, on views cut from the fused projection), and BERT's
-# dense leg last
+# serving bucket, on views cut from the fused projection), tensor-parallel
+# training's on such views (bench.py's B=16 and phase 10's B=TPT_BATCH),
+# and BERT's dense leg last
 # (bench_bert.py: B=64 T=128, 16 heads, non-causal); (B, H, Tq, Tk, D,
 # layout, causal)
 FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
@@ -406,14 +431,21 @@ FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
               (16, 12, 50, 80, 64, "bthd", True),
               (2, 6, 128, 128, 64, "qkv", True),
               (1, 6, 1024, 1024, 64, "qkv", True),
+              (16, 6, 1024, 1024, 64, "qkv", True),
+              (TPT_BATCH, 6, 1024, 1024, 64, "qkv", True),
+              (2, 1, 64, 64, 16, "qkv", True),
               (64, 16, 128, 128, 64, "bthd", False))
-# the flash shapes that are timed: GPT-2 training's and BERT's dense leg
-TIMED_FLASH = ((16, 12, 1024), (64, 16, 128))
+# the flash shapes that are timed: GPT-2 training's, tensor-parallel
+# training's (6 heads a rank at bench.py's micro-batch of 16, and at
+# phase 10's) and BERT's dense leg
+TIMED_FLASH = ((16, 12, 1024), (16, 6, 1024), (TPT_BATCH, 6, 1024),
+               (64, 16, 128))
 # flash backward: the training shape in both layouts (timed), then ragged
 # and offset cases, B=1 at T=1024 (64 rows a CTA on the tensor cores),
 # the other head dims (D=128 over several tiles with 128 rows a CTA), a
-# short causal case, and BERT's dense leg last (timed); (B, H, Tq, Tk, D,
-# layout, causal)
+# short causal case, tensor-parallel training's (timed: 6 heads a rank at
+# bench.py's B=16 and phase 10's B=TPT_BATCH; 1 head a rank at tp=4), and
+# BERT's dense leg last (timed); (B, H, Tq, Tk, D, layout, causal)
 BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (16, 12, 1024, 1024, 64, "bthd", True),
               (2, 12, 100, 100, 64, "bhtd", True),
@@ -428,6 +460,9 @@ BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (4, 16, 512, 512, 128, "bhtd", True),
               (8, 8, 300, 300, 32, "bthd", True),
               (1, 2, 16, 16, 64, "bhtd", True),
+              (16, 6, 1024, 1024, 64, "tp", True),
+              (TPT_BATCH, 6, 1024, 1024, 64, "tp", True),
+              (2, 1, 64, 64, 16, "tp", True),
               (64, 16, 128, 128, 64, "bthd", False))
 
 
@@ -660,9 +695,12 @@ def check_flash_bwd(dtype, gen):
     """The dQ and dK/dV kernels against their plain versions on the same
     inputs (the forward kernel's O and lse). ``[B, T, H, D]`` cases run
     through :func:`flash_attention_bthd` with autograd, checked to launch
-    each kernel once. Returns (dq rows, dkv rows); only the training
-    shape is timed (SDPA's backward, dQ/dK/dV together, as the library
-    yardstick of both)."""
+    each kernel once; ``tp`` cases (tensor-parallel training's shapes) cut
+    q, k and v from one ``[B, T, 3 H D]`` projection, whose gradient the
+    kernels write, and take dO as the row-parallel ``c_proj`` hands it
+    back (a contiguous ``[B, T, H, D]``). Returns (dq rows, dkv rows);
+    only the training shapes are timed (SDPA's backward, dQ/dK/dV
+    together, as the library yardstick of both)."""
     import torch
     import torch.nn.functional as F
 
@@ -672,17 +710,32 @@ def check_flash_bwd(dtype, gen):
     dq_rows, dkv_rows = [], []
     for B, H, Tq, Tk, D, layout, causal in BWD_SHAPES:
         name = shape_name(B, H, Tq, Tk, D, layout, causal)
-        q = rand_heads(B, H, Tq, D, layout, dtype, gen)
-        k, v = (rand_heads(B, H, Tk, D, layout, dtype, gen)
-                for _ in range(2))
-        do = rand_heads(B, H, Tq, D, layout, dtype, gen)
-        if layout == "bthd":  # the whole autograd path through the entry
-            leaves = [t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v)]
+        if layout == "tp":
+            fused = (torch.randn((B, Tq, 3 * H * D), generator=gen,
+                                 device="cuda").to(dtype).requires_grad_())
+            q, k, v = (t.detach().view(B, Tq, H, D).transpose(1, 2)
+                       for t in fused.split(H * D, dim=-1))
+            do = rand_heads(B, H, Tq, D, "bthd", dtype, gen)
+        else:
+            q = rand_heads(B, H, Tq, D, layout, dtype, gen)
+            k, v = (rand_heads(B, H, Tk, D, layout, dtype, gen)
+                    for _ in range(2))
+            do = rand_heads(B, H, Tq, D, layout, dtype, gen)
+        if layout != "bhtd":  # the whole autograd path through the entry
+            if layout == "tp":
+                leaves = [t.view(B, Tq, H, D)
+                          for t in fused.split(H * D, dim=-1)]
+            else:
+                leaves = [t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v)]
             before = launch_counts()
             o = fa.flash_attention_bthd(*leaves, causal=causal)
             o.backward(do.transpose(1, 2))
-            got = [t.grad.transpose(1, 2) for t in leaves]
+            if layout == "tp":
+                got = [g.view(B, Tq, H, D).transpose(1, 2)
+                       for g in fused.grad.split(H * D, dim=-1)]
+            else:
+                got = [t.grad.transpose(1, 2) for t in leaves]
             o = o.detach().transpose(1, 2)
             after = launch_counts()
             for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -2592,10 +2645,12 @@ def tp_rank_main(rank, world, store, seed, out_dir):
         raise
 
 
-def spawn_tp_ranks(seed, world):
-    """Run :func:`tp_rank_main` on ``world`` spawned processes joined
-    through a ``FileStore``; returns their results by rank. Every child
-    is joined within TP_TIMEOUT or killed."""
+def spawn_tp_ranks(target, seed, world):
+    """Run ``target(rank, world, store, seed, out_dir)`` (phase 9's
+    :func:`tp_rank_main`, phase 10's :func:`tpt_rank_main`) on ``world``
+    spawned processes joined through a ``FileStore``; returns the results
+    each pickled, by rank. Every child is joined within TP_TIMEOUT or
+    killed."""
     import multiprocessing
     import pickle
     import tempfile
@@ -2603,7 +2658,7 @@ def spawn_tp_ranks(seed, world):
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp")
     store = os.path.join(out_dir, "store")
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=tp_rank_main,
+    procs = [ctx.Process(target=target,
                          args=(rank, world, store, seed, out_dir))
              for rank in range(world)]
     for p in procs:
@@ -2682,7 +2737,7 @@ def phase_tensor_parallel(seed, card):
     del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_tp_ranks(seed, TP_SIZE)
+    ranks = spawn_tp_ranks(tp_rank_main, seed, TP_SIZE)
     secs = time.perf_counter() - t0
     first = ranks[0]
     for rank, res in enumerate(ranks):
@@ -2762,6 +2817,311 @@ def phase_tensor_parallel(seed, card):
     return first["counts"]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor-parallel training
+# ---------------------------------------------------------------------------
+TPT_STEPS = 3
+# the ranks against tp=1 on the same seed and batch (bf16: the row sums
+# and the heads' split change the summation order): phase 3's standard;
+# ZeRO stage 3 against stage 0 at tp=2: phase 3b's
+TPT_LOSS_ATOL = TRAIN_LOSS_ATOL
+TPT_GRAD_RTOL = TRAIN_GRAD_RTOL
+
+
+def tpt_config(**extra):
+    """bench.py's keys at phase 10's micro-batch, with ``extra``."""
+    from deepspeed_tpu_torch.tools.profile_training import BENCH_CONFIG
+
+    return {**BENCH_CONFIG, "train_micro_batch_size_per_gpu": TPT_BATCH,
+            **extra}
+
+
+def tpt_batch(vocab_size, seed, device):
+    import torch
+
+    rng = np.random.default_rng(seed + 3)
+    ids = rng.integers(0, vocab_size, (TPT_BATCH, 1024))
+    return {"input_ids": torch.from_numpy(ids).to(device)}
+
+
+def tpt_model(seed, **extra):
+    import dataclasses
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForTraining
+    from deepspeed_tpu_torch.tools.profile_training import bench_model
+
+    model = bench_model(seed)
+    if not extra:
+        return model
+    return GPT2ForTraining(dataclasses.replace(model.config, **extra),
+                           seed=seed)
+
+
+def rel_l2(grads, ref):
+    """Per-tensor relative L2 error of ``grads`` against ``ref``."""
+    return {n: ((grads[n].float().cpu() - r.float()).norm()
+                / r.float().norm().clamp_min(1e-30)).item()
+            for n, r in ref.items()}
+
+
+def tpt_run(engine, batch, what):
+    """Step-1 gradients (whole, on the host), one warm-up and TPT_STEPS
+    timed steps with the launch and collective counts zeroed just before
+    and read just after; each step's collectives against the plan."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.tools.profile_training import timed_steps
+
+    engine.module(batch).backward()
+    grads = {n: g.cpu() for n, g in engine.gathered_grads().items()}
+    engine.zero_grad()
+    first, _ = timed_steps(engine, batch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    comm.reset_counts()
+    losses, secs = timed_steps(engine, batch, TPT_STEPS)
+    counts = launch_counts()
+    plan = engine._zero.comm_plan(1, recompute=engine.module.config.remat)
+    for k, v in engine.module.comm_plan(TPT_BATCH, 1024).items():
+        plan[k] = plan.get(k, 0) + v
+    plan = {k: v * TPT_STEPS for k, v in plan.items()}
+    collectives = {k: comm.counts.get(k, 0) for k in plan}
+    if collectives != plan:
+        raise AssertionError(f"{what}: collectives {collectives} in "
+                             f"{TPT_STEPS} steps, the plan {plan}")
+    n_layer = engine.module.config.n_layer
+    check_per_step(what, counts, TPT_STEPS,
+                   {"flash_fwd": n_layer, "flash_bwd_dq": n_layer,
+                    "flash_bwd_dkv": n_layer})
+    return {"losses": first + losses, "ms": 1e3 * secs / TPT_STEPS,
+            "peak": torch.cuda.max_memory_allocated(), "counts": counts,
+            "collectives": collectives}, grads
+
+
+def tpt_rank_main(rank, world, store, seed, out_dir):
+    """One rank of phase 10 (a spawned process): join the gloo group on
+    ``cuda:0`` and train GPT-2 125M at ``{"mesh": {"tp": world}}`` through
+    ``initialize`` three times: ZeRO stage 0, stage 3, and stage 0 with
+    ``partition_activations``. Writes per engine the losses, ms a step,
+    peak memory, launch and collective counts; the heads of every flash
+    launch; the cotangents the flash backward had to copy; the hash of
+    the replicated parameters, the split weights' bytes; rank 0 also
+    stage 0's step-1 gradients (whole) for the parent."""
+    import gc
+    import hashlib
+    import pickle
+    import traceback
+
+    try:
+        os.environ["LOCAL_RANK"] = "0"
+        import torch
+        import torch.distributed as tdist
+
+        import deepspeed_tpu_torch
+        from deepspeed_tpu_torch import comm
+        from deepspeed_tpu_torch.ops import flash_attention as fa
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        comm.init_distributed(dist_backend="gloo",
+                              init_method=f"file://{store}", rank=rank,
+                              world_size=world, timeout=TP_TIMEOUT,
+                              verbose=False)
+        if tdist.get_backend() != "gloo":
+            raise AssertionError("tp training ranks not on gloo")
+        heads = collections.defaultdict(collections.Counter)
+        copies = [0]
+
+        def spy(name, fn):
+            def call(q, *args, **kwargs):
+                heads[name][q.shape[1]] += 1
+                return fn(q, *args, **kwargs)
+            return call
+
+        readable = fa.readable_cotangent
+
+        def counted_copy(do, tma):
+            out = readable(do, tma)
+            copies[0] += out is not do
+            return out
+
+        config = tpt_config(mesh={"tp": world})
+        res = {}
+        with mock.patch.object(fa, "_fwd_launch",
+                               spy("flash_fwd", fa._fwd_launch)), \
+                mock.patch.object(fa, "_dq_launch",
+                                  spy("flash_bwd_dq", fa._dq_launch)), \
+                mock.patch.object(fa, "_dkv_launch",
+                                  spy("flash_bwd_dkv", fa._dkv_launch)), \
+                mock.patch.object(fa, "readable_cotangent", counted_copy):
+            for label, extra, stage in (
+                    ("stage0", {}, 0), ("stage3", {}, 3),
+                    ("partition", {"partition_activations": True}, 0)):
+                whole = tpt_model(seed, **extra)
+                engine = deepspeed_tpu_torch.initialize(
+                    model=whole, config={**config, "zero_optimization": {
+                        "stage": stage}})[0]
+                batch = tpt_batch(whole.config.vocab_size, seed,
+                                  engine.device)
+                specs = engine.module.param_specs()
+                split = {n for n, sp in specs.items() if sp is not None}
+                res[label], grads = tpt_run(engine, batch,
+                                            f"tp training {label}")
+                if label == "stage0":
+                    ref_grads = grads
+                    res["split_bytes"] = (
+                        sum(4 * p.numel() for n, p in
+                            engine.module.named_parameters() if n in split),
+                        sum(4 * p.numel() for n, p in
+                            whole.named_parameters() if n in split))
+                    digest = hashlib.sha256()
+                    for n, p in engine.module.named_parameters():
+                        if n not in split:
+                            digest.update(p.detach().cpu().numpy()
+                                          .tobytes())
+                    res["replicated_sha256"] = digest.hexdigest()
+                    if rank == 0:
+                        res["grads"] = grads
+                elif label == "stage3":
+                    res["stage3_grad_err"] = rel_l2(grads, ref_grads)
+                # stage 3's gather hooks tie the engine in reference
+                # cycles: collect them before the next engine's peak
+                del engine, whole, grads
+                gc.collect()
+                torch.cuda.empty_cache()
+        res["heads"] = {k: dict(v) for k, v in heads.items()}
+        res["cotangent_copies"] = copies[0]
+        comm.destroy_process_group()
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def phase_tp_training(seed, card):
+    """Tensor-parallel training of GPT-2 125M at tp=2 on the one card:
+    the tp=1 reference here (bench.py's keys at TPT_BATCH x 1024, the
+    step-1 gradients and 1 + TPT_STEPS losses), then TP_SIZE spawned
+    ranks on ``cuda:0`` over a gloo group (NCCL refuses two ranks on one
+    device) train the same model from the same seed through
+    ``initialize(config={"mesh": {"tp": 2}})`` at ZeRO stage 0, stage 3
+    and with ``partition_activations``. Holds: the ranks' losses and
+    replicated parameters bit-equal; losses within TPT_LOSS_ATOL of tp=1's
+    and step-1 gradients (merged from the ranks' slices) within
+    TPT_GRAD_RTOL relative L2 a tensor; stage 3's losses within
+    ZERO_LOSS_ATOL and gradients within ZERO_GRAD_RTOL of stage 0's;
+    ``partition_activations``' losses bit-equal to stage 0's; collectives
+    a step equal to the plan; 12 launches a step of each flash kernel,
+    all at 6 heads; no cotangent copied for TMA; each rank's split
+    weights half of tp=1's bytes. Returns rank 0's launch counts summed
+    over its three engines' timed steps."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.tools.profile_training import timed_steps
+
+    model = tpt_model(seed)
+    engine = deepspeed_tpu_torch.initialize(model=model,
+                                            config=tpt_config())[0]
+    batch = tpt_batch(model.config.vocab_size, seed, engine.device)
+    ref_grads = first_grads(engine, batch)
+    ref_grads = {n: g.cpu() for n, g in ref_grads.items()}
+    warm, _ = timed_steps(engine, batch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = timed_steps(engine, batch, TPT_STEPS)
+    ref = {"losses": warm + losses, "ms": 1e3 * secs / TPT_STEPS,
+           "peak": torch.cuda.max_memory_allocated()}
+    del engine, model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_tp_ranks(tpt_rank_main, seed, TP_SIZE)
+    secs = time.perf_counter() - t0
+    grads = ranks[0].pop("grads")
+    first = ranks[0]
+    for rank, res in enumerate(ranks):
+        what = f"tp training rank {rank}"
+        for label in ("stage0", "stage3", "partition"):
+            if res[label]["losses"] != first[label]["losses"]:
+                raise AssertionError(f"{what} {label}: losses "
+                                     f"{res[label]['losses']} differ from "
+                                     f"rank 0's {first[label]['losses']}")
+        if res["replicated_sha256"] != first["replicated_sha256"]:
+            raise AssertionError(f"{what}: replicated parameters differ "
+                                 f"from rank 0's")
+        if set(res["heads"]) != {"flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv"} or any(
+                set(h) != {TP_HEADS} for h in res["heads"].values()):
+            raise AssertionError(f"{what}: flash launches at heads "
+                                 f"{res['heads']}, not only {TP_HEADS}")
+        if res["cotangent_copies"]:
+            raise AssertionError(f"{what}: the flash backward copied "
+                                 f"{res['cotangent_copies']} cotangents")
+        local, whole = res["split_bytes"]
+        if not local or 2 * local != whole:
+            raise AssertionError(f"{what}: {local} bytes of split weights, "
+                                 f"not half of tp=1's {whole}")
+    stage0, stage3, part = (first[k] for k in ("stage0", "stage3",
+                                               "partition"))
+    loss_err = max(abs(a - b) for a, b in zip(stage0["losses"],
+                                              ref["losses"]))
+    grad_err = rel_l2(grads, ref_grads)
+    worst = max(grad_err, key=grad_err.get)
+    if loss_err > TPT_LOSS_ATOL or grad_err[worst] > TPT_GRAD_RTOL:
+        raise AssertionError(
+            f"tp training vs tp=1: losses {stage0['losses']} vs "
+            f"{ref['losses']} (max diff {loss_err}); step-1 gradient "
+            f"{worst} relative L2 {grad_err[worst]}")
+    z_loss = max(abs(a - b) for a, b in zip(stage3["losses"],
+                                            stage0["losses"]))
+    z_grad = first["stage3_grad_err"]
+    z_worst = max(z_grad, key=z_grad.get)
+    if z_loss > ZERO_LOSS_ATOL or z_grad[z_worst] > ZERO_GRAD_RTOL:
+        raise AssertionError(
+            f"tp training stage 3 vs stage 0: losses {stage3['losses']} vs"
+            f" {stage0['losses']} (max diff {z_loss}); step-1 gradient "
+            f"{z_worst} relative L2 {z_grad[z_worst]}")
+    def per_step(counts):
+        return {k: v / TPT_STEPS for k, v in counts.items()}
+
+    if part["losses"] != stage0["losses"]:
+        raise AssertionError(f"tp training partition_activations: losses "
+                             f"{part['losses']} vs {stage0['losses']}")
+    log(f"tensor-parallel training: GPT-2 125M bf16, {TP_SIZE} ranks on "
+        f"cuda:0 over gloo (NCCL refuses two ranks on one device; gloo "
+        f"stages CUDA tensors through the host), micro-batch {TPT_BATCH} "
+        f"x 1024, dots remat, fused AdamW, clip 1.0, in {secs:.1f} s: "
+        f"ranks' losses and replicated parameters bit-equal; losses "
+        f"{[round(x, 4) for x in stage0['losses']]} vs tp=1 "
+        f"{[round(x, 4) for x in ref['losses']]} (max |diff| "
+        f"{loss_err:.3g}, limit {TPT_LOSS_ATOL}); step-1 gradients "
+        f"relative L2 max {grad_err[worst]:.3g} at {worst}, median "
+        f"{float(np.median(list(grad_err.values()))):.3g} (limit "
+        f"{TPT_GRAD_RTOL}); stage 3 vs stage 0 losses max |diff| "
+        f"{z_loss:.3g}, gradients max {z_grad[z_worst]:.3g} at {z_worst}; "
+        f"partition_activations bit-equal; collectives a step "
+        + "; ".join(f"{k} {per_step(first[k]['collectives'])}"
+                    for k in ("stage0", "stage3", "partition"))
+        + f" (= the plan); flash launches {first['heads']} at {TP_HEADS} "
+        f"heads, 0 cotangents copied; split weights "
+        f"{first['split_bytes'][0]} of {first['split_bytes'][1]} bytes a "
+        f"rank [{card}]")
+    log(f"tensor-parallel training, for information only (gloo host-staged"
+        f" all-reduces, nothing of NCCL's speed): ms a step "
+        + ", ".join(f"{k} {first[k]['ms']:.1f}" for k in
+                    ("stage0", "stage3", "partition"))
+        + f" per rank (tp=1: {ref['ms']:.1f}); peak memory a rank "
+        + ", ".join(f"{k} {first[k]['peak'] / 1e9:.3f} GB" for k in
+                    ("stage0", "stage3", "partition"))
+        + f" (tp=1: {ref['peak'] / 1e9:.3f} GB) [{card}]")
+    total = collections.Counter()
+    for k in ("stage0", "stage3", "partition"):
+        total.update(first[k]["counts"])
+    return dict(total)
+
+
 # the thirteen TPU kernels, rows 1-13 of PERF.md's table, each with: its
 # port source, the TPU kernel it replaces, the path whose count is
 # "launches" (None: no path calls it, and "launches" sums every path's),
@@ -2788,10 +3148,11 @@ KERNEL_TABLE = {
                         "flash_fwd", 3, rows=("lse_err",), noncausal=True,
                         fp32_source="flash_fwd.cu"),
     "flash_bwd_dq": Kernel("flash_bwd_dq_sm90.cu", f"{_FLASH}:196",
-                           "training", "flash_bwd_dq", 0, noncausal=True,
-                           fp32_source="flash_bwd_dq.cu"),
+                           "training", "flash_bwd_dq", 0, rows=(),
+                           noncausal=True, fp32_source="flash_bwd_dq.cu"),
     "flash_bwd_dkv": Kernel("flash_bwd_dkv_sm90.cu", f"{_FLASH}:252",
-                            "training", "flash_bwd_dkv", 0, noncausal=True,
+                            "training", "flash_bwd_dkv", 0, rows=(),
+                            noncausal=True,
                             fp32_source="flash_bwd_dkv.cu"),
     "flash_fwd_bthd": Kernel("flash_fwd_sm90.cu", f"{_FLASH}:504",
                              "training", "flash_fwd", 4,
@@ -3001,6 +3362,10 @@ def main():
     t0 = time.perf_counter()
     by_path["tensor_parallel"] = phase_tensor_parallel(args.seed, card)
     log(f"phase 9: tensor-parallel inference and serving at tp={TP_SIZE} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["tp_training"] = phase_tp_training(args.seed, card)
+    log(f"phase 10: tensor-parallel training at tp={TP_SIZE} in "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernel_line(kernel_rows, by_path)}))

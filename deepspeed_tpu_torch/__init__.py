@@ -12,10 +12,11 @@ one-card training path
 LAMB, and the flash-attention backward kernels) for GPT-2 and for BERT,
 whose ``sparse_attention`` config section routes attention through the
 block-sparse layout zoo and its kernels (``ops/sparse_attention``).
-Training runs data-parallel over ``torch.distributed`` (``comm``), one
-process per device, with ZeRO stages 0-3 (``runtime/zero``, ``zero``) on
-a ``data x fsdp`` mesh (``parallel/topology.py``); inference and serving
-run tensor-parallel on a ``tp`` mesh, one process a rank
+Training runs over ``torch.distributed`` (``comm``), one process per
+device, with ZeRO stages 0-3 (``runtime/zero``, ``zero``) on a ``data x
+fsdp x tp`` mesh (``parallel/topology.py``; GPT-2's layers split over
+``tp`` with Megatron's f/g pair); inference and serving run
+tensor-parallel on a ``tp`` mesh, one process a rank
 (``module_inject``).
 
 ``DeepSpeedEngine``, ``InferenceEngine``, ``SparseSelfAttention``,
@@ -39,10 +40,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``mesh`` (a :class:`~deepspeed_tpu_torch.parallel.topology.
     MeshTopology` or an axis dict such as ``{"data": 2, "fsdp": 2}``; the
     config's ``mesh`` section otherwise) or a ZeRO stage above 0 makes
-    the run data-parallel: one process per device, each calling
-    ``initialize`` with the same arguments, the process group started by
-    :func:`init_distributed` unless one runs (``dist_init_required=False``
-    refuses to start one).
+    the run multi-process: one process per device, each calling
+    ``initialize`` with the same arguments and the whole model, the
+    process group started by :func:`init_distributed` unless one runs
+    (``dist_init_required=False`` refuses to start one). A ``tp`` axis
+    above 1 trains this rank's tensor-parallel slice of the model (its
+    ``with_tensor_parallel`` hook: ``GPT2ForTraining``).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
     the dataloader is None. ``training_data`` comes with the checkpoint

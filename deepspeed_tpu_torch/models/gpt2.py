@@ -35,6 +35,20 @@ the vocabulary's pair. Attention stays whole on every rank where the
 heads do not divide by tp, as the JAX wrappers fall back to the plain
 call; the caches and pools hold the rank's heads.
 
+Training under tensor parallelism (:meth:`GPT2ForTraining.
+with_tensor_parallel`, which the engine calls on a ``tp`` mesh): the same
+slices, with gradients through Megatron's f/g pair (``module_inject/
+layers.py``): f before each column layer and the head, g after each row
+layer and the vocab-parallel lookup. Under a split vocabulary the loss is
+Megatron's vocab-parallel cross-entropy (:func:`vocab_parallel_nll`):
+each rank's logits stay local, and two all-reduces of ``[N]`` values (the
+row maxima, then each row's sum of exponentials with its target logit)
+give every rank the whole-vocabulary loss; gathering the logits would
+move ``N x V`` values instead. With ``partition_activations`` each
+rank keeps ``T / tp`` rows of every block input the checkpoint saves
+(``models/remat_utils.py``). :meth:`GPT2ForTraining.comm_plan` counts the
+collectives a micro-step issues.
+
 ALiBi, rotary, parallel residuals, local windows, dropout and
 progressive layer drop belong to other model families or later slices.
 """
@@ -56,6 +70,9 @@ from deepspeed_tpu_torch.models.remat_utils import (REMAT_POLICIES,
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.module_inject.layers import (ColumnParallelLinear,
                                                       RowParallelLinear,
+                                                      TensorParallel,
+                                                      copy_to_tp,
+                                                      gather_from_tp,
                                                       tp_all_reduce)
 from deepspeed_tpu_torch.module_inject.policies import (decode_cache_specs,
                                                         get_tp_policy)
@@ -98,6 +115,10 @@ class GPT2Config:
     # recomputes the elementwise chains — models/remat_utils.py)
     remat: bool = False
     remat_policy: str = "full"
+    # training under tensor parallelism: each tp rank keeps T / tp rows of
+    # the block inputs the checkpoint saves, all-gathered at recompute
+    # (JAX's P(data, model, None) constraint); a no-op at tp = 1
+    partition_activations: bool = False
     # accepted for the JAX config's sake: the port loops over its layers
     scan_layers: bool = True
     # None/True: flash attention; False: the dense plain attention (the
@@ -250,7 +271,7 @@ def _pair(column, row, tp, device):
     if tp is None:
         return (nn.Linear(*column, device=device),
                 nn.Linear(*row, device=device))
-    return (ColumnParallelLinear(*column, tp.size, device=device),
+    return (ColumnParallelLinear(*column, tp, device=device),
             RowParallelLinear(*row, tp, device=device))
 
 
@@ -538,6 +559,8 @@ class GPT2LMHeadModel(nn.Module):
         step, pos = self._step(input_ids, cache, paging, attention_mask)
         x = self._embed(input_ids) + self.wpe[pos].to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
+        partition = (self.tp if cfg.partition_activations and self.tp
+                     and self.tp.size > 1 else None)
         for i, block in enumerate(self.h):
             if cfg.decode:
                 scales = ((cache.key_scales[i], cache.value_scales[i])
@@ -545,7 +568,8 @@ class GPT2LMHeadModel(nn.Module):
                 x = block(x, cache.keys[i], cache.values[i], step, scales)
             elif remat:
                 x = checkpointed(block, x, None, None, step,
-                                 policy=cfg.remat_policy)
+                                 policy=cfg.remat_policy,
+                                 partition=partition)
             else:
                 x = block(x, step=step)
         if cfg.decode and not cfg.paged:
@@ -571,11 +595,11 @@ class GPT2LMHeadModel(nn.Module):
     def lm_head(self, hidden):
         """Tied-embedding logits in fp32 (:func:`head_logits`);
         vocab-parallel, this rank's logits all-gathered."""
-        logits = head_logits(hidden, self.wte)
         if self.vocab_tp is None:
-            return logits
-        return comm.all_gather(logits, group=self.vocab_tp.group, axis=-1,
-                               tiled=True)
+            return head_logits(hidden, self.wte)
+        group = self.vocab_tp.group
+        return gather_from_tp(head_logits(copy_to_tp(hidden, group),
+                                          self.wte), group, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -620,29 +644,82 @@ def shift_labels(labels, ignore_index: int = -100):
                      dim=1)
 
 
-def _nll_sum(logits, labels, ignore_index):
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token cross-entropy ``[N]`` of logits split over a tp group's
+    vocabulary (``logits [N, V/tp]`` fp32, this rank's ``rank``-th slice;
+    ``labels [N]`` whole-vocabulary ids): the row maxima all-reduced by
+    MAX, then each row's sum of exponentials and its target logit (on the
+    rank that holds it) in one SUM all-reduce. Backward: ``softmax -
+    onehot`` of the local slice, no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, rank, ignore_index):
+        rows = logits.shape[-1]
+        m = comm.all_reduce(logits.max(dim=-1).values, op=comm.ReduceOp.MAX,
+                            group=group)
+        shifted = logits - m[:, None]
+        local = labels - rank * rows
+        inside = (local >= 0) & (local < rows)
+        local = local.clamp(0, rows - 1)
+        target = torch.where(
+            inside, shifted.gather(1, local[:, None])[:, 0], 0.0)
+        exp = shifted.exp()
+        sums = comm.all_reduce(torch.stack([exp.sum(dim=-1), target]),
+                               group=group)
+        valid = labels != ignore_index
+        nll = torch.where(valid, sums[0].log() - sums[1], 0.0)
+        exp.div_(sums[0][:, None])
+        ctx.save_for_backward(exp, local, inside & valid, valid)
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad):
+        softmax, local, hit, valid = ctx.saved_tensors
+        g = softmax.scatter_add(1, local[:, None], -hit.to(softmax.dtype)
+                                [:, None])
+        return g * (grad * valid)[:, None], None, None, None, None
+
+
+def vocab_parallel_nll(logits, labels, tp: TensorParallel,
+                       ignore_index: int = -100):
+    """Summed cross-entropy of ``[..., V/tp]`` fp32 logits, this tp rank's
+    vocabulary slice (:class:`_VocabParallelNLL`), against whole-
+    vocabulary ``labels``: the same value on every rank of ``tp.group``."""
+    return _VocabParallelNLL.apply(
+        logits.reshape(-1, logits.shape[-1]).float(), labels.reshape(-1),
+        tp.group, tp.rank, ignore_index).sum()
+
+
+def _nll_sum(logits, labels, ignore_index, tp=None):
+    if tp is not None:
+        return vocab_parallel_nll(logits, labels, tp, ignore_index)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            labels.reshape(-1), ignore_index=ignore_index,
                            reduction="sum")
 
 
-def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+def cross_entropy_loss(logits, labels, ignore_index: int = -100, tp=None):
     """Mean token cross-entropy in fp32, masked where ``labels ==
-    ignore_index`` (0 when every token is)."""
+    ignore_index`` (0 when every token is); ``tp``: the logits are this
+    rank's slice of a vocabulary split over ``tp.group``."""
     valid = (labels != ignore_index).sum().clamp_min(1)
-    return _nll_sum(logits.float(), labels, ignore_index) / valid
+    return _nll_sum(logits.float(), labels, ignore_index, tp) / valid
 
 
 def chunked_softmax_xent(hidden, wte, labels, chunk: int = 128,
-                         ignore_index: int = -100):
+                         ignore_index: int = -100, tp=None):
     """Cross-entropy against the tied embedding without the full ``[B, T,
     V]`` fp32 logits: one sequence chunk at a time, each under activation
     checkpointing, so the peak is ``[B, chunk, V]`` and backward recomputes
-    each chunk's logits (the JAX version's remat'd scan)."""
+    each chunk's logits (the JAX version's remat'd scan). ``tp``: ``wte``
+    is this rank's vocabulary slice; the vocab-parallel loss, ``hidden``'s
+    gradient summed over the group once."""
     w = wte.to(hidden.dtype)
+    if tp is not None:
+        hidden = copy_to_tp(hidden, tp.group)
 
     def chunk_nll(hc, wc, lc):
-        return _nll_sum(head_logits(hc, wc), lc, ignore_index)
+        return _nll_sum(head_logits(hc, wc), lc, ignore_index, tp)
 
     total = hidden.new_zeros((), dtype=torch.float32)
     for t0 in range(0, hidden.shape[1], chunk):
@@ -651,16 +728,29 @@ def chunked_softmax_xent(hidden, wte, labels, chunk: int = 128,
     return total / (labels != ignore_index).sum().clamp_min(1)
 
 
+def _dense_head(rows, seq, vocab, dense_budget) -> bool:
+    """Whether the head's fp32 ``[rows, seq, vocab]`` logits fit."""
+    return rows * seq * vocab * 4 <= dense_budget
+
+
 def lm_head_loss(hidden, head_w, shifted_labels,
-                 dense_budget: int = 1_000_000_000, chunk: int = 512):
+                 dense_budget: int = 1_000_000_000, chunk: int = 512,
+                 tp=None):
     """LM-head cross-entropy with the dense-vs-chunked switch: the full
     ``[B, T, V]`` fp32 logits when they fit ``dense_budget`` bytes, else
     :func:`chunked_softmax_xent`. The tied head has no bias (GPT-J's
-    separate head and its bias come with that model family)."""
+    separate head and its bias come with that model family). ``tp``: the
+    vocabulary is split over ``tp.group`` (``head_w`` is this rank's
+    slice); the switch reads the whole vocabulary, as in JAX."""
     B, T, _ = hidden.shape
-    if B * T * head_w.shape[0] * 4 <= dense_budget:
-        return cross_entropy_loss(head_logits(hidden, head_w), shifted_labels)
-    return chunked_softmax_xent(hidden, head_w, shifted_labels, chunk=chunk)
+    vocab = head_w.shape[0] * (tp.size if tp is not None else 1)
+    if not _dense_head(B, T, vocab, dense_budget):
+        return chunked_softmax_xent(hidden, head_w, shifted_labels,
+                                    chunk=chunk, tp=tp)
+    if tp is not None:
+        hidden = copy_to_tp(hidden, tp.group)
+    return cross_entropy_loss(head_logits(hidden, head_w), shifted_labels,
+                              tp=tp)
 
 
 def _input_ids_labels(batch):
@@ -674,19 +764,24 @@ def _input_ids_labels(batch):
     return ids, ids if labels is None else labels.long()
 
 
+def _head_budget(config: GPT2Config) -> int:
+    """The dense head's logits budget: 3.5 GB under remat and 1 GB
+    without, where the saved block activations already take the
+    memory."""
+    return 3_500_000_000 if config.remat else 1_000_000_000
+
+
 def gpt2_loss_fn(model: GPT2LMHeadModel):
     """Engine-facing loss of ``model``: ``fn(batch) -> loss``, the
-    next-token objective (labels shifted inside). The dense head gets a
-    3.5 GB logits budget under remat and 1 GB without, where the saved
-    block activations already take the memory."""
+    next-token objective (labels shifted inside), vocab-parallel where
+    ``model`` splits its vocabulary."""
 
     def loss_fn(batch):
         ids, labels = _input_ids_labels(batch)
         hidden = model(ids, return_hidden=True)
-        return lm_head_loss(
-            hidden, model.wte, shift_labels(labels),
-            dense_budget=3_500_000_000 if model.config.remat
-            else 1_000_000_000)
+        return lm_head_loss(hidden, model.wte, shift_labels(labels),
+                            dense_budget=_head_budget(model.config),
+                            tp=model.vocab_tp)
 
     return loss_fn
 
@@ -694,21 +789,80 @@ def gpt2_loss_fn(model: GPT2LMHeadModel):
 class GPT2ForTraining(nn.Module):
     """Engine-ready GPT-2: ``initialize(model=GPT2ForTraining(cfg))``;
     ``forward(batch)`` returns the mean next-token loss. Weights as in
-    :class:`GPT2LMHeadModel` (``seed``, ``device="meta"`` for none)."""
+    :class:`GPT2LMHeadModel` (``seed``, ``device="meta"`` for none);
+    ``tp``: this rank's tensor-parallel slice (weights from
+    :meth:`with_tensor_parallel`, not ``seed``)."""
 
-    def __init__(self, config: GPT2Config, device=None, seed: int = 0):
+    def __init__(self, config: GPT2Config, device=None, seed: int = 0,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         if config.decode:
             raise ValueError("GPT2ForTraining needs a config without decode")
         self.config = config
-        self.model = GPT2LMHeadModel(config, device=device, seed=seed)
+        self.model = GPT2LMHeadModel(config, device=device, seed=seed, tp=tp)
         self.loss_fn = gpt2_loss_fn(self.model)
 
     def forward(self, batch):
         return self.loss_fn(batch)
 
+    @property
+    def tp(self) -> Optional[TensorParallel]:
+        return self.model.tp
+
+    def with_tensor_parallel(self, tp: TensorParallel, policy="auto"):
+        """This rank's tensor-parallel slice of this whole model (on its
+        device): the slices :meth:`GPT2LMHeadModel.tp_specs` gives under
+        ``policy`` at ``tp.size`` ranks, copied from this model's
+        weights (the inference engine's ``_shard``)."""
+        from deepspeed_tpu_torch.module_inject.policies import \
+            shard_params_with_policy
+
+        if self.tp is not None:
+            raise ValueError("the model is a tensor-parallel slice already")
+        specs = self.model.tp_specs(policy, tp.size)
+        local, _ = shard_params_with_policy(self.model.state_dict(), policy,
+                                            tp.rank, tp.size, specs=specs)
+        sliced = GPT2ForTraining(self.config, device=self.model.wte.device,
+                                 tp=dataclasses.replace(tp, specs=specs))
+        sliced.model.load_state_dict(local)
+        return sliced
+
+    def param_specs(self) -> dict:
+        """``{parameter name: tp PartitionSpec or None}`` in the port's
+        dim order (the JAX model's ``param_specs``), for SpecLayout."""
+        specs = self.tp.specs if self.tp is not None else {}
+        return {name: specs.get(name[len("model."):])
+                for name, _ in self.named_parameters()}
+
+    def comm_plan(self, rows: int, seq: int) -> dict:
+        """The tensor-parallel collectives of one micro-step (forward and
+        backward) on ``rows`` x ``seq`` tokens a rank: g's all-reduce a
+        split pair forward and f's backward, and under ``"full"`` remat
+        g's again at the recompute (``"dots"`` saves it); the split
+        vocabulary's lookup, head (f) and loss (2 a call, and under the
+        chunked head 2 more a chunk at its recompute); under
+        ``partition_activations`` one all-gather a block. Empty at tp 1."""
+        tp, cfg = self.tp, self.config
+        if tp is None or tp.size == 1:
+            return {}
+        pairs = sum(isinstance(layer, ColumnParallelLinear)
+                    for block in self.model.h
+                    for layer in (block.attn.c_attn, block.mlp.c_fc))
+        remat = cfg.remat
+        all_reduce = pairs * (2 + int(remat and cfg.remat_policy == "full"))
+        all_gather = 0
+        if remat and cfg.partition_activations and seq % tp.size == 0:
+            all_gather = cfg.n_layer
+        if self.model.vocab_tp is not None:
+            heads = 1
+            if not _dense_head(rows, seq, cfg.vocab_size, _head_budget(cfg)):
+                heads = 2 * -(-seq // 512)  # forward and recompute a chunk
+            all_reduce += 2 + 2 * heads  # lookup, f, the loss's pair
+        return {"all_reduce": all_reduce, "all_gather": all_gather}
+
 
 __all__ = ["GPT2Config", "GPT2LMHeadModel", "GPT2ForTraining", "KVCache",
            "PagedKVCache", "Block", "MLP", "CausalSelfAttention",
            "chunked_softmax_xent", "cross_entropy_loss", "gpt2_loss_fn",
-           "head_logits", "lm_head_loss", "shift_labels"]
+           "head_logits", "lm_head_loss", "shift_labels",
+           "vocab_parallel_nll"]

@@ -18,8 +18,22 @@ Two policies, as in the JAX model:
   S]`` fp32 a layer) is the port's choice, since that forward is a
   kernel's whole run.
 
-The host-offload (``cpu_checkpointing``) and ``partition_activations``
-knobs of the JAX helpers come with the offload and multi-GPU slices.
+Under tensor parallelism the row-parallel sums run inside each block:
+``"dots"`` saves their output too (the custom op ``deepspeed_tpu_torch::
+tp_all_reduce``), so a block's recompute issues no collective; an
+in-place ``torch.distributed`` all-reduce would run again at every
+recompute under that policy. ``"full"`` re-runs the block, its sums
+included: 2 all-reduces a block more a step.
+
+``partition_activations`` (``checkpointed(..., partition=tp)``, JAX
+``saved_block_input``'s ``P(data, model, None)``): the block input that
+the checkpoint keeps for its recompute is held as this tp rank's ``T /
+tp`` rows, a copy, and the rows are all-gathered (one tiled all-gather
+over the tp group) when the recompute unpacks it. The checkpoint saves
+its inputs outside its own saved-tensor hooks, so an outer pair of hooks
+packs that input alone. A block input whose ``T`` does not divide stays
+whole. The host-offload ``cpu_checkpointing`` knob comes with the offload
+slice.
 """
 
 import functools
@@ -28,7 +42,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-# register the deepspeed_tpu_torch::flash_fwd and ::block_sparse_fwd ops
+from deepspeed_tpu_torch import comm
+# register the deepspeed_tpu_torch::flash_fwd, ::block_sparse_fwd and
+# ::tp_all_reduce ops
+import deepspeed_tpu_torch.module_inject.layers  # noqa: F401
 import deepspeed_tpu_torch.ops.flash_attention  # noqa: F401
 import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel  # noqa
 
@@ -39,6 +56,7 @@ SAVED_OPS = frozenset({
     _aten.mm.default, _aten.addmm.default, _aten.bmm.default,
     _aten.baddbmm.default, torch.ops.deepspeed_tpu_torch.flash_fwd.default,
     torch.ops.deepspeed_tpu_torch.block_sparse_fwd.default,
+    torch.ops.deepspeed_tpu_torch.tp_all_reduce.default,
 })
 
 
@@ -48,13 +66,36 @@ def dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def checkpointed(fn, *args, policy="full"):
-    """``fn(*args)`` under activation checkpointing with ``policy``."""
+def _partitioned_rows(tp):
+    """Saved-tensor hooks keeping this tp rank's rows (dim 1) of a
+    ``[B, T, C]`` tensor and all-gathering them at unpack."""
+    def pack(t):
+        if t.dim() != 3 or t.shape[1] % tp.size:
+            return t, False
+        k = t.shape[1] // tp.size
+        return t.narrow(1, tp.rank * k, k).clone(), True
+
+    def unpack(packed):
+        t, rows = packed
+        return (comm.all_gather(t, group=tp.group, axis=1, tiled=True)
+                if rows else t)
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
+
+
+def checkpointed(fn, *args, policy="full", partition=None):
+    """``fn(*args)`` under activation checkpointing with ``policy``;
+    ``partition`` (a tp group's ``TensorParallel`` of more than one
+    rank): the saved ``[B, T, C]`` input as this rank's rows (module
+    docstring)."""
     if policy == "full":
-        return checkpoint(fn, *args, use_reentrant=False)
-    if policy == "dots":
-        return checkpoint(fn, *args, use_reentrant=False,
-                          context_fn=functools.partial(
-                              create_selective_checkpoint_contexts,
-                              dots_policy))
-    raise ValueError(f"remat_policy {policy!r} not in {REMAT_POLICIES}")
+        context = {}
+    elif policy == "dots":
+        context = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)}
+    else:
+        raise ValueError(f"remat_policy {policy!r} not in {REMAT_POLICIES}")
+    if partition is None:
+        return checkpoint(fn, *args, use_reentrant=False, **context)
+    with _partitioned_rows(partition):
+        return checkpoint(fn, *args, use_reentrant=False, **context)

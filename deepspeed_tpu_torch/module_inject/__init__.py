@@ -6,6 +6,8 @@ from deepspeed_tpu_torch.module_inject.layers import (  # noqa: F401
     RowParallelLinear,
     TensorParallel,
     column_parallel_linear,
+    copy_to_tp,
+    gather_from_tp,
     injected_mlp,
     row_parallel_linear,
     tp_all_reduce,
@@ -19,6 +21,7 @@ from deepspeed_tpu_torch.module_inject.policies import (  # noqa: F401
     TPPolicy,
     decode_cache_specs,
     family_for,
+    gather_params_with_policy,
     get_tp_policy,
     register_tp_policy,
     shard_params_with_policy,

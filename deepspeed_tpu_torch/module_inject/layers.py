@@ -15,6 +15,19 @@ the port's ``[out, in]`` layout and issue the row-parallel sum through
   ``LinearAllreduce`` does: added before it, every rank's copy would be
   summed too.
 
+Gradients cross the group through Megatron's f/g pair, where the JAX
+module leaves them to ``psum``'s transpose: :func:`copy_to_tp` (f: the
+identity forward, a sum of the input's gradient backward) sits before
+each column-parallel layer, :func:`tp_all_reduce` (g, Megatron's
+``reduce_from_tp``: the sum forward, the identity backward) after each
+row-parallel one, and
+:func:`gather_from_tp` (a tiled all-gather forward, this rank's slice of
+the gradient backward) after the vocab-parallel head. Every collective
+is out of place: autograd may have saved the tensor an in-place sum would
+overwrite. g's sum is the custom op ``deepspeed_tpu_torch::
+tp_all_reduce``, so the "dots" remat policy saves its output by op
+(``models/remat_utils.py``) and a block's recompute issues no collective.
+
 :class:`TensorParallel` names a rank's place in its tp group; the models
 hold one (or None) and :class:`ColumnParallelLinear` /
 :class:`RowParallelLinear` hold the shards.
@@ -50,10 +63,7 @@ class TensorParallel:
         return next(i for i, e in enumerate(spec) if e is not None)
 
 
-def tp_all_reduce(x, group, comm_dtype: str = "none"):
-    """Sum ``x`` over the tp ``group`` (in place; returns it). ``"none"``
-    is a plain sum; ``"int8"`` (the JAX package's EQuARX tier) comes with
-    the compressed collectives; a group of one returns ``x``."""
+def _check_tier(comm_dtype):
     if comm_dtype == "int8":
         raise NotImplementedError(
             "tp_all_reduce(comm_dtype='int8') is not ported yet: it comes "
@@ -64,9 +74,82 @@ def tp_all_reduce(x, group, comm_dtype: str = "none"):
             f"tp collective tier must be 'none' or 'int8', got "
             f"{comm_dtype!r} (the 1-bit tier is error-feedback-stateful "
             "and gradient-only)")
-    if group is None or comm.get_world_size(group) <= 1:
+
+
+def _alone(group) -> bool:
+    return group is None or comm.get_world_size(group) <= 1
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::tp_all_reduce",
+                         mutates_args=())
+def tp_all_reduce_op(x: torch.Tensor, group_name: str) -> torch.Tensor:
+    """The sum of ``x`` over the process group registered as
+    ``group_name`` (an op takes no group object), into a new tensor."""
+    group = torch.distributed.distributed_c10d._resolve_process_group(
+        group_name)
+    return comm.all_reduce(x.clone(), group=group)
+
+
+@tp_all_reduce_op.register_fake
+def _tp_all_reduce_fake(x, group_name):
+    return torch.empty_like(x)
+
+
+def _sum_backward(ctx, grad):
+    return grad, None
+
+
+tp_all_reduce_op.register_autograd(_sum_backward)
+
+
+def tp_all_reduce(x, group, comm_dtype: str = "none"):
+    """g: the sum of ``x`` over the tp process ``group``, into a new
+    tensor whose gradient passes through unchanged; ``x`` itself in a
+    group of one. ``"none"`` is a plain sum; ``"int8"`` (the JAX
+    package's EQuARX tier) comes with the compressed collectives."""
+    _check_tier(comm_dtype)
+    if _alone(group):
         return x
-    return comm.all_reduce(x, group=group)
+    return tp_all_reduce_op(x, group.group_name)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return comm.all_reduce(grad.clone(), group=ctx.group), None
+
+
+def copy_to_tp(x, group):
+    """f: ``x`` itself forward; backward, its gradient summed over the tp
+    ``group`` (each rank's column slice saw all of ``x``)."""
+    if _alone(group):
+        return x
+    return _CopyToTP.apply(x, group)
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.rank, ctx.k = dim, comm.get_rank(group), x.shape[dim]
+        return comm.all_gather(x, group=group, axis=dim, tiled=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.k, ctx.k), None, None
+
+
+def gather_from_tp(x, group, dim: int = -1):
+    """Every tp rank's ``x`` concatenated along ``dim`` (the vocab-
+    parallel head's logits); backward, this rank's slice of the
+    gradient (every rank holds the same gradient of the whole)."""
+    if _alone(group):
+        return x
+    return _GatherFromTP.apply(x, group, dim % x.dim())
 
 
 _ACTIVATIONS = {
@@ -78,17 +161,19 @@ _ACTIVATIONS = {
 }
 
 
-def column_parallel_linear(x, w, b=None):
+def column_parallel_linear(x, w, b=None, group=None):
     """Reference ``LinearLayer``: ``x @ w.T + b`` with this rank's
     ``[out/tp, in]`` weight: this rank's slice of the output features, no
-    collective (feed it a row-parallel partner or an all-gather)."""
-    return F.linear(x, w, b)
+    collective forward (feed it a row-parallel partner or an all-gather);
+    backward, ``x``'s gradient is summed over the tp ``group``
+    (:func:`copy_to_tp`)."""
+    return F.linear(copy_to_tp(x, group), w, b)
 
 
 def row_parallel_linear(x, w, b=None, group=None, comm_dtype="none"):
     """Reference ``LinearAllreduce``: this rank's input slice ``x [...,
     in/tp]`` times its ``[out, in/tp]`` weight, summed over the tp
-    ``group``, then the (whole) bias."""
+    ``group`` (:func:`tp_all_reduce`), then the (whole) bias."""
     y = tp_all_reduce(F.linear(x, w), group, comm_dtype)
     return y if b is None else y + b
 
@@ -99,7 +184,8 @@ def injected_mlp(x, w_in, b_in, w_out, b_out, group=None,
     over ``group``, plus ``b_out`` after the sum: ONE collective per MLP.
     ``w_in`` / ``b_in`` are this rank's column shards, ``w_out`` its row
     shard."""
-    h = _ACTIVATIONS[activation](column_parallel_linear(x, w_in, b_in))
+    h = _ACTIVATIONS[activation](column_parallel_linear(x, w_in, b_in,
+                                                        group))
     return row_parallel_linear(h, w_out, b_out, group, comm_dtype)
 
 
@@ -107,17 +193,18 @@ class ColumnParallelLinear(nn.Module):
     """This rank's ``[out/tp, in]`` slice of a linear layer (and its
     ``[out/tp]`` bias): ``forward(x, dtype)`` computes its slice of the
     output features in ``dtype`` (the weights cast at each use, as the
-    models' dense layers do)."""
+    models' dense layers do), summing ``x``'s gradient over ``tp.group``
+    in backward."""
 
-    def __init__(self, in_features: int, out_features: int, tp_size: int,
-                 bias: bool = True, device=None):
+    def __init__(self, in_features: int, out_features: int,
+                 tp: TensorParallel, bias: bool = True, device=None):
         super().__init__()
-        if out_features % tp_size:
+        if out_features % tp.size:
             raise ValueError(f"{out_features} output features do not split "
-                             f"over {tp_size} tp ranks")
+                             f"over {tp.size} tp ranks")
         self.in_features, self.out_features = in_features, out_features
-        self.tp_size = tp_size
-        local = out_features // tp_size
+        self.tp = tp
+        local = out_features // tp.size
         self.weight = nn.Parameter(torch.empty(local, in_features,
                                                device=device))
         self.bias = (nn.Parameter(torch.empty(local, device=device))
@@ -127,7 +214,8 @@ class ColumnParallelLinear(nn.Module):
         dtype = dtype or x.dtype
         return column_parallel_linear(
             x, self.weight.to(dtype),
-            None if self.bias is None else self.bias.to(dtype))
+            None if self.bias is None else self.bias.to(dtype),
+            self.tp.group)
 
 
 class RowParallelLinear(nn.Module):
@@ -157,5 +245,6 @@ class RowParallelLinear(nn.Module):
 
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear", "TensorParallel",
-           "column_parallel_linear", "injected_mlp", "row_parallel_linear",
+           "column_parallel_linear", "copy_to_tp", "gather_from_tp",
+           "injected_mlp", "row_parallel_linear",
            "tp_all_reduce"]

@@ -11,18 +11,23 @@ where a flax ``Dense`` kernel is ``[in, out]``, so a column-parallel
 weight shards its dim 0 and a row-parallel one its dim 1.
 
 At a tp size of 1 every base spec is replicated (None). Above 1, the
-inference engine asks :func:`shard_params_with_policy` for this rank's
-slices of a whole state dict (a fused QKV weight split per Q, K and V),
-and the models hold them in the column- and row-parallel layers of
-``layers.py``; :func:`decode_cache_specs` splits the KV caches and pools
-on their head dim.
+inference and training engines ask :func:`shard_params_with_policy` for
+this rank's slices of a whole state dict (a fused QKV weight split per Q,
+K and V), and the models hold them in the column- and row-parallel
+layers of ``layers.py``; :func:`gather_params_with_policy` puts the whole
+state dict back together from every rank's slices (the training engine's
+``module_state_dict``); :func:`decode_cache_specs` splits the KV caches
+and pools on their head dim.
 """
 
 import re
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
+
 from deepspeed_tpu_torch.parallel.topology import AXIS_TP
-from deepspeed_tpu_torch.runtime.state_dict_factory import shard_qkv_for_tp
+from deepspeed_tpu_torch.runtime.state_dict_factory import (
+    merge_qkv_tp_shards, shard_qkv_for_tp)
 from deepspeed_tpu_torch.runtime.zero.partition import PartitionSpec as P
 
 COLUMN = "column"
@@ -246,6 +251,29 @@ def shard_params_with_policy(state_dict, policy, tp_rank: int,
         else:
             local[name] = t.chunk(tp_size, dim=dim)[tp_rank].contiguous()
     return local, specs
+
+
+def gather_params_with_policy(local_state_dict, specs, group):
+    """The whole state dict from every rank's slices (the inverse of
+    :func:`shard_params_with_policy` under the same ``specs``): one tiled
+    all-gather over the tp ``group`` per split tensor (every rank of the
+    group must call), the ``c_attn`` slices merged per Q, K and V
+    (:func:`~deepspeed_tpu_torch.runtime.state_dict_factory.
+    merge_qkv_tp_shards`); replicated tensors as they are."""
+    from deepspeed_tpu_torch import comm
+
+    whole = {}
+    for name, t in local_state_dict.items():
+        spec = specs.get(name)
+        if spec is None:
+            whole[name] = t
+            continue
+        dim = next(i for i, e in enumerate(spec) if e is not None)
+        shards = list(comm.all_gather(t.contiguous(), group=group).unbind(0))
+        whole[name] = (merge_qkv_tp_shards(shards, out_axis=dim)
+                       if "c_attn" in _segments(name)
+                       else torch.cat(shards, dim=dim))
+    return whole
 
 
 CACHE_LEAVES = ("keys", "values", "key_scales", "value_scales")

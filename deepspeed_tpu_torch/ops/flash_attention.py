@@ -425,8 +425,11 @@ def flash_attention_bthd_tp(q, k, v, causal=True, softmax_scale=None):
     """Tensor-parallel :func:`flash_attention_bthd` (JAX
     ``flash_attention_bthd_tp``): ``[B, T, H, D]`` inputs holding this
     rank's heads (the column-parallel projection's output), run through
-    the forward kernel with no collective; attention never reduces across
-    heads. A live ``seq`` axis (Ulysses) is refused by
+    the forward kernel, and in training the backward kernels through the
+    base function's autograd, with no collective; attention never
+    reduces across heads. The cotangent the row-parallel projection
+    hands back is a contiguous ``[B, T, H, D]`` view, which keeps TMA's
+    16-byte rule (no copy). A live ``seq`` axis (Ulysses) is refused by
     :class:`~deepspeed_tpu_torch.parallel.topology.MeshTopology`, naming
     the sequence-parallel slice ([12.7])."""
     return flash_attention_bthd(q, k, v, causal, softmax_scale)

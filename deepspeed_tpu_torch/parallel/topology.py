@@ -15,13 +15,21 @@ subset that can be active, in the same order on every rank (as
 ``torch.distributed.new_group`` requires); :meth:`MeshTopology.group`
 resolves an axis name or a tuple of axis names to this rank's group.
 
-The port runs the ``data``, ``fsdp`` and ``tp`` axes: data-parallel
-training on ``data x fsdp`` and tensor-parallel serving on ``tp``
+The port runs the ``data``, ``fsdp`` and ``tp`` axes: training on
+``data x fsdp x tp`` and tensor-parallel serving on ``tp``
 (:func:`resolve_tp_topology`). A ``pipe``, ``expert`` or ``seq`` axis
-above 1, or a ``dcn`` section, raises :class:`NotImplementedError`
-naming the slice that brings it; so does a ``tp`` axis in training
-(:func:`check_training_axes`).
+above 1 raises :class:`NotImplementedError` naming the slice that brings
+it (:func:`check_ported_axes`).
+
+A ``dcn`` section (``dcn_axis_sizes``) splits each axis into a slow
+factor across nodes and a fast one within a node, as the JAX package's
+multi-slice mesh does: ranks are ordered dcn-major, so rank ``r`` sits on
+node ``r // LOCAL_WORLD_SIZE`` and the dcn factor of every axis is its
+outermost index (the order JAX's ``_hybrid_device_mesh`` gives a CPU test
+mesh).
 """
+
+import os
 
 import collections
 import itertools
@@ -51,9 +59,6 @@ UNPORTED_AXES = {
     AXIS_EXPERT: "the MoE slice ([12.6])",
     AXIS_SEQ: "the sequence-parallel slice ([12.7])",
 }
-TP_TRAINING_SLICE = ("the multi-GPU slice's tensor-parallel training part "
-                     "([7d])")
-DCN_SLICE = TP_TRAINING_SLICE
 FLEET_SLICE = "the serving fleet slice ([7c])"
 
 
@@ -202,31 +207,61 @@ def _normalize_axis_sizes(axis_sizes: Dict[str, int],
     return sizes
 
 
-def check_ported_axes(axis_sizes: Dict[str, int], dcn_axis_sizes=None):
-    """Raise for an axis or a ``dcn`` section this slice does not run."""
+def check_ported_axes(axis_sizes: Dict[str, int]):
+    """Raise for an axis this port does not run yet."""
     for axis, where in UNPORTED_AXES.items():
         if int(axis_sizes.get(axis, 1)) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis!r} of size {axis_sizes[axis]} is not "
                 f"ported yet: it comes with {where} of the PyTorch port")
-    if any(int(v) != 1 for v in (dcn_axis_sizes or {}).values()):
-        raise NotImplementedError(
-            f"mesh.dcn {dict(dcn_axis_sizes)} is not ported yet: it comes "
-            f"with {DCN_SLICE} of the PyTorch port")
 
 
-def check_training_axes(axis_sizes: Dict[str, int], dcn_axis_sizes=None):
-    """:func:`check_ported_axes`, and raise for a ``tp`` axis above 1:
-    the port serves under tensor parallelism but does not train under
-    it yet."""
-    sizes = normalize_axis_dict(axis_sizes)
-    if int(sizes.get(AXIS_TP, 1)) > 1:
-        raise NotImplementedError(
-            f"mesh axis 'tp' of size {sizes[AXIS_TP]} in training is not "
-            f"ported yet: it comes with {TP_TRAINING_SLICE} of the PyTorch "
-            f"port (tensor-parallel inference and serving run: "
-            f"init_inference(tensor_parallel=...))")
-    check_ported_axes(sizes, dcn_axis_sizes)
+def dcn_factors(sizes: Dict[str, int],
+                dcn_axis_sizes: Optional[Dict[str, int]]) -> Dict[str, int]:
+    """Each canonical axis's dcn factor (1 where none is given), with the
+    JAX mesh's errors: an unknown axis, a factor below 1, a size the
+    factor does not divide."""
+    dcn_axis_sizes = normalize_axis_dict(dcn_axis_sizes or {})
+    unknown = set(dcn_axis_sizes) - set(CANONICAL_AXIS_ORDER)
+    if unknown:
+        raise ValueError(
+            f"unknown dcn axis names {sorted(unknown)}; valid axes: "
+            f"{list(CANONICAL_AXIS_ORDER)}")
+    bad = {a: v for a, v in dcn_axis_sizes.items() if int(v) < 1}
+    if bad:
+        raise ValueError(f"dcn factors must be >= 1; got {bad}")
+    dcn = {a: int(dcn_axis_sizes.get(a, 1)) for a in CANONICAL_AXIS_ORDER}
+    if any(v > 1 for v in dcn.values()):
+        for a in CANONICAL_AXIS_ORDER:
+            if sizes[a] % dcn[a] != 0:
+                raise ValueError(
+                    f"mesh axis {a!r} size {sizes[a]} not divisible by its "
+                    f"dcn factor {dcn[a]}")
+    return dcn
+
+
+def _dcn_major_mapping(topology: "ProcessTopology", sizes, dcn):
+    """coordinate -> rank with the dcn factors outermost: along each axis
+    ``coord = dcn_index * ici + ici_index``, and the rank is the dcn
+    indices' row-major index times the ranks a node, plus the ici
+    indices' row-major index within the node."""
+    ici = [sizes[a] // dcn[a] for a in CANONICAL_AXIS_ORDER]
+    dcn_dims = [dcn[a] for a in CANONICAL_AXIS_ORDER]
+    per_node = int(np.prod(ici))
+    mapping = {}
+    for coord in topology.mapping:
+        node = int(np.ravel_multi_index(
+            [c // i for c, i in zip(coord, ici)], dcn_dims))
+        local = int(np.ravel_multi_index(
+            [c % i for c, i in zip(coord, ici)], ici))
+        mapping[coord] = node * per_node + local
+    local_world = os.environ.get("LOCAL_WORLD_SIZE")
+    if local_world is not None and int(local_world) != per_node:
+        raise ValueError(
+            f"mesh.dcn {dcn} puts {per_node} ranks on a node (the axes' "
+            f"ici factors), but LOCAL_WORLD_SIZE is {local_world}: the "
+            f"declared dcn layout would cross nodes on ici axes")
+    return mapping
 
 
 def _active_subsets(active: Sequence[str]):
@@ -237,7 +272,8 @@ def _active_subsets(active: Sequence[str]):
 
 class MeshTopology:
     """Named-axis topology of the job: one rank per process, ranks in
-    row-major canonical axis order.
+    row-major canonical axis order (dcn-major under ``dcn_axis_sizes``,
+    module docstring).
 
     ``world_size`` and ``rank`` default to the running process group's
     (1 and 0 without one); pass them to compute coordinates and comm
@@ -261,12 +297,16 @@ class MeshTopology:
         axis_sizes = dict(axis_sizes or {})
         axis_sizes.setdefault(AXIS_DATA, -1)
         sizes = _normalize_axis_sizes(axis_sizes, int(world_size))
-        check_ported_axes(sizes, normalize_axis_dict(dcn_axis_sizes or {}))
+        check_ported_axes(sizes)
         self.axis_sizes = sizes
+        self.dcn_axis_sizes = dcn_factors(sizes, dcn_axis_sizes)
         self.rank = int(rank)
         self.topology = ProcessTopology(
             axes=list(CANONICAL_AXIS_ORDER),
             dims=[sizes[a] for a in CANONICAL_AXIS_ORDER])
+        if any(v > 1 for v in self.dcn_axis_sizes.values()):
+            self.topology.mapping = _dcn_major_mapping(
+                self.topology, sizes, self.dcn_axis_sizes)
         self.coord = self.topology.get_coord(self.rank)
         # axis subset (canonical order, size > 1 axes only) -> this rank's
         # process group over it

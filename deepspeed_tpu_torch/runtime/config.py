@@ -4,7 +4,9 @@
 the batch triangle, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``bf16``, ``fp16``, ``fused_step``, ``zero_optimization`` (stages 0-3,
 :class:`~deepspeed_tpu_torch.runtime.zero.config.DeepSpeedZeroConfig`),
-the ``mesh`` section (``data`` and ``fsdp`` axes), the gradient
+the ``mesh`` section (``data``, ``fsdp`` and ``tp`` axes, ``model`` the
+alias of ``tp``, and ``dcn``), the ``tensor_parallel`` section (its
+``policy``: the tp base specs, as in the JAX engine), the gradient
 reduction's ``prescale_gradients`` / ``gradient_predivide_factor``,
 ``communication_data_type`` (recorded, as the JAX engine does: gradients
 reduce in fp32), ``disable_allgather`` (accepted and inert, as in JAX),
@@ -28,8 +30,7 @@ from typing import Any, Optional
 
 from pydantic import Field, model_validator
 
-from deepspeed_tpu_torch.parallel.topology import (check_training_axes,
-                                                   normalize_axis_dict)
+from deepspeed_tpu_torch.parallel.topology import check_ported_axes
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import (
     DeepSpeedConfigModel, dict_raise_error_on_duplicate_keys)
@@ -42,13 +43,11 @@ class DeepSpeedConfigError(Exception):
     pass
 
 
-_TP = "the multi-GPU slice's tensor-parallel training part ([7d])"
 _TRAINING_FEATURES = "the training-features slice"
 # keys of the JAX training config, and the port's slice that will
 # implement each (ROADMAP.md, Queue 1)
 UNPORTED = {
     "pipeline": "the pipeline slice",
-    "tensor_parallel": _TP,
     "comm_quantization": "the compressed-collectives slice ([9])",
     "activation_checkpointing": _TRAINING_FEATURES,
     "progressive_layer_drop": _TRAINING_FEATURES,
@@ -79,14 +78,15 @@ SUPPORTED = frozenset({
     C.FUSED_STEP, C.STEPS_PER_PRINT, C.SPARSE_ATTENTION, C.MESH,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
     C.COMMUNICATION_DATA_TYPE, C.DISABLE_ALLGATHER, C.SPARSE_GRADIENTS,
-    C.ZERO_ALLOW_UNTESTED_OPTIMIZER})
+    C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.TENSOR_PARALLEL})
 
 
 class MeshConfig(DeepSpeedConfigModel):
     """Named mesh axis sizes (the JAX ``MeshConfig``): ``data`` may be -1
     (fill the world). ``model`` is the deprecated alias of ``tp``.
-    Training runs ``data`` and ``fsdp``; ``tp``, ``pipe``, ``expert`` or
-    ``seq`` above 1, or a ``dcn`` section, raises naming its slice."""
+    Training runs ``data``, ``fsdp`` and ``tp``; ``pipe``, ``expert`` or
+    ``seq`` above 1 raises naming its slice. ``dcn`` gives axes' factors
+    across nodes; the mesh checks them (``MeshTopology``), as in JAX."""
 
     data: int = -1
     fsdp: int = 1
@@ -107,8 +107,7 @@ class MeshConfig(DeepSpeedConfigModel):
                     f"alias model={self.model} with different sizes — "
                     "keep only tp")
             object.__setattr__(self, "tp", self.model)
-        check_training_axes(self.axis_sizes(),
-                            normalize_axis_dict(self.dcn))
+        check_ported_axes(self.axis_sizes())
         return self
 
     def axis_sizes(self):
@@ -246,6 +245,8 @@ class DeepSpeedConfig:
                                                    False))
         self.zero_allow_untested_optimizer = bool(
             d.get(C.ZERO_ALLOW_UNTESTED_OPTIMIZER, False))
+        # tp policy selection (the tp degree is mesh.tp), as in JAX
+        self.tensor_parallel_config = d.get(C.TENSOR_PARALLEL, {})
 
         if world_size is None:
             non_data = (self.mesh.tp * self.mesh.pipe * self.mesh.seq

@@ -26,6 +26,7 @@ ZERO_OPTIMIZATION = "zero_optimization"
 FUSED_STEP = "fused_step"
 SPARSE_ATTENTION = "sparse_attention"
 MESH = "mesh"
+TENSOR_PARALLEL = "tensor_parallel"
 PRESCALE_GRADIENTS = "prescale_gradients"
 GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
 COMMUNICATION_DATA_TYPE = "communication_data_type"

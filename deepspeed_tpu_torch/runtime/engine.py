@@ -45,11 +45,28 @@ over ``torch.distributed`` (starting the group if none runs):
 With no process group and no mesh, at stage 0, the engine runs on its one
 device as before, with no collective.
 
+Tensor parallelism (a ``tp`` mesh axis above 1, alone or with ``data`` /
+``fsdp`` and any ZeRO stage): every rank is one process and keeps its tp
+slices of the weights. The engine hands the whole model to its
+``with_tensor_parallel`` hook (the slices the ``tensor_parallel.policy``
+gives, as ``InferenceEngine`` builds its model) before ZeRO lays the
+slices out; a model already sliced (``zero.Init``) is kept. The ranks of
+a tp group take the same rows; the loss is averaged over the batch axes
+only; gradients are reduced over the ZeRO axes at this rank's tp
+coordinate; the global norm (and ``get_global_grad_norm``), the fp16
+overflow flag and LAMB's trust ratio are the whole model's
+(:meth:`~deepspeed_tpu_torch.runtime.zero.stage.ZeroPartition.
+norm_and_overflow`). ``module_state_dict`` gathers the whole tensors from
+the ranks' slices; ``load_module_state_dict`` slices them again. A mesh
+always builds a ZeroPartition (stage 0 included), so the group-less path
+below never runs under tp.
+
 Offload, the 1-bit optimizers, compression, MoQ, curriculum, PLD,
 telemetry hooks and the flops profiler are config keys that raise at
 parse time (``runtime/config.py``), naming their slice.
 """
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -57,9 +74,13 @@ import torch
 
 from deepspeed_tpu_torch import comm as dist
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+from deepspeed_tpu_torch.module_inject.policies import (
+    gather_params_with_policy, shard_params_with_policy)
 from deepspeed_tpu_torch.ops.optimizer import FusedLamb, build_basic_optimizer
 from deepspeed_tpu_torch.parallel import topology as topo_mod
-from deepspeed_tpu_torch.parallel.topology import MeshTopology
+from deepspeed_tpu_torch.parallel.topology import (AXIS_TP, MeshTopology,
+                                                   normalize_axis_dict)
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (create_loss_scaler,
@@ -105,6 +126,12 @@ class DeepSpeedEngine:
                     "with_sparse_attention hook — training runs DENSE "
                     "attention (BertForTraining supports the section)")
 
+        self.tp = None
+        if self.topology is not None and \
+                self.topology.get_tensor_parallel_world_size() > 1:
+            model = self._tensor_parallel(model)
+            self.tp = model.tp
+
         bad = sorted({str(p.dtype) for p in model.parameters()
                       if p.requires_grad and p.dtype != torch.float32})
         if bad:
@@ -118,7 +145,7 @@ class DeepSpeedEngine:
             zc = self._config.zero_config
             stage3 = zc.stage >= 3
             self.spec_layout = SpecLayout(
-                self.topology,
+                self.topology, policy=self._tp_policy(),
                 persistence_threshold=(zc.param_persistence_threshold
                                        if stage3 else 0),
                 hierarchical_gather=zc.hierarchical_gather and stage3)
@@ -207,26 +234,69 @@ class DeepSpeedEngine:
                   or self._config.zero_enabled or dist.is_initialized())
         if not wanted and not dist_init_required:
             return None
-        if mesh is not None:
-            topo_mod.check_training_axes(
-                mesh.axis_sizes if isinstance(mesh, MeshTopology) else mesh)
+        if isinstance(mesh, MeshTopology):
+            sizes = mesh.axis_sizes
+        else:
+            sizes = normalize_axis_dict(
+                dict(mesh) if mesh is not None
+                else self._config.mesh.axis_sizes())
+            topo_mod.check_ported_axes(sizes)
         if not dist.is_initialized():
             if dist_init_required is False:
                 raise ValueError(
                     "this run needs a process group (a mesh or a ZeRO "
                     "stage above 0) and dist_init_required=False")
+            tp = int(sizes.get(AXIS_TP, 1))
+            if tp > 1 and "WORLD_SIZE" not in os.environ:
+                raise RuntimeError(
+                    f"mesh.tp {tp} needs a process group with a rank for "
+                    f"each tp slice: call deepspeed_tpu_torch.comm."
+                    f"init_distributed() on every rank first")
             dist.init_distributed(device=device)
         if isinstance(mesh, MeshTopology):
             topology = mesh
         else:
-            sizes = dict(mesh) if mesh is not None \
-                else self._config.mesh.axis_sizes()
-            topology = MeshTopology(axis_sizes=sizes)
+            topology = MeshTopology(
+                axis_sizes=sizes,
+                dcn_axis_sizes=self._config.mesh.dcn or None)
         topo_mod.set_topology(topology)
         self._config = DeepSpeedConfig(
             self._config._param_dict,
             world_size=topology.get_data_parallel_world_size())
         return topology
+
+    def _tp_policy(self):
+        return self._config.tensor_parallel_config.get("policy", "auto")
+
+    def _tensor_parallel(self, model):
+        """This rank's tp slice of ``model`` (module docstring)."""
+        topo = self.topology
+        size = topo.get_tensor_parallel_world_size()
+        rank = topo.get_tensor_parallel_rank()
+        sliced = getattr(model, "tp", None)
+        if sliced is not None:
+            if (sliced.size, sliced.rank) != (size, rank):
+                raise ValueError(
+                    f"the model is tp rank {sliced.rank} of {sliced.size}; "
+                    f"this rank is tp rank {rank} of {size}")
+            return model
+        if not hasattr(model, "with_tensor_parallel"):
+            raise NotImplementedError(
+                f"{type(model).__name__} has no tensor-parallel form: "
+                f"training at mesh.tp {size} runs GPT2ForTraining; other "
+                f"model families (BERT) come with the rest of the "
+                f"tensor-parallel training slice ([7d]) of the PyTorch port")
+        return model.with_tensor_parallel(
+            TensorParallel(group=topo.get_tensor_parallel_group(),
+                           size=size, rank=rank), policy=self._tp_policy())
+
+    def _whole(self, tensors):
+        """``{name: tensor}`` of this rank's tp slices, whole (every rank
+        of the tp group must call); the dict itself at tp 1."""
+        if self.tp is None:
+            return tensors
+        return gather_params_with_policy(tensors, self.module.param_specs(),
+                                         self.tp.group)
 
     # ------------------------------------------------------------------
     # the step
@@ -446,18 +516,25 @@ class DeepSpeedEngine:
 
     def module_state_dict(self):
         """Host (CPU) copy of the model's whole parameters; under ZeRO-3
-        the split ones are gathered (every rank must call)."""
+        the split ones are gathered, under tp the slices (every rank must
+        call)."""
         sd = self.module.state_dict()
         if self._zero is not None:
             entries = self._zero.entries
             for e, t in zip(entries, self._zero.gather_params(entries)):
                 sd[e.name] = t
-        return {k: v.detach().cpu() for k, v in sd.items()}
+        return {k: v.detach().cpu() for k, v in self._whole(sd).items()}
 
     def load_module_state_dict(self, state_dict, strict=True):
         """Copy ``state_dict`` (whole tensors) into the live parameters,
         keeping their device and dtype, re-sharded under ZeRO (and into
-        the masters); ``strict=False`` keeps entries it lacks."""
+        the masters; under tp, this rank's slices); ``strict=False`` keeps
+        entries it lacks."""
+        if self.tp is not None:
+            specs = self.module.param_specs()
+            state_dict, _ = shard_params_with_policy(
+                state_dict, None, self.tp.rank, self.tp.size,
+                specs={k: specs.get(k) for k in state_dict})
         if self._zero is None:
             self.module.load_state_dict(state_dict, strict=strict)
             return
@@ -475,13 +552,14 @@ class DeepSpeedEngine:
 
     def gathered_grads(self):
         """``{name: whole gradient}`` of what the last backward left,
-        reduced over the data-parallel ranks (every rank must call), for
-        checks; the step applies none of it."""
+        reduced over the data-parallel ranks and gathered from the tp
+        slices (every rank must call), for checks; the step applies none
+        of it."""
         if self._zero is None:
             return {n: p.grad for n, p in self.module.named_parameters()
                     if p.requires_grad}
         self._zero.after_micro_step()
-        return self._zero.gather_grads()
+        return self._whole(self._zero.gather_grads())
 
     def zero_grad(self):
         for p in self.module.parameters():

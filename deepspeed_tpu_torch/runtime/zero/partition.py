@@ -27,6 +27,14 @@ the JAX order of the shape (the ``nn.Linear`` weight reversed) and mapped
 back, so both packages split the same logical dim, ties included
 (:func:`dense_weights`).
 
+Under tensor parallelism the module holds this rank's tp slices (``[out /
+tp, in]`` and the like), where the JAX layout speaks of whole tensors
+with a ``tp`` entry. Each plan is computed on the global JAX-order shape
+and the tensor's tp base spec (the module's ``param_specs``), then applied
+to the local slice: ZeRO takes a dim tp leaves, whose size the slice
+shares with the whole tensor, so each rank's shard shape is the JAX
+layout's addressable shard.
+
 One departure: on a world of one rank, SpecLayout replicates everything
 (no axis is larger than 1), where a plan keeps the stage's split as one
 shard of the whole tensor over a group of one. The stage's collectives
@@ -110,12 +118,17 @@ def zero_partition_spec(shape: Tuple[int, ...], mesh,
 
 def dense_weights(module) -> set:
     """Names (as in ``module.named_parameters()``) of the ``nn.Linear``
-    weights: ``[out, in]`` here, ``[in, out]`` in the JAX package."""
+    weights and their column- and row-parallel slices: ``[out, in]``
+    here, ``[in, out]`` in the JAX package."""
     from torch import nn
 
+    from deepspeed_tpu_torch.module_inject.layers import (
+        ColumnParallelLinear, RowParallelLinear)
+
+    dense = (nn.Linear, ColumnParallelLinear, RowParallelLinear)
     names = set()
     for prefix, sub in module.named_modules():
-        if isinstance(sub, nn.Linear):
+        if isinstance(sub, dense):
             names.add(f"{prefix}.weight" if prefix else "weight")
     return names
 
@@ -141,6 +154,12 @@ class ShardPlan:
     @property
     def sharded(self) -> bool:
         return self.dim is not None
+
+    @property
+    def tp_split(self) -> bool:
+        """Whether the tensor is a tp slice (its spec names ``tp``)."""
+        return any(AXIS_TP == a for e in self.spec if e is not None
+                   for a in (e if isinstance(e, tuple) else (e,)))
 
     @property
     def shard_shape(self) -> Tuple[int, ...]:
@@ -227,11 +246,6 @@ class SpecLayout:
 
         return family_for(path, shape, self.policy)
 
-    def base_spec(self, path: str, shape: Tuple[int, ...]) -> Optional[P]:
-        """tp base spec of one parameter (None: replicated)."""
-        return self.policy.spec_for(path, tuple(shape), self.tp_size,
-                                    self.tp_axis)
-
     # -- ZeRO layering ----------------------------------------------------
     def _param_axes(self):
         return hierarchical_param_axes(self.zero_axes) \
@@ -254,11 +268,11 @@ class SpecLayout:
                                        base_spec=base_spec)
         return base_spec if base_spec is not None else P()
 
-    def _plan(self, shape, spec: P, axes, threshold: int,
+    def _plan(self, shape, jax_shape, spec: P, axes, threshold: int,
               transposed: bool, split: bool) -> ShardPlan:
-        """The plan of ``spec`` (JAX dim order) for a tensor of the port's
-        ``shape``; ``split``: the stage splits this kind of tensor."""
-        jax_shape = tuple(shape)[::-1] if transposed else tuple(shape)
+        """The plan of ``spec`` (JAX dim order, of the whole tensor's
+        ``jax_shape``) for a tensor of the port's (local) ``shape``;
+        ``split``: the stage splits this kind of tensor."""
         entries = list(spec) + [None] * (len(jax_shape) - len(spec))
         zero = [i for i, e in enumerate(entries) if e is not None
                 and set(e if isinstance(e, tuple) else (e,))
@@ -288,40 +302,53 @@ class SpecLayout:
             group = self.mesh.group(active)
         return ShardPlan(shape, spec, dim, active, group, n, index)
 
-    def _jax_order(self, name, shape, transposed):
-        """The JAX order of ``shape`` and of its tp base spec."""
-        base = self.base_spec(name, shape)
+    def _jax_order(self, shape, base, transposed):
+        """The whole tensor's shape in JAX order, and its tp base spec,
+        for a local slice of the port's ``shape`` whose base spec (the
+        port's order) is ``base``."""
+        if base is not None:
+            shape = [s * self.tp_size if e is not None else s
+                     for s, e in zip(shape, base)]
         if transposed:
             return tuple(shape)[::-1], (None if base is None
                                         else P(*tuple(base)[::-1]))
         return tuple(shape), base
 
-    def param_plan(self, name: str, shape, stage: int,
-                   transposed: bool = False) -> ShardPlan:
-        jax_shape, base = self._jax_order(name, shape, transposed)
-        return self._plan(shape, self.param_spec(jax_shape, base, stage),
+    def param_plan(self, shape, stage: int,
+                   transposed: bool = False, base=None) -> ShardPlan:
+        """The parameter's plan at ``stage``: ``shape`` the port's local
+        shape, ``base`` its tp base spec (None: replicated)."""
+        jax_shape, jbase = self._jax_order(shape, base, transposed)
+        return self._plan(shape, jax_shape,
+                          self.param_spec(jax_shape, jbase, stage),
                           self._param_axes(), self.persistence_threshold,
                           transposed, stage >= 3)
 
-    def opt_plan(self, name: str, shape, stage: int,
-                 transposed: bool = False) -> ShardPlan:
-        jax_shape, base = self._jax_order(name, shape, transposed)
-        return self._plan(shape, self.opt_spec(jax_shape, base, stage),
+    def opt_plan(self, shape, stage: int,
+                 transposed: bool = False, base=None) -> ShardPlan:
+        """The optimizer state's plan, as :meth:`param_plan`."""
+        jax_shape, jbase = self._jax_order(shape, base, transposed)
+        return self._plan(shape, jax_shape,
+                          self.opt_spec(jax_shape, jbase, stage),
                           self.zero_axes, 0, transposed, stage >= 1)
 
     def shardings(self, module, stage: int):
         """``(param_plans, opt_plans)``: ``{name: ShardPlan}`` for every
         trainable parameter of ``module`` (the JAX method's pair of
-        sharding trees)."""
+        sharding trees). Above tp 1 the module holds its tp slices and
+        gives their base specs (``module.param_specs()``, as the JAX
+        engine asks a model that has them)."""
         dense = dense_weights(module)
+        specs = module.param_specs() if self.tp_size > 1 else {}
         params, opts = {}, {}
         for name, p in module.named_parameters():
             if not p.requires_grad:
                 continue
             shape = tuple(getattr(p, "ds_shape", p.shape))
             t = name in dense and len(shape) == 2
-            params[name] = self.param_plan(name, shape, stage, t)
-            opts[name] = self.opt_plan(name, shape, stage, t)
+            base = specs.get(name)
+            params[name] = self.param_plan(shape, stage, t, base)
+            opts[name] = self.opt_plan(shape, stage, t, base)
         return params, opts
 
     # -- batch ------------------------------------------------------------

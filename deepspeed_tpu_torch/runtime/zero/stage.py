@@ -34,6 +34,16 @@ checkpointing, autograd keeps what each layer's backward needs, as it
 would without ZeRO. The tied ``wte`` is one tensor of the root unit, used
 at the embedding and at the LM head: its two gradients meet in one
 ``_GatherUnit`` backward, one reduce-scatter.
+
+Under tensor parallelism every tensor is this rank's tp slice and every
+ZeRO group spans the ZeRO axes at this rank's tp coordinate, so the
+gathers, reduce-scatters and all-reduces above see only that slice. The
+global norm, the fp16 overflow flag and LAMB's per-parameter norms take
+one all-reduce over the ZeRO axes and ``tp`` together, each element
+counted once: a rank adds a ZeRO-split slot only where it is tp-split or
+this rank is the tp group's first, and a ZeRO-whole one only where it is
+tp-split and this rank is the ZeRO group's first; a slot whole on both
+axes is added locally.
 """
 
 import types
@@ -43,6 +53,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch import comm as dist
+from deepspeed_tpu_torch.parallel.topology import AXIS_TP
 from deepspeed_tpu_torch.runtime.utils import sum_of_squares
 from deepspeed_tpu_torch.runtime.zero.partition import ZERO_AXES
 from deepspeed_tpu_torch.runtime.zero.reduce import (all_gather_flat,
@@ -101,15 +112,19 @@ def shard_module(module, param_plans):
 
 
 class _GatherUnit(torch.autograd.Function):
-    """Forward: one all-gather of a unit's shards, whole tensors out.
-    Backward: their gradients reduce-scattered into the slots (the
-    shards' own ``.grad`` stays empty)."""
+    """Forward: one all-gather of a unit's shards, whole tensors out, each
+    laid out as the whole parameter is (a shard split on a dim other than
+    0 comes out of the rank-major buffer transposed: copied, so the GEMMs
+    see stage 0's layout and round alike). Backward: their gradients
+    reduce-scattered into the slots (the shards' own ``.grad`` stays
+    empty)."""
 
     @staticmethod
     def forward(ctx, zero, unit, *shards):
         ctx.zero, ctx.unit = zero, unit
         entries = zero.unit_entries[unit]
-        return tuple(all_gather_flat(shards, [e.pplan for e in entries]))
+        return tuple(t.contiguous() for t in all_gather_flat(
+            shards, [e.pplan for e in entries]))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -150,7 +165,13 @@ class ZeroPartition:
         self.scale = scale
         self.reduce_bucket_size = reduce_bucket_size
         self.allgather_bucket_size = allgather_bucket_size
-        self.zero_group = layout.mesh.group(ZERO_AXES)
+        mesh = layout.mesh
+        self.zero_group = mesh.group(ZERO_AXES)
+        self.tp_size = layout.tp_size
+        # the norm's group, and whether this rank leads its ZeRO / tp group
+        self.norm_group = mesh.group(ZERO_AXES + (AXIS_TP,))
+        self.zero_lead = mesh.group_ranks(ZERO_AXES)[0] == mesh.rank
+        self.tp_lead = mesh.get_tensor_parallel_rank() == 0
         pplans, oplans = layout.shardings(module, stage)
         full = {n: p.detach() for n, p in module.named_parameters()
                 if p.requires_grad and not hasattr(p, "ds_plan")}
@@ -172,8 +193,10 @@ class ZeroPartition:
                     [e])[0]
                 e.master = e.oplan.local(whole.to(device)).contiguous() \
                     .clone()
-            p.ds_plan, p.ds_opt_plan, p.ds_master = e.pplan, e.oplan, \
-                e.master
+            # a separate master only: the parameter naming itself would
+            # be a reference cycle, freed by the garbage collector alone
+            p.ds_plan, p.ds_opt_plan = e.pplan, e.oplan
+            p.ds_master = e.master if e.master is not p else None
             p.ds_shape = e.pplan.shape
             p.ds_status = (ZeroParamStatus.NOT_AVAILABLE
                            if e.pplan.sharded else ZeroParamStatus.AVAILABLE)
@@ -277,19 +300,34 @@ class ZeroPartition:
     def any_split(self) -> bool:
         return any(e.oplan.sharded for e in self.entries)
 
+    @property
+    def reduces_norm(self) -> bool:
+        """Whether a norm needs a collective: some slot is split."""
+        return self.any_split or self.tp_size > 1
+
+    def _counted(self, e) -> bool:
+        """Whether this rank adds the entry's squares to the norm's
+        all-reduce (module docstring)."""
+        tp_split = e.oplan.tp_split
+        if e.oplan.sharded:
+            return tp_split or self.tp_lead
+        return tp_split and self.zero_lead
+
     def norm_and_overflow(self, grads, overflow=None):
         """Global L2 norm of the slots, each element counted once (split
-        slots summed over the ZeRO group, whole ones taken once), and the
-        overflow flag summed over the group, in one all-reduce."""
-        split = [g for g, e in zip(grads, self.entries) if e.oplan.sharded]
-        whole = [g for g, e in zip(grads, self.entries)
-                 if not e.oplan.sharded]
-        total = sum_of_squares(whole).to(grads[0].device)
-        if split:
+        slots summed over the ZeRO and tp groups, whole ones taken once),
+        and the overflow flag summed over them, in one all-reduce."""
+        reduced = [g for g, e in zip(grads, self.entries)
+                   if self._counted(e)]
+        local = [g for g, e in zip(grads, self.entries)
+                 if not (e.oplan.sharded or e.oplan.tp_split)]
+        total = sum_of_squares(local).to(grads[0].device)
+        if self.reduces_norm:
             flag = (overflow.float() if overflow is not None
                     else total.new_zeros(()))
-            buf = torch.stack([sum_of_squares(split), flag])
-            dist.all_reduce(buf, group=self.zero_group)
+            buf = torch.stack([sum_of_squares(reduced).to(total.device),
+                               flag])
+            dist.all_reduce(buf, group=self.norm_group)
             total = total + buf[0]
             if overflow is not None:
                 overflow = buf[1] > 0
@@ -297,15 +335,17 @@ class ZeroPartition:
 
     def norm_reduce(self, sq):
         """Squared per-parameter norms ``[..., k]`` (one column per
-        master) summed over the ZeRO group where the master is split:
-        LAMB's trust ratio on shards."""
-        if not self.any_split:
+        master) summed over the ZeRO and tp groups where the master is
+        split: LAMB's trust ratio on shards."""
+        if not self.reduces_norm:
             return sq
-        mask = torch.tensor([e.oplan.sharded for e in self.entries],
-                            device=sq.device)
-        part = torch.where(mask, sq, torch.zeros_like(sq))
-        dist.all_reduce(part, group=self.zero_group)
-        return torch.where(mask, part, sq)
+        split = torch.tensor([e.oplan.sharded or e.oplan.tp_split
+                              for e in self.entries], device=sq.device)
+        counted = torch.tensor([self._counted(e) for e in self.entries],
+                               device=sq.device)
+        part = torch.where(counted, sq, torch.zeros_like(sq))
+        dist.all_reduce(part, group=self.norm_group)
+        return torch.where(split, part, sq)
 
     # ------------------------------------------------------------------
     # parameters
@@ -386,7 +426,7 @@ class ZeroPartition:
                  if e.master is not e.param and e.oplan.sharded]
         writes = len(bucket_by_bytes(_sized(e.oplan for e in split),
                                      self.allgather_bucket_size))
-        ar_step = int(self.any_split) * (1 + int(lamb))
+        ar_step = int(self.reduces_norm) * (1 + int(lamb))
         return {"all_gather": ag * gas + writes,
                 "reduce_scatter": rs * per_step,
                 # + one all-reduce of the loss a micro-step

@@ -5,14 +5,20 @@
   ``Init(config_dict_or_path=ds_config).materialize(model)`` replaces
   each parameter that the stage splits by this rank's shard, on the
   host, and returns the model; ``initialize`` then keeps those shards.
+  On a mesh with a ``tp`` axis the model is first cut to this rank's tp
+  slice (its ``with_tensor_parallel``), a new model: use the one
+  ``materialize`` returns.
   The model exists whole on the host first: the port's models draw their
   weights at construction, and the JAX package's jit-sharded init has no
   counterpart here. The context-manager form is kept so reference-shaped
   code runs; entering it partitions nothing.
 - :class:`GatheredParameters`: the reference's torch form. Inside the
-  block the given parameters are whole; on exit, with a
-  ``modifier_rank``, that rank's values are broadcast and written back to
-  every rank's shards (and the engine's fp32 masters).
+  block the given parameters are whole over the ZeRO axes (under tp,
+  this rank's tp slice whole: the gathers run at its tp coordinate); on
+  exit, with a ``modifier_rank``, that rank's values are broadcast and
+  written back to every rank's shards (and the engine's fp32 masters);
+  a tp slice is broadcast from the rank at ``modifier_rank``'s ZeRO
+  coordinates and this rank's tp coordinate.
 - :func:`register_external_parameter`: a no-op, as in the JAX package:
   the engine's gather units hold every parameter a block reads.
 """
@@ -48,8 +54,8 @@ class Init:
         return False
 
     def _layout(self):
-        from deepspeed_tpu_torch.parallel.topology import (
-            MeshTopology, check_training_axes, get_topology)
+        from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
+                                                           get_topology)
         from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
         from deepspeed_tpu_torch.runtime.zero.partition import SpecLayout
 
@@ -58,16 +64,29 @@ class Init:
             topo = MeshTopology(axis_sizes=topo)
         if topo is None:
             topo = get_topology()
-        check_training_axes(topo.axis_sizes)
-        zc = DeepSpeedConfig(self.config).zero_config
+        config = DeepSpeedConfig(self.config)
+        zc = config.zero_config
         return SpecLayout(topo,
+                          policy=config.tensor_parallel_config.get(
+                              "policy", "auto"),
                           persistence_threshold=zc.param_persistence_threshold,
                           hierarchical_gather=zc.hierarchical_gather)
 
     def materialize(self, model):
         """``model`` with every parameter the stage splits replaced by
-        this rank's shard (on the host); returns it."""
-        params, _ = self._layout().shardings(model, self.stage)
+        this rank's shard (on the host), cut to this rank's tp slice first
+        on a ``tp`` mesh; returns it."""
+        from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+
+        layout = self._layout()
+        topo = layout.mesh
+        if layout.tp_size > 1 and getattr(model, "tp", None) is None:
+            model = model.with_tensor_parallel(
+                TensorParallel(group=topo.get_tensor_parallel_group(),
+                               size=layout.tp_size,
+                               rank=topo.get_tensor_parallel_rank()),
+                policy=layout.policy)
+        params, _ = layout.shardings(model, self.stage)
         return shard_module(model, params)
 
 
@@ -118,9 +137,9 @@ class GatheredParameters:
         for p in self.params:
             plan = getattr(p, "ds_plan", None)
             if self.modifier_rank is not None and dist.is_initialized():
-                dist.broadcast(p.data, src=self.modifier_rank)
+                dist.broadcast(p.data, *_modifier(plan, self.modifier_rank))
                 master = getattr(p, "ds_master", None)
-                if master is not None and master is not p:
+                if master is not None:
                     master.copy_(p.ds_opt_plan.local(p.data))
             if id(p) in self._shards:
                 shard = self._shards.pop(id(p))
@@ -129,6 +148,23 @@ class GatheredParameters:
                 p.data = shard
                 p.ds_status = ZeroParamStatus.NOT_AVAILABLE
         return False
+
+
+def _modifier(plan, modifier_rank):
+    """``(src, group)`` of a modifier's broadcast: the world from
+    ``modifier_rank``, or for a tp slice the ranks at this rank's tp
+    coordinate, from the one at ``modifier_rank``'s other coordinates."""
+    from deepspeed_tpu_torch.parallel.topology import (AXIS_TP,
+                                                       get_topology)
+
+    topo = get_topology(create_if_missing=False)
+    if plan is None or not plan.tp_split or topo is None:
+        return modifier_rank, None
+    others = tuple(a for a in topo.active_axes if a != AXIS_TP)
+    coord = topo.topology.get_coord(modifier_rank)._asdict()
+    coord[AXIS_TP] = topo.get_tensor_parallel_rank()
+    src = topo.topology.get_rank(**coord)
+    return topo.group_ranks(others).index(src), topo.group(others)
 
 
 def register_external_parameter(module, parameter) -> None:

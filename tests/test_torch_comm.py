@@ -128,37 +128,36 @@ def test_bad_meshes_fail_in_both(sizes):
 
 
 @pytest.mark.parametrize("sizes,where", [
-    ({"data": 2, "tp": 2}, r"\[7d\]"), ({"data": 2, "model": 2}, r"\[7d\]"),
+    ({"data": 2, "tp": 2}, None), ({"data": 2, "model": 2}, None),
     ({"pipe": 2, "data": 2}, r"\[11\]"), ({"expert": 2, "data": 2},
                                           r"\[12.6\]"),
     ({"seq": 4}, r"\[12.7\]")], ids=["tp", "model", "pipe", "expert", "seq"])
 def test_axes_of_later_slices_raise(sizes, where):
-    """pipe / expert / seq raise in the mesh itself; the mesh takes tp
-    (tensor-parallel serving), which training refuses, naming [7d]."""
+    """pipe / expert / seq raise in the mesh itself, naming their slices;
+    tp (tensor-parallel serving and training) runs, as in JAX."""
     ref = _jax_mesh(sizes)  # the JAX package runs them
-    if "7d" in where:
+    if where is None:
         ours = port_topo.MeshTopology(axis_sizes=sizes, world_size=4,
                                       rank=3)
         assert ours.axis_sizes == ref.axis_sizes
         assert ours.get_tensor_parallel_world_size() == 2
         assert ours.get_tensor_parallel_rank() == \
             ref.topology.get_coord(3).tp
-        sizes = ours.axis_sizes
-        check = port_topo.check_training_axes
-    else:
-        def check(sizes):
-            port_topo.MeshTopology(axis_sizes=sizes, world_size=4)
+        port_topo.check_ported_axes(ours.axis_sizes)  # training takes it
+        return
     with pytest.raises(NotImplementedError, match=where):
-        check(sizes)
+        port_topo.MeshTopology(axis_sizes=sizes, world_size=4)
 
 
 def test_dcn_section_raises():
-    with pytest.raises(NotImplementedError, match=r"dcn.*\[7d\]"):
+    """A dcn section raises only where JAX's mesh does (a factor that
+    does not divide its axis); factors of 1 cross nothing."""
+    with pytest.raises(ValueError, match="not divisible by its dcn"):
         port_topo.MeshTopology(axis_sizes={"data": 4}, world_size=4,
-                               dcn_axis_sizes={"data": 2})
-    # factors of 1 cross nothing
-    port_topo.MeshTopology(axis_sizes={"data": 4}, world_size=4,
-                           dcn_axis_sizes={"data": 1})
+                               dcn_axis_sizes={"data": 3})
+    for dcn in ({"data": 2}, {"data": 1}):
+        port_topo.MeshTopology(axis_sizes={"data": 4}, world_size=4,
+                               dcn_axis_sizes=dcn)
 
 
 def test_groups_need_a_process_group():

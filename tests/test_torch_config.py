@@ -173,17 +173,52 @@ def test_data_parallel_keys_match_jax(case, monkeypatch):
 
 
 @pytest.mark.parametrize("d,where", [
-    ({"mesh": {"tp": 2}}, r"\[7d\]"), ({"mesh": {"seq": 2}}, r"\[12.7\]"),
+    ({"mesh": {"tp": 2}}, None), ({"mesh": {"seq": 2}}, r"\[12.7\]"),
     ({"mesh": {"expert": 2}}, r"\[12.6\]"), ({"mesh": {"pipe": 2}},
                                               r"\[11\]"),
-    ({"mesh": {"dcn": {"data": 2}}}, r"\[7d\]"),
-    ({"tensor_parallel": {"policy": "gpt2"}}, r"\[7d\]"),
+    ({"mesh": {"dcn": {"data": 2}}}, None),
+    ({"tensor_parallel": {"policy": "gpt2"}}, None),
     ({"comm_quantization": {"enabled": True}}, r"\[9\]"),
     ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, "offload"),
     ({"zero_optimization": {"cpu_offload_param": True}}, "offload")],
     ids=["tp", "seq", "expert", "pipe", "dcn", "tensor_parallel",
          "comm_quantization", "offload_param", "cpu_offload_param"])
 def test_keys_of_later_slices_raise_naming_them(d, where):
-    JaxConfig({"train_batch_size": 1, **d})  # the JAX package takes them
+    """Keys of later slices raise naming them; the tensor-parallel
+    training keys (None) are taken, as JAX takes them."""
+    jax = JaxConfig({"train_batch_size": 1, **d})  # the JAX package takes
+    if where is None:
+        port = DeepSpeedConfig({"train_batch_size": 1, **d})
+        assert port.mesh.model_dump() == jax.mesh.model_dump()
+        assert port.tensor_parallel_config == jax.tensor_parallel_config
+        return
     with pytest.raises(NotImplementedError, match=where):
         DeepSpeedConfig({"train_batch_size": 1, **d})
+
+
+TP_CASES = {
+    "tp": {"train_micro_batch_size_per_gpu": 2, "mesh": {"tp": 2}},
+    "model_alias": {"train_batch_size": 8, "mesh": {"model": 2}},
+    "data_tp": {"train_batch_size": 8, "gradient_accumulation_steps": 2,
+                "mesh": {"data": 2, "tp": 2}},
+    "fsdp_tp": {"train_micro_batch_size_per_gpu": 4,
+                "mesh": {"fsdp": 2, "tp": 2}},
+    "policy": {"train_batch_size": 4, "mesh": {"tp": 4},
+               "tensor_parallel": {"policy": "gpt2"}},
+    "dcn": {"train_batch_size": 4, "mesh": {"data": 4, "dcn": {"data": 2}}},
+}
+
+
+@pytest.mark.parametrize("case", list(TP_CASES))
+def test_tensor_parallel_keys_match_jax(case, monkeypatch):
+    """mesh.tp, its alias mesh.model, the tensor_parallel section and
+    mesh.dcn parse as JAX's DeepSpeedConfig does; the batch triangle's
+    world is world / (tp x pipe x seq x fsdp)."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    d = TP_CASES[case]
+    jax, port = JaxConfig(dict(d)), DeepSpeedConfig(dict(d))
+    for name in ("world_size", "train_batch_size",
+                 "train_micro_batch_size_per_gpu",
+                 "gradient_accumulation_steps", "tensor_parallel_config"):
+        assert getattr(port, name) == getattr(jax, name), name
+    assert port.mesh.model_dump() == jax.mesh.model_dump()

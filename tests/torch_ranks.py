@@ -250,7 +250,8 @@ def train(rank, world, args):
     ``args["steps"]`` steps on ``args["batches"]`` (global micro-batches)
     over ``args["mesh"]``: losses of every micro-step, pre-clip grad norms,
     the gathered final parameters (rank 0), the shapes each rank holds,
-    and the collectives each step launched against the stage's plan."""
+    and the collectives each step launched against the stage's plan and
+    the model's (its tensor-parallel collectives)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.parallel.topology import MeshTopology
@@ -275,6 +276,11 @@ def train(rank, world, args):
         plan = zero.comm_plan(
             gas, recompute=True,
             lamb=config["optimizer"]["type"].lower() == "lamb")
+        # the model's own (tensor-parallel) collectives, a micro-step
+        rows, seq = args["batches"][0].shape
+        rows //= engine.topology.get_data_parallel_world_size()
+        for k, v in engine.module.comm_plan(rows, seq).items():
+            plan[k] = plan.get(k, 0) + v * gas
         out[name] = {
             "losses": losses, "norms": norms,
             "counts": {k: counts.get(k, 0) for k in plan},
@@ -504,7 +510,7 @@ def _tp_layers(rank, world, args):
     h_r = lay["h"].chunk(world, -1)[rank]
     group = torch.distributed.group.WORLD
     tp = layers.TensorParallel(group=group, size=world, rank=rank)
-    col = layers.ColumnParallelLinear(w_in.shape[1], w_in.shape[0], world)
+    col = layers.ColumnParallelLinear(w_in.shape[1], w_in.shape[0], tp)
     row = layers.RowParallelLinear(w_out.shape[1], w_out.shape[0], tp)
     with torch.no_grad():
         col.weight.copy_(w_in_r)
@@ -612,4 +618,200 @@ def tensor_parallel(rank, world, args):
         "shapes": {k: tuple(v.shape)
                    for k, v in eng3.module.state_dict().items()},
         "cache_heads": eng3.module.new_cache(1).keys[0].shape[2]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training
+# ---------------------------------------------------------------------------
+TP_MESH = {"data": 2, "tp": 2}
+
+
+def _tp_functions(tp, args):
+    """The f/g pair, the tiled gather and the vocab-parallel losses on
+    this rank's slices of ``args["fg"]`` (numpy): outputs and the
+    gradients autograd gives the inputs and this rank's slices."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models.gpt2 import (chunked_softmax_xent,
+                                                 cross_entropy_loss,
+                                                 head_logits)
+    from deepspeed_tpu_torch.module_inject import layers
+
+    a = {k: torch.from_numpy(v) for k, v in args["fg"].items()}
+    n, r = tp.size, tp.rank
+
+    def leaf(t):
+        return t.clone().requires_grad_()
+
+    out = {}
+    # column (f) -> gelu -> row (g): out and the gradients of x and the
+    # rank's weight slices
+    x = leaf(a["x"])
+    w_in = leaf(a["w_in"].chunk(n, 0)[r])
+    w_out = leaf(a["w_out"].chunk(n, 1)[r])
+    y = layers.row_parallel_linear(
+        F.gelu(layers.column_parallel_linear(x, w_in, None, tp.group)),
+        w_out, None, tp.group)
+    (y * a["dy"]).sum().backward()
+    out["mlp"] = [_np(t) for t in (y, x.grad, w_in.grad, w_out.grad)]
+    # the tiled gather: the whole forward, this rank's slice backward
+    h = leaf(a["x"].chunk(n, -1)[r])
+    g = layers.gather_from_tp(h, tp.group, dim=-1)
+    (g * a["dy"]).sum().backward()
+    out["gather"] = [_np(g), _np(h.grad)]
+    # the vocab-parallel loss on whole logits split by columns
+    logits = leaf(a["logits"].chunk(n, -1)[r])
+    loss = cross_entropy_loss(logits, torch.from_numpy(args["labels"]),
+                              tp=tp)
+    loss.backward()
+    out["xent"] = [_np(loss), _np(logits.grad)]
+    # the chunked head over a split vocabulary (chunks of 3 positions)
+    hidden = leaf(a["hidden"])
+    wte = leaf(a["wte"].chunk(n, 0)[r])
+    loss = chunked_softmax_xent(hidden, wte,
+                                torch.from_numpy(args["seq_labels"]),
+                                chunk=3, tp=tp)
+    loss.backward()
+    out["chunked"] = [_np(loss), _np(hidden.grad), _np(wte.grad)]
+    hidden = leaf(a["hidden"])
+    wte = leaf(a["wte"].chunk(n, 0)[r])
+    logits = head_logits(layers.copy_to_tp(hidden, tp.group), wte)
+    loss = cross_entropy_loss(logits, torch.from_numpy(args["seq_labels"]),
+                              tp=tp)
+    loss.backward()
+    out["dense_head"] = [_np(loss), _np(hidden.grad), _np(wte.grad)]
+    return out
+
+
+def _tp_engine_of(model, config):
+    import deepspeed_tpu_torch
+
+    return deepspeed_tpu_torch.initialize(model=model, config=config,
+                                          mesh=TP_MESH, device="cpu")[0]
+
+
+def _tp_engine(args, config, **extra):
+    return _tp_engine_of(_gpt2(args, **extra), config)
+
+
+def _steps(engine, batches, n):
+    losses = []
+    for ids in batches[:n]:
+        loss = engine({"input_ids": ids})
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss))
+    return losses
+
+
+def tp_checks(rank, world, args):
+    """Tensor-parallel training's pieces on ``{"data": 2, "tp": 2}``:
+    the f/g pair and the vocab-parallel losses on each tp group (2
+    ranks); ``partition_activations`` against the run without it (losses
+    and the collectives of 3 steps); an fp16 overflow in tp rank 0's
+    slice alone; ``module_state_dict`` / ``load_module_state_dict``;
+    ``zero.Init`` and ``GatheredParameters`` at stage 3."""
+    from deepspeed_tpu_torch import comm, zero
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+    from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
+                                                       set_topology)
+
+    topo = MeshTopology(axis_sizes=TP_MESH)
+    set_topology(topo)
+    tp = TensorParallel(group=topo.get_tensor_parallel_group(), size=2,
+                        rank=topo.get_tensor_parallel_rank())
+    from deepspeed_tpu_torch.utils import groups
+
+    out = {"tp_rank": tp.rank, "functions": _tp_functions(tp, args),
+           "groups": (groups.get_model_parallel_world_size(),
+                      groups.get_model_parallel_rank(),
+                      comm.get_all_ranks_from_group(
+                          groups.get_model_parallel_group()),
+                      groups.get_tensor_parallel_world_size(),
+                      groups.get_tensor_parallel_rank(),
+                      comm.get_all_ranks_from_group(
+                          groups.get_tensor_parallel_group()),
+                      groups.get_data_parallel_world_size(),
+                      comm.get_all_ranks_from_group(
+                          groups.get_data_parallel_group()))}
+    batches = args["batches"]
+
+    # a model with no tensor-parallel form is refused, naming the rest
+    # of the slice
+    from deepspeed_tpu_torch.models.bert import BertConfig, BertForTraining
+
+    try:
+        _tp_engine_of(BertForTraining(BertConfig.tiny()), zero_config(0))
+        out["bert"] = None
+    except NotImplementedError as e:
+        out["bert"] = str(e)
+
+    # partition_activations: the same bits, one all-gather a block
+    for part in (False, True):
+        engine = _tp_engine(args, zero_config(0), partition_activations=part)
+        comm.reset_counts()
+        losses = _steps(engine, batches, 3)
+        out[f"partition_{part}"] = {
+            "losses": losses, "counts": dict(comm.counts),
+            "plan": engine.module.comm_plan(2, batches[0].shape[1])}
+
+    # fp16: an inf in tp rank 0's slice of one gradient skips every rank
+    config = {**zero_config(0, fused=False), "fp16": {"enabled": True}}
+    engine = _tp_engine(args, config)
+    w = engine.module.model.h[0].mlp.c_fc.weight
+    before = _np(w)
+    loss = engine({"input_ids": batches[0]})
+    if tp.rank == 0:
+        w.grad[0, 0] = float("inf")
+    engine.backward(loss)
+    engine.step()
+    out["overflow"] = {"skipped": engine.get_skipped_steps(),
+                       "applied": engine.was_step_applied(),
+                       "unchanged": bool(np.array_equal(before, _np(w)))}
+
+    # the whole state dict back from the slices, and re-sliced
+    saved = engine.module_state_dict()
+    engine.load_module_state_dict(
+        {k: torch.zeros_like(v) for k, v in saved.items()})
+    zeroed = float(sum(v.abs().sum() for v in
+                       engine.module_state_dict().values()))
+    engine.load_module_state_dict(saved)
+    out["state_dict"] = {
+        "shapes": {k: tuple(v.shape) for k, v in saved.items()},
+        "wte": _np(saved["model.wte"]),
+        "c_attn": _np(saved["model.h.0.attn.c_attn.weight"]),
+        "zeroed": zeroed,
+        "reloaded": max(float((v - saved[k]).abs().max()) for k, v in
+                        engine.module_state_dict().items())}
+
+    # zero.Init at stage 3: this rank's tp slice, then its ZeRO shard;
+    # GatheredParameters gives the tp slice whole over data
+    config = {**zero_config(3, stage3_param_persistence_threshold=0),
+              "mesh": TP_MESH}
+    model = zero.Init(config_dict_or_path=config).materialize(_gpt2(args))
+    c_attn = model.model.h[0].attn.c_attn.weight
+    res = {"init_shape": tuple(c_attn.shape)}
+    runs = []
+    for m in (model, _gpt2(args)):
+        import deepspeed_tpu_torch
+
+        engine = deepspeed_tpu_torch.initialize(model=m, config=config,
+                                                device="cpu")[0]
+        runs.append((float(engine({"input_ids": batches[0]})),
+                     engine.get_global_grad_norm()))
+    res["runs"] = runs
+    params = [engine.module.model.h[0].attn.c_attn.weight,
+              engine.module.model.ln_f.weight]
+    with zero.GatheredParameters(params, modifier_rank=1):
+        res["inside"] = [tuple(p.shape) for p in params]
+        res["c_attn_inside"] = _np(params[0])
+        with torch.no_grad():
+            params[0][0, 0] = 7.0 + tp.rank if rank == 1 else -1.0
+            params[1][0] = 3.0 if rank == 1 else -1.0
+    sd = engine.module_state_dict()
+    res["after"] = [tuple(p.shape) for p in params]
+    res["c_attn"] = _np(sd["model.h.0.attn.c_attn.weight"])
+    res["ln_f"] = _np(sd["model.ln_f.weight"])
+    out["zero_init"] = res
     return out
