@@ -175,12 +175,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (B=4 H=6, q, k and v cut from one fused projection, dO as the
    row-parallel projection hands it back) and at tp=4's one head a rank
    (B=2 H=1 T=64 D=16). ms a step and peak memory a rank are printed for
-   information: host-staged gloo.
+   information: host-staged gloo;
+11. "fleet" (run after phase 7, on its model): the serving fleet through
+   ``init_serving`` on GPT-2 125M (bf16, phase 4's serving block with a
+   ``sampling`` block): (a) phase 4's 8 requests and one keyed request
+   through a ``ReplicaRouter`` of 2 replicas: the greedy tokens equal
+   phase 4's single engine's, every replica serves; (b) the same stream
+   with replica 1 a ``ChaosReplica(crash_at_step=6)``: every client's
+   stream equals (a)'s, each position delivered once,
+   ``replay_divergence`` 0, some replayed positions swallowed; (c)
+   ``serving.migration`` on, ``migrate_work(1)`` after 4 steps on bf16
+   and on int8 pools: the moved requests finish with (a)'s tokens (int8:
+   an unmigrated run's) and kernel 1 launches 0 times from the move to
+   the end; the wire bytes a block (int8 / bf16 = (64 + 4) / 128) and
+   export + import ms of one sequence at 4, 16 and 63 blocks are
+   printed; then ``crash_during_migration=1`` falls back to one replay;
+   (d) a ``FleetManager`` scales up through the default factory and
+   down (drain, park), tokens unchanged, the peak memory of 3 replicas
+   printed; (e) the gateway on loopback (``127.0.0.1``, port 0) with two
+   tenants: SSE tokens equal (a)'s, 401 without a key, 429 over a quota;
+   TTFT over HTTP against a direct submit printed for information. One
+   card steps the replicas in turn: nothing here is fleet scaling.
 
-Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9 and 10 are the main paths (6, 7 and 8
-in two legs each, 3b one window a stage and 10 one an engine, summed; 9's
-and 10's launch counts are rank 0's, zeroed in the rank before each
-window):
+Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10 and 11 are the main paths (6, 7
+and 8 in two legs each, 3b one window a stage and 10 one an engine,
+summed; 9's and 10's launch counts are rank 0's, zeroed in the rank
+before each window; 11 one window over its five parts):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -1409,7 +1429,8 @@ def warm_up(model, seed):
 
 
 def phase_serving(model, seed, card):
-    """The serving path; returns its launch counts."""
+    """The serving path; returns its launch counts and each request's
+    tokens."""
     import torch
 
     from deepspeed_tpu_torch import init_serving
@@ -1452,7 +1473,7 @@ def phase_serving(model, seed, card):
         f"({agree / (len(reqs) * max_new):.3f}), max |logit diff| prefill "
         f"{pf_err:.4g}, first decode {fd_err:.4g} (tolerance "
         f"{LOGITS_ATOL}); plain run took {ref_secs:.3f} s")
-    return counts
+    return counts, [r.tokens for r in reqs]
 
 
 def run_generate(engine, ids, max_new, **kwargs):
@@ -3137,6 +3158,423 @@ def phase_tp_training(seed, card):
 # row names the source it ran). Rows 4-6 are kernels 1-3
 # through the [B, T, H, D] views every training path hands them (one
 # wrapper and count serve both layouts)
+# ---------------------------------------------------------------------------
+# phase 11: the serving fleet
+# ---------------------------------------------------------------------------
+# phase 4's serving block with keyed sampling on (greedy requests still
+# take the argmax), and the one keyed request of (a) and (b)
+FLEET_SERVING = {"block_size": 16, "decode_slots": 4, "sampling": {}}
+FLEET_KEYED = dict(seed=11, temperature=0.8, top_p=0.9)
+# (b): replica 1 dies at its 6th step, mid-decode
+FLEET_CRASH_STEP = 6
+# (c): router steps before migrate_work(1), and the requests of the leg
+# (two a replica: the target keeps room for the moved ones)
+FLEET_MIGRATE_STEP = 4
+FLEET_MIGRATE_REQUESTS = 4
+# (c): blocks of the timed single-sequence moves (64 blocks hold 1024
+# tokens, the model's window)
+MIGRATION_BLOCKS = (4, 16, 63)
+# (d): the fleet block; the manual levers alone scale (no autoscaled
+# scale-down while a stream drains)
+FLEET_BLOCK = {"min_replicas": 1, "max_replicas": 3,
+               "scale_down_quiet_steps": 100000}
+# (e): two tenants; spam's bucket holds one request and refills in 100 s
+FLEET_TENANTS = [
+    {"name": "acme", "api_key": "acme-key", "slo_class": "gold"},
+    {"name": "spam", "api_key": "spam-key", "requests_per_sec": 0.01,
+     "burst_requests": 1.0},
+]
+
+
+class EventLog:
+    """A ``telemetry=`` object for the router: records its events."""
+
+    enabled = True
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, kind, name, step=None, **data):
+        self.events.append((kind, name, data))
+
+
+def fleet_stream(front, prompts, keyed_prompt, max_new):
+    """Phase 4's requests and one keyed request through ``front``, every
+    client's stream recorded: (handles by id, streamed tokens by id)."""
+    streamed = {}
+
+    def cb(handle, tok, done):
+        streamed.setdefault(handle.request_id, []).append(int(tok))
+
+    handles = [front.submit(p, max_new_tokens=max_new, request_id=f"r{i}",
+                            stream=cb) for i, p in enumerate(prompts)]
+    if keyed_prompt is not None:
+        handles.append(front.submit(keyed_prompt, max_new_tokens=max_new,
+                                    request_id="k", stream=cb,
+                                    do_sample=True, **FLEET_KEYED))
+    front.drain()
+    return {h.request_id: h for h in handles}, streamed
+
+
+def check_stream(what, handles, streamed, want, max_new):
+    """Every request finished with ``max_new`` tokens, each client saw
+    each position exactly once, and the tokens are ``want``'s."""
+    for rid, h in handles.items():
+        if h.state != "finished" or len(h.tokens) != max_new:
+            raise AssertionError(f"{what} {rid}: state {h.state} reason "
+                                 f"{h.finish_reason}, {len(h.tokens)} "
+                                 f"tokens")
+        if streamed.get(rid) != h.tokens:
+            raise AssertionError(f"{what} {rid}: the client's stream "
+                                 f"{streamed.get(rid)} is not the handle's "
+                                 f"{h.tokens}")
+        if want is not None and h.tokens != want[rid]:
+            raise AssertionError(f"{what} {rid}: tokens {h.tokens} differ "
+                                 f"from {want[rid]}")
+
+
+def check_router(what, stats, **want):
+    for key, value in want.items():
+        ok = value(stats[key]) if callable(value) else stats[key] == value
+        if not ok:
+            raise AssertionError(f"{what}: router {key} {stats[key]} "
+                                 f"({stats})")
+
+
+def time_moves(model, serving, card):
+    """Export + import (and the source's detach) of one sequence between
+    two engines, by covered blocks, on the host clock around work that
+    ends in a sync; returns {blocks: (ms, wire bytes)}."""
+    import torch
+
+    from deepspeed_tpu_torch import init_serving
+
+    src, dst = (init_serving(model, serving=serving) for _ in range(2))
+    rng = np.random.default_rng(5)
+    out = {}
+    # each size moves twice and the second move is timed: the first pays
+    # the allocators' first buffers of that size
+    for n, blocks in enumerate(b for b in MIGRATION_BLOCKS for _ in "12"):
+        prompt = rng.integers(1, model.config.vocab_size, blocks * 16 - 2)
+        src.submit(prompt, max_new_tokens=8, request_id=f"t{n}")
+        src.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export = src.export_sequence(f"t{n}")
+        moved = dst.import_sequence(export)
+        src.migrate_out(f"t{n}")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if export["blocks"] != blocks or moved is None:
+            raise AssertionError(f"move of {blocks} blocks: export "
+                                 f"{export['blocks']} blocks, import "
+                                 f"{moved}")
+        dst.cancel(moved.request_id)
+        if n % 2:
+            out[blocks] = (ms, export["wire_bytes"])
+    return out
+
+
+def fleet_migration(model, prompts, want, max_new, kv, card):
+    """(c) on ``kv`` pools: two replicas with ``serving.migration``, four
+    requests, ``migrate_work(1)`` after FLEET_MIGRATE_STEP steps. The
+    moved requests finish with ``want``'s tokens (None: an unmigrated
+    run's on the same pools) and kernel 1 launches 0 times from the move
+    to the end. Returns the wire bytes of a moved block."""
+    from deepspeed_tpu_torch import init_serving
+
+    serving = {**FLEET_SERVING, "kv_cache_dtype": kv,
+               "router": {"replicas": 2}, "migration": {}}
+    prompts = prompts[:FLEET_MIGRATE_REQUESTS]
+    what = "an unmigrated run" if want is None else "(a)"
+    if want is None:
+        ref, _ = fleet_stream(init_serving(model, serving=serving), prompts,
+                              None, max_new)
+        want = {rid: h.tokens for rid, h in ref.items()}
+    front = init_serving(model, serving=serving)
+    front.telemetry = events = EventLog()
+    streamed = {}
+    handles = {f"r{i}": front.submit(
+        p, max_new_tokens=max_new, request_id=f"r{i}",
+        stream=lambda h, t, d: streamed.setdefault(h.request_id,
+                                                   []).append(int(t)))
+        for i, p in enumerate(prompts)}
+    for _ in range(FLEET_MIGRATE_STEP):
+        front.step()
+    on_1 = front.assigned(1)
+    before = launch_counts()
+    moved = front.migrate_work(1)
+    front.drain()
+    after = launch_counts()
+    check_stream(f"fleet (c) {kv or 'bf16'}", handles, streamed, want,
+                 max_new)
+    st = front.stats()
+    check_router(f"fleet (c) {kv or 'bf16'}", st, migrations=on_1,
+                 failovers=0, replay_divergence=0)
+    if moved != on_1 or moved == 0:
+        raise AssertionError(f"fleet (c): moved {moved} of replica 1's "
+                             f"{on_1} requests")
+    fwd = after["flash_fwd"] - before["flash_fwd"]
+    decode = ("decode_paged_int8" if kv else "decode_paged")
+    if fwd != 0 or after[decode] - before[decode] <= 0:
+        raise AssertionError(f"fleet (c): from the move to the end kernel "
+                             f"1 launched {fwd} times, {decode} "
+                             f"{after[decode] - before[decode]}")
+    moves = [d for kind, name, d in events.events if name == "migrate"]
+    per_block = {d["wire_bytes"] / d["blocks"] for d in moves}
+    log(f"fleet (c) {kv or 'bf16'} pools: migrate_work(1) after "
+        f"{FLEET_MIGRATE_STEP} steps moved {moved} requests "
+        f"({[(d['request_id'], d['blocks'], d['wire_bytes']) for d in moves]}"
+        f" id, blocks, wire bytes), tokens equal to "
+        f"{what}'s, kernel 1 "
+        f"launches from the move to the end 0, {decode} "
+        f"{after[decode] - before[decode]} [{card}]")
+    return per_block.pop()
+
+
+def fleet_crash_mid_migration(model, prompts, want, max_new, card):
+    """(c), last: replica 1 dies between its first export and the
+    target's commit (``crash_during_migration=1``): that move falls back
+    to a replay, exactly once, and every request keeps (a)'s tokens."""
+    from deepspeed_tpu_torch import init_serving
+    from deepspeed_tpu_torch.runtime.resilience.chaos import ChaosReplica
+
+    serving = {**FLEET_SERVING, "router": {"replicas": 2}, "migration": {}}
+    engines = [init_serving(model, serving=FLEET_SERVING) for _ in range(2)]
+    engines[1] = ChaosReplica(engines[1], crash_during_migration=1)
+    front = init_serving(None, replicas=engines, serving=serving)
+    streamed = {}
+    handles = {f"r{i}": front.submit(
+        p, max_new_tokens=max_new, request_id=f"r{i}",
+        stream=lambda h, t, d: streamed.setdefault(h.request_id,
+                                                   []).append(int(t)))
+        for i, p in enumerate(prompts[:FLEET_MIGRATE_REQUESTS])}
+    for _ in range(FLEET_MIGRATE_STEP):
+        front.step()
+    on_1 = front.assigned(1)
+    moved = front.migrate_work(1)
+    front.drain()
+    check_stream("fleet (c) crash mid-migration", handles, streamed, want,
+                 max_new)
+    st = front.stats()
+    check_router("fleet (c) crash mid-migration", st, failovers=1,
+                 migrations=on_1 - 1, replay_divergence=0,
+                 replica_states=["healthy", "dead"])
+    if moved != on_1 - 1:
+        raise AssertionError(f"crash mid-migration: moved {moved} of "
+                             f"{on_1}")
+    log(f"fleet (c) crash mid-migration: replica 1 died in its first "
+        f"export; {moved} of its {on_1} requests moved, 1 replayed "
+        f"(failovers {st['failovers']}, deduped {st['deduped_tokens']}, "
+        f"divergence 0), tokens equal to (a)'s [{card}]")
+
+
+def sse_post(url, body, key=None, timeout=120):
+    """POST /v1/generate and read the SSE stream: (status, tokens, seconds
+    from the request to the first token event)."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if key:
+        headers["Authorization"] = f"Bearer {key}"
+    req = urllib.request.Request(url + "/v1/generate",
+                                 data=json.dumps(body).encode("utf-8"),
+                                 headers=headers, method="POST")
+    t0 = time.perf_counter()
+    try:
+        resp = urllib.request.urlopen(req, timeout=timeout)
+    except urllib.error.HTTPError as e:
+        e.read()
+        e.close()
+        return e.code, [], None
+    tokens, first, event = [], None, ""
+    with resp:
+        for raw in resp:
+            line = raw.decode("utf-8").rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: ") and event == "token":
+                if first is None:
+                    first = time.perf_counter() - t0
+                tokens.append(int(json.loads(line[6:])["token"]))
+            elif line.startswith("data: ") and event in ("done", "error"):
+                break
+        return resp.status, tokens, first
+
+
+def stepped(front, fn):
+    """``fn()`` on a client thread while this thread steps ``front`` (the
+    engines are stepped from one thread only); returns fn's result."""
+    import threading
+
+    out = []
+    client = threading.Thread(target=lambda: out.append(fn()), daemon=True)
+    client.start()
+    deadline = time.monotonic() + 300
+    while client.is_alive() and time.monotonic() < deadline:
+        if front.pending:
+            front.step()
+        else:
+            time.sleep(0.001)
+    client.join(10)
+    if client.is_alive() or not out:
+        raise AssertionError("gateway client did not finish")
+    return out[0]
+
+
+def fleet_gateway(model, prompts, want, max_new, card):
+    """(e): the router behind the gateway on loopback, two tenants."""
+    import torch
+
+    from deepspeed_tpu_torch import init_serving
+
+    gw = init_serving(model, serving={
+        **FLEET_SERVING, "router": {"replicas": 2},
+        "gateway": {"tenants": FLEET_TENANTS}})
+    try:
+        first = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = gw.submit(prompts[0], max_new_tokens=max_new,
+                           request_id="direct",
+                           stream=lambda h, t, d: first.append(
+                               time.perf_counter() - t0) if not first
+                           else None)
+        gw.drain()
+        if direct.tokens != want["r0"]:
+            raise AssertionError(f"gateway direct submit: {direct.tokens}")
+        status, tokens, ttft = stepped(gw, lambda: sse_post(
+            gw.url, {"prompt": [int(t) for t in prompts[0]],
+                     "max_new_tokens": max_new}, key="acme-key"))
+        if status != 200 or tokens != want["r0"]:
+            raise AssertionError(f"gateway SSE: status {status}, tokens "
+                                 f"{tokens}")
+        no_key = sse_post(gw.url, {"prompt": [1]})[0]
+        spam = stepped(gw, lambda: sse_post(
+            gw.url, {"prompt": [int(t) for t in prompts[1]],
+                     "max_new_tokens": max_new}, key="spam-key"))
+        over = sse_post(gw.url, {"prompt": [2]}, key="spam-key")[0]
+        if (no_key, spam[0], over) != (401, 200, 429) \
+                or spam[1] != want["r1"]:
+            raise AssertionError(f"gateway: no key {no_key}, spam "
+                                 f"{spam[0]} then {over}, spam tokens "
+                                 f"{spam[1]}")
+        log(f"fleet (e) gateway on {gw.url}: SSE tokens equal (a)'s for 2 "
+            f"tenants, no key 401, spam over its quota 429; TTFT "
+            f"over HTTP {1e3 * ttft:.3f} ms against {1e3 * first[0]:.3f} ms "
+            f"for a direct submit (host clock, one request alone, for "
+            f"information) [{card}]")
+    finally:
+        gw.close()
+
+
+def phase_fleet(model, seed, card, single):
+    """The serving fleet on GPT-2 125M: (a) the router, (b) failover, (c)
+    live migration, (d) the fleet manager, (e) the gateway; ``single``
+    is phase 4's tokens a request. Returns the phase's launch counts."""
+    import torch
+
+    from deepspeed_tpu_torch import init_serving
+    from deepspeed_tpu_torch.runtime.resilience.chaos import ChaosReplica
+    from deepspeed_tpu_torch.serving.router import FleetManager, ReplicaRouter
+    from deepspeed_tpu_torch.tools.profile_serving import (MAX_NEW_TOKENS,
+                                                           serving_prompts)
+
+    max_new = MAX_NEW_TOKENS
+    prompts = serving_prompts(model.config.vocab_size, seed)
+    keyed = prompts[2]
+    reset_launch_counts()
+    # (a) the router over two replicas
+    router = init_serving(model, serving={**FLEET_SERVING,
+                                          "router": {"replicas": 2}})
+    if not isinstance(router, ReplicaRouter):
+        raise AssertionError(f"init_serving built {type(router)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles, streamed = fleet_stream(router, prompts, keyed, max_new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = {rid: h.tokens for rid, h in handles.items()}
+    check_stream("fleet (a)", handles, streamed,
+                 {f"r{i}": t for i, t in enumerate(single)} | {
+                     "k": want["k"]}, max_new)
+    served = [r.stats()["finished"] for r in router.replicas]
+    if min(served) == 0:
+        raise AssertionError(f"fleet (a): a replica took no work {served}")
+    check_router("fleet (a)", router.stats(), failovers=0, shed=0)
+    log(f"fleet (a): {len(handles)} requests through 2 replicas "
+        f"({served} finished each) in {secs:.3f} s, the 8 greedy streams "
+        f"equal to phase 4's single engine [{card}]")
+    # (b) replica 1 crashes mid-decode
+    engines = [init_serving(model, serving=FLEET_SERVING) for _ in range(2)]
+    engines[1] = ChaosReplica(engines[1], crash_at_step=FLEET_CRASH_STEP)
+    front = init_serving(None, replicas=engines, serving={
+        **FLEET_SERVING, "router": {"replicas": 2}})
+    handles, streamed = fleet_stream(front, prompts, keyed, max_new)
+    check_stream("fleet (b)", handles, streamed, want, max_new)
+    st = front.stats()
+    check_router("fleet (b)", st, failovers=lambda n: n > 0,
+                 deduped_tokens=lambda n: n > 0, replay_divergence=0,
+                 replica_states=["healthy", "dead"])
+    log(f"fleet (b): replica 1 crashed at its step {FLEET_CRASH_STEP}: "
+        f"{st['failovers']} failovers replayed on replica 0, "
+        f"{st['deduped_tokens']} regenerated positions swallowed, "
+        f"replay_divergence 0, every stream (the keyed one too) equal to "
+        f"(a)'s and each position delivered once [{card}]")
+    # (c) live migration on bf16 and int8 pools
+    bf16_block = fleet_migration(model, prompts, want, max_new, "", card)
+    int8_block = fleet_migration(model, prompts, None, max_new, "int8", card)
+    hd = model.config.n_embd // model.config.n_head
+    log(f"fleet (c) wire bytes a block: int8 {int8_block:.0f}, bf16 "
+        f"{bf16_block:.0f}, ratio {int8_block / bf16_block:.5f} (codes "
+        f"and an fp32 scale a row: ({hd} + 4) / {2 * hd} = "
+        f"{(hd + 4) / (2 * hd):.5f}) [{card}]")
+    for kv in ("", "int8"):
+        moves = time_moves(model, {**FLEET_SERVING, "kv_cache_dtype": kv},
+                           card)
+        log(f"fleet (c) {kv or 'bf16'} export + import of one sequence "
+            f"(host clock, synced): " + ", ".join(
+                f"{b} blocks {ms:.3f} ms ({wire / 1e6:.3f} MB)"
+                for b, (ms, wire) in moves.items()) + f" [{card}]")
+    fleet_crash_mid_migration(model, prompts, want, max_new, card)
+    # (d) the fleet manager through the default factory
+    fm = init_serving(model, serving={**FLEET_SERVING,
+                                      "router": {"replicas": 2},
+                                      "fleet": FLEET_BLOCK})
+    if not isinstance(fm, FleetManager):
+        raise AssertionError(f"init_serving built {type(fm)}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    up = fm.scale_up("chip_smoke")
+    handles, streamed = fleet_stream(fm, prompts, keyed, max_new)
+    check_stream("fleet (d) 3 replicas", handles, streamed, want, max_new)
+    peak = torch.cuda.max_memory_allocated()
+    down = fm.scale_down(reason="chip_smoke")
+    handles, streamed = fleet_stream(fm, prompts, keyed, max_new)
+    check_stream("fleet (d) after scale-down", handles, streamed, want,
+                 max_new)
+    st = fm.stats()
+    if (up["source"], down["source"], st["factory_builds"], st["parks"],
+            st["active"]) != ("factory", "drain", 1, 1, 2):
+        raise AssertionError(f"fleet (d): up {up}, down {down}, stats {st}")
+    log(f"fleet (d): scale_up built replica {up['replica']} through the "
+        f"default factory, scale_down drained and parked replica "
+        f"{down['replica']}, tokens unchanged; peak memory with 3 replicas "
+        f"{peak / 2**20:.1f} MiB (allocated before {base / 2**20:.1f} MiB) "
+        f"[{card}]")
+    # (e) the gateway
+    fleet_gateway(model, prompts, want, max_new, card)
+    counts = launch_counts()
+    for name in ("flash_fwd", "decode_paged", "decode_paged_int8"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the fleet did not launch {name}: "
+                                 f"{counts}")
+    log(f"fleet launches: {counts} [{card}]")
+    return counts
+
+
 Kernel = collections.namedtuple(
     "Kernel", "source replaces path port row dtype rows noncausal "
     "fp32_source", defaults=("bfloat16", None, False, None))
@@ -3336,7 +3774,7 @@ def main():
     log(f"warm-up (one serving drain, one generate; untimed, uncounted) in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_path["serving"] = phase_serving(model, args.seed, card)
+    by_path["serving"], single = phase_serving(model, args.seed, card)
     log(f"phase 4: serving in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["generate"] = phase_generate(model, args.seed, card)
@@ -3352,6 +3790,9 @@ def main():
     by_path["sampled_serving"], by_path["sampled_generate"] = \
         phase_sampling(model, args.seed, card)
     log(f"phase 7: keyed sampling in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["fleet"] = phase_fleet(model, args.seed, card, single)
+    log(f"phase 11: the serving fleet in {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

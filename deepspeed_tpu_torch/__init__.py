@@ -101,7 +101,8 @@ def init_inference(model, config=None, **kwargs):
     return InferenceEngine(model, config=config, **kwargs)
 
 
-def init_serving(model, config=None, draft_model=None, **kwargs):
+def init_serving(model, config=None, replicas=None, factory=None,
+                 clock=None, draft_model=None, **kwargs):
     """Build the continuous-batching serving engine (paged KV cache +
     request scheduler) over an inference engine: ``model`` is a model
     (a fresh engine is built from ``config``/``kwargs``, which must carry
@@ -110,13 +111,139 @@ def init_serving(model, config=None, draft_model=None, **kwargs):
     ``"draft_model"`` proposer: a callable ``(context, k) -> tokens`` or
     an engine with ``.generate`` (e.g. a small InferenceEngine). Under
     ``tensor_parallel`` (or ``mesh=``) every rank builds and drives the
-    engine with the same calls. The multi-replica router, fleet and
-    gateway blocks come with the serving fleet slice and raise at config
-    time."""
+    engine with the same calls.
+
+    With a ``serving.router`` block the result is the multi-replica front
+    door (:class:`~deepspeed_tpu_torch.serving.router.ReplicaRouter`):
+    ``serving.router.replicas`` engines are built from ``model`` (they
+    share its weights on the card, each with its own pools) — or
+    ``replicas`` is a count, or a pre-built list (InferenceEngines are
+    wrapped, anything with the ServingEngine surface is taken as it is)
+    — behind one submit()/step()/drain() with health-aware routing,
+    failover with deduplicated replay and the degradation ladder; a
+    ``serving.migration`` block moves live KV state instead of replaying
+    it. One process steps the replicas in turn.
+
+    A ``serving.fleet`` block on top wraps the router in the
+    :class:`~deepspeed_tpu_torch.serving.router.FleetManager` (SLO
+    error-budget autoscaling through the drain/reactivate seams):
+    scale-up builds replicas through ``factory`` — a ``ReplicaFactory``
+    or a zero-arg callable; built from ``model``, the default factory
+    repeats the same build. ``clock`` injects the engines', router's
+    and fleet's timebase (default ``time.monotonic``): the trace-replay
+    ``ReplayClock`` drives the whole front door faster than real time.
+
+    A ``serving.gateway`` block puts the whole stack behind the HTTP/SSE
+    front door: the result is a started
+    :class:`~deepspeed_tpu_torch.serving.gateway.ServingGateway` (read
+    ``.port``) with the block's tenants, quotas and SLO classes."""
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.serving.engine import ServingEngine
 
-    return ServingEngine(model, config=config, draft_model=draft_model,
-                         **kwargs)
+    def _on(block):
+        # the standard config off switch: block present, layer disabled
+        # — identical to absent
+        if block is None:
+            return None
+        enabled = (block.get("enabled", True) if isinstance(block, dict)
+                   else getattr(block, "enabled", True))
+        return block if enabled else None
+
+    def _behind_gateway(backend, gateway_block):
+        gateway_block = _on(gateway_block)
+        if gateway_block is None:
+            return backend
+        from deepspeed_tpu_torch.serving.gateway import ServingGateway
+        gw_clock = clock if clock is not None \
+            else getattr(backend, "clock", None)
+        gw_kwargs = {} if gw_clock is None else {"clock": gw_clock}
+        return ServingGateway(backend, config=gateway_block,
+                              **gw_kwargs).start()
+
+    # probe the blocks ahead of construction (full coercion lives in
+    # ServingConfig); `replicas` alone also selects the router
+    serving = kwargs.get("serving")
+    if serving is None:
+        serving = (config.get("serving") if isinstance(config, dict)
+                   else getattr(config, "serving", None))
+    if serving is None:
+        # a prebuilt InferenceEngine carries its serving block — a
+        # router configured there must not be silently dropped
+        serving = getattr(model, "_serving_cfg", None)
+
+    def _block(name):
+        return (serving.get(name) if isinstance(serving, dict)
+                else getattr(serving, name, None))
+
+    router = _on(_block("router"))
+    fleet = _on(_block("fleet"))
+    gateway = _block("gateway")
+    clock_kwargs = {} if clock is None else {"clock": clock}
+    engine_kwargs = dict(kwargs, draft_model=draft_model, **clock_kwargs)
+
+    def _engine(source, **kw):
+        return ServingEngine(source, **kw, **engine_kwargs)
+
+    if router is None and replicas is None:
+        engine = _engine(model, config=config)
+        if gateway is None:
+            gateway = engine.config.gateway
+        return _behind_gateway(engine, gateway)
+
+    from deepspeed_tpu_torch.serving.router import (CallableReplicaFactory,
+                                                    FleetManager,
+                                                    ReplicaRouter)
+
+    built_from_model = False
+    if replicas is None or isinstance(replicas, int):
+        if isinstance(model, InferenceEngine):
+            raise ValueError(
+                "one InferenceEngine is one replica — pass the prebuilt "
+                "engines as a list via `replicas` instead of a count")
+        built_from_model = True
+        first = _engine(model, config=config)
+        count = replicas if isinstance(replicas, int) else (
+            first.config.router.replicas if first.config.router else 2)
+        engines = [first] + [_engine(model, config=config)
+                             for _ in range(count - 1)]
+    else:
+        engines = [ServingEngine(r, draft_model=draft_model, **clock_kwargs)
+                   if isinstance(r, InferenceEngine) else r
+                   for r in replicas]
+
+    def _carried(field):
+        # prebuilt replicas, no explicit block: fall back to a config an
+        # engine carries (explicit caller blocks always win)
+        return next(
+            (c for c in (getattr(getattr(e, "config", None), field, None)
+                         for e in engines) if c is not None), None)
+
+    if router is None:
+        router = _carried("router")
+    if fleet is None:
+        # an engine-carried fleet block silently dropped would read as
+        # "autoscaling is on" when it is not
+        fleet = _on(_carried("fleet"))
+    migration = _block("migration")
+    if migration is None:
+        migration = _carried("migration")
+    if gateway is None:
+        gateway = _carried("gateway")
+    front = ReplicaRouter(engines, config=router, migration=migration,
+                          **clock_kwargs)
+    if fleet is None:
+        if factory is not None:
+            raise ValueError(
+                "init_serving got a replica `factory` but no "
+                "serving.fleet block — the factory is the fleet "
+                "manager's scale-up seam; add \"fleet\": {...} to use it")
+        return _behind_gateway(front, gateway)
+    if factory is None and built_from_model:
+        # the same build as the first replicas
+        factory = CallableReplicaFactory(
+            lambda: _engine(model, config=config))
+    return _behind_gateway(
+        FleetManager(front, factory=factory, config=fleet), gateway)
 
 
 def add_config_arguments(parser):

@@ -38,7 +38,7 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.module_inject.layers import TensorParallel
 from deepspeed_tpu_torch.module_inject.policies import (
     get_tp_policy, shard_params_with_policy)
-from deepspeed_tpu_torch.parallel.topology import (FLEET_SLICE,
+from deepspeed_tpu_torch.parallel.topology import (DP_INFERENCE,
                                                    MeshTopology,
                                                    resolve_tp_topology)
 from deepspeed_tpu_torch.models.decode_utils import validate_left_padded_mask
@@ -130,8 +130,7 @@ class InferenceEngine:
                 self.topo.world_size != self.mp_world_size:
             raise NotImplementedError(
                 f"inference on mesh {self.topo.shape}: every axis but tp "
-                f"is 1 (data replicas of a server come with {FLEET_SLICE} "
-                f"of the PyTorch port)")
+                f"is 1 (a data axis beside tp comes with {DP_INFERENCE})")
         self.policy = get_tp_policy(config.injection_policy
                                     or config.injection_policy_tuple)
         self.model_config = model.config

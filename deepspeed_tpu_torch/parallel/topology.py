@@ -59,7 +59,8 @@ UNPORTED_AXES = {
     AXIS_EXPERT: "the MoE slice ([12.6])",
     AXIS_SEQ: "the sequence-parallel slice ([12.7])",
 }
-FLEET_SLICE = "the serving fleet slice ([7c])"
+DP_INFERENCE = ("ROADMAP [7e] (data-parallel inference on a mesh and tp "
+                "replicas under the router)")
 
 
 def normalize_axis_dict(axis_sizes: Dict[str, int]) -> Dict[str, int]:
@@ -520,8 +521,8 @@ def resolve_tp_topology(tp_size: int) -> MeshTopology:
             raise NotImplementedError(
                 f"tensor_parallel.tp_size {tp_size} on a world of "
                 f"{dist.get_world_size()} ranks: inference runs on a world "
-                f"of exactly tp_size ranks; data replicas of a server come "
-                f"with {FLEET_SLICE} of the PyTorch port")
+                f"of exactly tp_size ranks; a data axis beside tp comes "
+                f"with {DP_INFERENCE}")
     existing = get_topology(create_if_missing=False)
     if existing is not None and existing.axis_size(AXIS_TP) == tp_size:
         return existing

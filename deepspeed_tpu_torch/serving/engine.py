@@ -58,10 +58,18 @@ same decisions and emits the same tokens. Deadlines read each rank's own
 ``clock``: give the ranks one clock, or a deadline that expires on one
 rank alone parts them.
 
-Not in this slice, each rejected at config time with the slice that
-brings it (``serving/config.py``): router/fleet/gateway, migration
-(``export_sequence``/``import_sequence`` raise too). Telemetry, span
-tracing and resilience hooks come later.
+The seams of the serving fleet (``serving/router.py``): ``gauges`` (the
+load the router routes by), ``cancel`` (failover releases an abandoned
+proxy's slot and blocks), and live KV migration: ``export_sequence``
+copies one decode-ready sequence's pool rows to the host (bf16 rows as
+their int16 bits), ``import_sequence`` copies them into this engine's
+pools at freshly allocated blocks (``index_copy_`` on every pool and
+scale pool) and splices the request into a free slot, where it resumes
+decoding with no prefill; ``migrate_out`` detaches the source copy. The
+chaos seams ``serving.spec_commit``, ``serving.migration.export`` and
+``serving.migration.commit`` (``runtime/resilience/chaos.py``) fire as
+in the JAX engine. Telemetry, span tracing and the resilience watchdog
+come with the telemetry slice.
 """
 
 import collections
@@ -74,6 +82,7 @@ import torch
 from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
                                                   sample_logits)
 from deepspeed_tpu_torch.ops.sampling import keyed_sample
+from deepspeed_tpu_torch.runtime.resilience.chaos import raise_if
 from deepspeed_tpu_torch.serving.blocks import BlockManager
 from deepspeed_tpu_torch.serving.config import (ServingConfig,
                                                 blocks_for_tokens,
@@ -97,9 +106,11 @@ class ServingEngine:
                     "pass config/kwargs to the InferenceEngine, not again "
                     "to ServingEngine when wrapping one")
             self.engine = model_or_engine
+            self._owns_engine = False
         else:
             self.engine = InferenceEngine(model_or_engine, config=config,
                                           **kwargs)
+            self._owns_engine = True
         scfg = self.engine._serving_cfg
         if scfg is None or not scfg.enabled:
             raise ValueError(
@@ -471,6 +482,11 @@ class ServingEngine:
         toks = self._sample(logits.reshape(n * (k + 1), -1)).reshape(
             n, k + 1).cpu().numpy()
         now = self.clock()
+        # chaos seam: a replica killed BETWEEN verify and commit has
+        # emitted nothing from this window — host state is exactly the
+        # pre-step state, so a retry or failover replays cleanly and the
+        # router's exactly-once splice sees no speculative token
+        raise_if("serving.spec_commit")
         self._step_count += 1
         self._spec_steps += 1
         for slot, req in active:
@@ -520,33 +536,239 @@ class ServingEngine:
     def _finish(self, req: Request, reason: str, now: float,
                 done: List[Request]):
         self.sched.finish(req, reason, now)
-        # an idle slot computes into the garbage block until the next
-        # admission overwrites its row
-        if 0 <= req.slot < len(self._tables):
-            self._tables[req.slot] = 0
-            self._lengths[req.slot] = 0
-            self._last_tokens[req.slot] = 0
-            if self._keyed:
-                self._clear_samp_slot(req.slot)
-            self._prefilling.pop(req.slot, None)
-            self._pf_tables.pop(req.slot, None)
-            self._pf_pos.pop(req.slot, None)
+        self._clear_slot(req.slot)
         self.records.append(req.record())
         done.append(req)
 
-    def export_sequence(self, request_id: str):
-        """Live KV migration, export half: not in this slice."""
-        raise NotImplementedError(
-            "ServingEngine.export_sequence (live KV migration) is not ported "
-            "yet: it comes with the multi-GPU serving slice of the PyTorch "
-            "port")
+    def _clear_slot(self, slot: int):
+        """Reset a released slot's host rows: an idle slot computes into
+        the garbage block until the next admission overwrites them."""
+        if 0 <= slot < len(self._tables):
+            self._tables[slot] = 0
+            self._lengths[slot] = 0
+            self._last_tokens[slot] = 0
+            if self._keyed:
+                self._clear_samp_slot(slot)
+            self._prefilling.pop(slot, None)
+            self._pf_tables.pop(slot, None)
+            self._pf_pos.pop(slot, None)
 
-    def import_sequence(self, export, **kwargs):
-        """Live KV migration, import half: not in this slice."""
-        raise NotImplementedError(
-            "ServingEngine.import_sequence (live KV migration) is not ported "
-            "yet: it comes with the multi-GPU serving slice of the PyTorch "
-            "port")
+    # ------------------------------------------------------------------
+    def cancel(self, request_id: str, reason: str = "cancelled") -> bool:
+        """Abandon one in-flight request (queued or mid-decode): its
+        decode slot, KV blocks and token budget release immediately and
+        it is recorded as shed with ``reason``. The multi-replica router
+        calls this at failover so abandoned proxies never keep decoding
+        on a replica that later recovers."""
+        req = self.sched.cancel(request_id, reason, self.clock())
+        if req is None:
+            return False
+        self._clear_slot(req.slot)
+        self.records.append(req.record())
+        return True
+
+    # ------------------------------------------------------------------
+    # live KV-block migration seams (serving/migration.py orchestrates;
+    # the router and fleet manager are the consumers — failover, drain
+    # and fragmentation rebalance move committed state instead of
+    # replaying it)
+    def _layout(self) -> list:
+        """The pools' layout signature, what an import must match (the
+        JAX engine compares pytree structures): layers, then each pool's
+        shape past the block axis and its dtype, in ``pools()`` order."""
+        return [self.engine.model_config.n_layer] + [
+            [list(p.shape[1:]), str(p.dtype).replace("torch.", "")]
+            for p in self.cache.pools()]
+
+    def export_sequence(self, request_id: str) -> Optional[dict]:
+        """Snapshot one decode-ready sequence's committed state for import
+        on another replica: the request's identity and counters, its
+        pending last token, and the rows of its covered blocks from every
+        pool (int8 scale pools ride the same block indices), copied to
+        the host before any later step can write them. A bf16 pool's
+        rows travel as their int16 bits (numpy has no bfloat16), named
+        in ``dtypes``; ``wire_bytes`` counts every row's bytes. Read-only
+        on the source (an open speculative window is dropped first — it
+        is uncommitted by definition), so a transfer that dies downstream
+        leaves this replica able to keep decoding or to serve a replay.
+        Returns None when the request is not migratable (unknown, queued,
+        or still mid-prefill — those replay or resubmit cheaply)."""
+        raise_if("serving.migration.export", detail=request_id)
+        req = next((r for _, r in self.sched.running()
+                    if r.request_id == request_id), None)
+        if req is None or req.slot in self._prefilling or req.length <= 0:
+            return None
+        if self.block_mgr.speculating(request_id):
+            self.block_mgr.drop_speculative(request_id)
+        bs = self.config.block_size
+        covered = self.block_mgr.owned(request_id)[
+            :blocks_for_tokens(req.length, bs)]
+        idx = self._on_device(covered, torch.long)
+        rows, dtypes, wire_bytes = [], [], 0
+        for pool in self.cache.pools():
+            r = pool.index_select(0, idx).cpu()
+            dtypes.append(str(r.dtype).replace("torch.", ""))
+            if r.dtype == torch.bfloat16:
+                r = r.view(torch.int16)
+            r = r.numpy()
+            wire_bytes += r.nbytes
+            rows.append(r)
+        return {
+            "request_id": req.request_id,
+            "prompt": list(req.prompt),
+            "tokens": list(req.tokens),
+            "max_new_tokens": int(req.max_new_tokens),
+            "eos_token_id": int(req.eos_token_id),
+            "deadline_ms": float(req.deadline_ms),
+            "length": int(req.length),
+            "last_token": int(self._last_tokens[req.slot]),
+            "do_sample": bool(self.config.do_sample),
+            # keyed per-request sampling state: the seed and knobs ARE
+            # the whole sampler — position comes from length, so the
+            # spliced slot resumes the stream with no counter
+            # re-derivation (None for greedy requests)
+            "sampling": ({
+                "do_sample": True, "seed": int(req.seed or 0),
+                "temperature": float(req.temperature
+                                     if req.temperature is not None
+                                     else 1.0),
+                "top_k": int(req.top_k or 0),
+                "top_p": float(req.top_p or 0.0),
+            } if req.do_sample else None),
+            "block_size": bs,
+            "kv_cache_dtype": self.config.kv_cache_dtype or None,
+            "blocks": len(covered),
+            "rows": rows,
+            "dtypes": dtypes,
+            "layout": self._layout(),
+            "wire_bytes": int(wire_bytes),
+            "draft_tokens": int(req.draft_tokens),
+            "accepted_tokens": int(req.accepted_tokens),
+        }
+
+    def import_sequence(self, export: Optional[dict],
+                        deadline_ms: Optional[float] = None,
+                        stream=None,
+                        request_id: Optional[str] = None,
+                        trace: Optional[dict] = None
+                        ) -> Optional[Request]:
+        """Splice an exported sequence into a free decode slot: allocate
+        blocks, copy the migrated rows onto this engine's pools at those
+        blocks (never block 0, the garbage block), seed the request's
+        token and sampling counters, and resume decoding mid-stream — NO
+        prefill or chunk call. Returns None when the export cannot land
+        here (pool layout / dtype / sampling mismatch, no free slot,
+        duplicate id, or not enough blocks) so the caller can fall back
+        to replay. The slot is taken last: a fault before it (the
+        ``serving.migration.commit`` chaos seam) releases every block
+        this call allocated and leaves the scheduler untouched."""
+        if export is None:
+            return None
+        rid = request_id or export["request_id"]
+        samp = export.get("sampling")
+        if (export["block_size"] != self.config.block_size
+                or (export.get("kv_cache_dtype") or None)
+                != (self.config.kv_cache_dtype or None)
+                or bool(export["do_sample"]) != bool(self.config.do_sample)
+                # a keyed sampled stream can only resume on a replica
+                # that folds the same keys — a greedy target would
+                # quietly continue it greedily
+                or (samp is not None and not self._keyed)
+                or rid in self.sched._live_ids):
+            return None
+        slot = self.sched.free_slot()
+        if slot is None:
+            return None
+        mnt = int(export["max_new_tokens"]
+                  or self.config.default_max_new_tokens)
+        cost = len(export["prompt"]) + mnt
+        if (cost > self.max_len or int(export["length"]) > cost
+                or not self.block_mgr.can_allocate_shared(cost, (), None)):
+            return None
+        if export.get("layout") != self._layout():
+            return None
+        now = self.clock()
+        req = Request(prompt=list(export["prompt"]),
+                      max_new_tokens=mnt, request_id=rid,
+                      eos_token_id=int(export["eos_token_id"]),
+                      deadline_ms=(deadline_ms if deadline_ms is not None
+                                   else export["deadline_ms"]),
+                      stream=stream)
+        if samp is not None:
+            req.do_sample = True
+            req.seed = int(samp["seed"])
+            req.temperature = float(samp["temperature"])
+            req.top_k = int(samp["top_k"])
+            req.top_p = float(samp["top_p"])
+        # the delivered prefix rides along verbatim — seeded directly, NOT
+        # via emit_token (the client already holds these tokens; the
+        # stream fires only for tokens decoded after the splice)
+        req.tokens = list(export["tokens"])
+        req.draft_tokens = int(export.get("draft_tokens") or 0)
+        req.accepted_tokens = int(export.get("accepted_tokens") or 0)
+        req.submit_ts = now
+        if req.tokens:
+            req.first_token_ts = now
+        # router-stamped trace context: the spliced request's replica
+        # spans join the CLIENT's trace under the migration attempt
+        req.trace = dict(trace) if trace is not None else None
+        table = self.block_mgr.allocate(rid, cost)
+        try:
+            B = int(export["blocks"])
+            if B:
+                dst = np.asarray(table[:B], np.int64)
+                if dst.min() <= 0:
+                    raise ValueError(
+                        f"import of {rid!r} would write block {dst.min()}: "
+                        f"block 0 is the garbage block")
+                dst = self._on_device(dst, torch.long)
+                for pool, rows, dtype in zip(self.cache.pools(),
+                                             export["rows"],
+                                             export["dtypes"]):
+                    src = torch.from_numpy(np.ascontiguousarray(rows))
+                    if dtype == "bfloat16":
+                        src = src.view(torch.bfloat16)
+                    pool.index_copy_(0, dst, src.to(pool.device))
+            raise_if("serving.migration.commit", detail=rid)
+            self.sched.splice(req, slot, now)
+        except Exception:
+            # rows already copied are stale bytes in blocks the pool no
+            # longer maps — harmless; the scheduler never saw us
+            self.block_mgr.release(rid)
+            raise
+        req.length = int(export["length"])
+        self._tables[slot] = table
+        self._lengths[slot] = req.length
+        self._last_tokens[slot] = int(export["last_token"])
+        if self._keyed:
+            self._set_samp_slot(slot, req)
+        return req
+
+    def migrate_out(self, request_id: str) -> bool:
+        """Detach a migrated-away request from this replica: free its
+        slot, blocks and token budget WITHOUT a shed record — the request
+        is still live, on another replica. Call only after the target
+        committed its import."""
+        req = self.sched.migrate_out(request_id, self.clock())
+        if req is None:
+            return False
+        self._clear_slot(req.slot)
+        return True
+
+    def gauges(self) -> dict:
+        """Instantaneous load gauges (queue depth, busy slots, free
+        blocks, pool fragmentation): the numbers the multi-replica router
+        routes by and the fleet manager's rebalance reads."""
+        g = {**self.sched.gauges(), "free_blocks": self.block_mgr.num_free}
+        if self.prefix is not None:
+            g["cached_blocks"] = self.block_mgr.num_cached
+        # decode-side fragmentation: reserved-but-uncommitted token rows
+        # over reserved capacity (the rebalance trigger)
+        committed = int(g.get("committed_tokens", 0))
+        capacity = self.block_mgr.num_allocated * self.config.block_size
+        g["kv_fragmentation"] = (round(1.0 - committed / capacity, 4)
+                                 if capacity else 0.0)
+        return g
 
     @property
     def pending(self) -> bool:
@@ -622,9 +844,20 @@ class ServingEngine:
             "finished": s["finished"], "shed": s["shed"],
             "shed_reasons": dict(s["shed_reasons"]),
             "shed_rate": round(s["shed"] / total, 4),
+            "migrated_in": s["migrated_in"],
+            "migrated_out": s["migrated_out"],
             "queue_peak": s["queue_peak"],
             "decode_steps": self._step_count,
             "ttft_ms_p50": float(np.percentile(ttfts, 50)) if ttfts else None,
             "ttft_ms_p95": float(np.percentile(ttfts, 95)) if ttfts else None,
             "tokens_per_sec_mean": float(np.mean(rates)) if rates else None,
         }
+
+    def destroy(self):
+        """Drop the pools (and the decode module); drops the wrapped
+        engine too when this ServingEngine built it. The engine is
+        unusable after."""
+        self.cache = None
+        self.model = None
+        if self._owns_engine:
+            self.engine = None

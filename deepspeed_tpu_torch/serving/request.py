@@ -68,6 +68,12 @@ class Request:
     # verify step; zero when speculation is off or never proposed) ----
     draft_tokens: int = 0             # proposer tokens sent to verify
     accepted_tokens: int = 0          # drafts the target model agreed with
+    # ---- span-tracing context (telemetry/tracing.py) ----
+    # {"trace": id, "parent": span id, ...}: stamped by the multi-replica
+    # router so replica-side spans join the CLIENT's trace under the
+    # current attempt span (a failover continues one trace, not two).
+    # None when tracing is off — every consumer guards on it.
+    trace: Optional[dict] = None
 
     @property
     def prompt_len(self) -> int:
@@ -76,6 +82,19 @@ class Request:
     @property
     def done(self) -> bool:
         return self.state in (FINISHED, SHED)
+
+    @property
+    def keyed(self) -> bool:
+        """Replayable sampled request: every emitted position's token is
+        regenerable from (seed, position) by any replica."""
+        return self.do_sample and self.seed is not None
+
+    @property
+    def positions_emitted(self) -> int:
+        """Generated positions already streamed — with ``length`` and the
+        token list, the ONLY sampler state there is (counter-based keys
+        have no hidden generator to carry across a migration or replay)."""
+        return len(self.tokens)
 
     def emit_token(self, token: int, done: bool):
         self.tokens.append(int(token))

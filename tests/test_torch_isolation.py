@@ -57,6 +57,12 @@ DATA_PARALLEL = ("comm.comm", "comm.backend", "parallel.topology",
                  "runtime.zero.reduce", "runtime.zero.stage", "zero")
 # the tensor-parallel slice's modules
 TENSOR_PARALLEL = ("module_inject.layers", "runtime.state_dict_factory")
+# the serving fleet's modules
+FLEET = ("serving.router", "serving.health", "serving.autoscaler",
+         "serving.migration", "serving.capacity", "serving.replay",
+         "serving.tenancy", "serving.gateway", "runtime.resilience.chaos",
+         "telemetry.events", "telemetry.tracing", "telemetry.metrics",
+         "telemetry.registry", "telemetry.prom")
 
 
 def test_import_pulls_in_no_jax():
@@ -67,7 +73,7 @@ def test_import_pulls_in_no_jax():
         "p.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        f"missing = [m for m in {DATA_PARALLEL + TENSOR_PARALLEL!r} "
+        f"missing = [m for m in {DATA_PARALLEL + TENSOR_PARALLEL + FLEET!r} "
         "if 'deepspeed_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

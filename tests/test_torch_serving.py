@@ -5,8 +5,10 @@
   request (tiny model, float32, same weights).
 - The port's host layer (block manager + scheduler) makes the same
   decisions as the JAX one on the same request stream.
-- Every serving knob the port does not have yet raises, naming its
-  slice (the fast-path knobs: ``tests/test_torch_serving_fast.py``).
+- The serving fleet's blocks resolve as in JAX, and ``init_serving``
+  builds the router from them (the fleet itself:
+  ``tests/test_torch_fleet.py``; the fast-path knobs:
+  ``tests/test_torch_serving_fast.py``).
 """
 
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.serving.blocks import BlockManager
 from deepspeed_tpu_torch.serving.config import ServingConfig
 from deepspeed_tpu_torch.serving.request import FINISHED, SHED, Request
+from deepspeed_tpu_torch.serving.router import ReplicaRouter
 from deepspeed_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
 from tests.test_torch_gpt2 import jax_engine, port_model
 
@@ -115,10 +118,8 @@ def _drive(sched_cls, mgr_cls, cfg_cls, req_cls, seed, prefix_cls=None):
             log.append(("pool", mgr.num_free, mgr.num_cached,
                         sorted(mgr._ref.items()), list(mgr._evictable),
                         mgr.evictions))
-    # the JAX scheduler also counts migrations (a later slice of the port)
-    stats = {k: v for k, v in sched.stats.items()
-             if not k.startswith("migrated")}
-    log.append(("end", len(sched.queue), sched.committed_tokens, stats))
+    log.append(("end", len(sched.queue), sched.committed_tokens,
+                sched.stats))
     if prefix is not None:
         log.append(("prefix", prefix.stats, len(prefix)))
     return log
@@ -147,8 +148,17 @@ def test_sampled_request_sheds_like_jax():
     {"migration": {"enabled": True}},
 ])
 def test_unported_serving_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingConfig(**knob)
+    """The fleet's blocks are ported: each resolves to JAX's fields, and
+    a fleet block without a router is refused as JAX refuses it."""
+    def resolve(cls):
+        try:
+            return cls(**knob).model_dump()
+        except ValueError as e:
+            return str(e).split("\n")[1]
+
+    ours, ref = resolve(ServingConfig), resolve(JaxServingConfig)
+    assert ours == ref
+    assert isinstance(ours, str) == ("fleet" in knob)
 
 
 def test_bucket_legacy_generate_is_ported():
@@ -162,11 +172,12 @@ def test_bucket_legacy_generate_is_ported():
 
 
 def test_unported_knob_raises_through_init_serving():
+    """A router block makes init_serving build the router's replicas."""
     model = deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel(
         deepspeed_tpu_torch.models.gpt2.GPT2Config.tiny())
-    with pytest.raises(NotImplementedError, match="multi-GPU serving"):
-        deepspeed_tpu_torch.init_serving(
-            model, device="cpu", serving={**_SERVING, "router": {}})
+    front = deepspeed_tpu_torch.init_serving(
+        model, device="cpu", serving={**_SERVING, "router": {}})
+    assert isinstance(front, ReplicaRouter) and len(front.replicas) == 2
 
 
 @pytest.mark.parametrize("key,value", [
@@ -184,10 +195,9 @@ def test_migration_seams_raise():
         deepspeed_tpu_torch.models.gpt2.GPT2Config.tiny(dtype=torch.float32))
     srv = deepspeed_tpu_torch.init_serving(model, device="cpu",
                                            serving=_SERVING)
-    with pytest.raises(NotImplementedError, match="multi-GPU serving"):
-        srv.export_sequence("r0")
-    with pytest.raises(NotImplementedError, match="multi-GPU serving"):
-        srv.import_sequence({})
+    # ported (tests/test_torch_migration.py): nothing to move is a None
+    assert srv.export_sequence("r0") is None
+    assert srv.import_sequence(None) is None
 
 
 def test_serving_needs_a_serving_block():

@@ -26,7 +26,7 @@ carried across by ``params_from_jax``.
   forward plus the vocabulary's pair; at 3 heads over 2 ranks attention
   stays whole while the MLP splits, with the tokens of the port's tp 1
   and of the JAX engine at tp 2.
-- (g) a world of 4 at tp 2 raises naming [7c]; tp 2 without a process
+- (g) a world of 4 at tp 2 raises naming [7e]; tp 2 without a process
   group raises.
 - The fused-QKV split and merge round trip, and sharding then merging a
   whole state dict.
@@ -417,7 +417,7 @@ def test_heads_that_do_not_divide_match_jax_tp2(ranks, jax_tp):
 
 def test_tp2_on_a_world_of_4_names_the_fleet(ranks):
     for res in ranks(4):
-        assert "[7c]" in res["tp2_on_world4"]
+        assert "[7e]" in res["tp2_on_world4"]
 
 
 def test_tp1_serves_alone_in_a_larger_world(ranks, weights):
