@@ -196,11 +196,46 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tenants: SSE tokens equal (a)'s, 401 without a key, 429 over a quota;
    TTFT over HTTP against a direct submit printed for information. One
    card steps the replicas in turn: nothing here is fleet scaling.
+12. "llama" (run last): the Llama family at Llama-2 7B's width, weights
+   drawn on the card from ``--seed``, bf16. (a) ``init_inference`` on
+   Llama-2 7B at full depth (6.7 B parameters): one greedy ``generate``
+   of 32 tokens a prompt of 128 / 256 / 512 / 1024 tokens (B = 1; kernel
+   1 at each prefill, kernel 7 at every decode step at D = 128 over a
+   4096-position cache), prefill ms and decode tokens/s, peak memory;
+   (b) the same at 8 KV heads (GQA), depth cut to 4, then the four
+   prompts left-padded into one batch (kernel 7 with each row's first
+   key), and the device ms of one decode step's KV-head repeat of a [4,
+   4096, 8, 128] cache beside kernel 7's; (c) ``initialize(
+   LlamaForTraining)`` at 7B width, depth cut to 4, micro-batch 4 x
+   1024, bench.py's keys with "dots" remat, at ZeRO stage 0 and then
+   stage 3 on an NCCL group of one rank: step-1 gradients, one warm-up
+   and 3 timed steps (ms a step, tokens/s, MFU, peak memory), 4 launches
+   of each flash kernel a step, stage 3's collectives equal to its plan,
+   its losses within 0.05 and step-1 gradients within 5 % of stage 0's;
+   (d) ``tensor_parallel={"tp_size": 2}`` on 2 spawned gloo ranks of
+   ``cuda:0`` at 7B width, depth cut to 2: ``generate`` of 16 tokens,
+   both ranks bit-equal, kernels 1 and 7 at 16 heads on every launch,
+   2 L + 1 all-reduces and one all-gather a forward (the vocabulary
+   splits); (e) (c)'s trained weights at 2 layers written as an HF
+   directory in bf16 (``save_hf_llama``) and read by ``from_pretrained``:
+   logits bit for bit the source model's; the directory is deleted. At
+   this width bf16 rounding alone parts two correct paths by more than
+   LOGITS_ATOL, so (a), (b) and (d) teacher-force the reference path
+   (the plain versions, or tp=1) and an fp32 forward on the same weights
+   on each path's own tokens and hold every step's logits to the fp32
+   forward within LLAMA_NOISE_RATIO times the reference's distance at
+   that step, and each token to fp32's best where its two best scores
+   lie at least twice that distance apart; (a) and (b) then plant faults
+   in the decode steps (the D=64 softmax scale; query heads on the wrong
+   KV heads) that this gate must refuse. Phase 2 holds kernels 1-3 at
+   B=4 H=32 T=1024 D=128 and kernel 7 at B=4 S=4096 D=128, idx=1000 and,
+   with first keys, the padded batch's first step, timed beside SDPA.
 
-Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10 and 11 are the main paths (6, 7
-and 8 in two legs each, 3b one window a stage and 10 one an engine,
+Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10, 11 and 12 are the main paths (6,
+7 and 8 in two legs each, 3b one window a stage and 10 one an engine,
 summed; 9's and 10's launch counts are rank 0's, zeroed in the rank
-before each window; 11 one window over its five parts):
+before each window; 11 one window over its five parts; 12 one window
+each of its ``llama_*`` paths):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -217,6 +252,7 @@ Without a card (``torch.cuda.is_available()`` false) it exits 2.
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -265,6 +301,9 @@ TP_HEADS = 6
 # of TPT_BATCH x 1024 tokens, a size the two ranks' gloo all-reduces
 # (staged through the host) finish in seconds a step
 TPT_BATCH = 4
+# the Llama-2 7B shapes of phase 2 (phase 12's training micro-batch and a
+# batch of as many decode rows)
+LLAMA_BATCH = 4
 TP_PAGED_CASES = (([0, 137, 602, 1000], 1),
                   ([408, 440, 500, 630, 800, 955, 411, 445], 1),
                   ([0], 256), ([256], 136))
@@ -431,7 +470,8 @@ def shape_name(b, h, tq, tk, d, layout, causal=True):
 # prefills at 6 heads a rank (phase 9: generate's 2 x 128 and a 1024-token
 # serving bucket, on views cut from the fused projection), tensor-parallel
 # training's on such views (bench.py's B=16 and phase 10's B=TPT_BATCH),
-# and BERT's dense leg last
+# Llama-2 7B's prefill and training forward (phase 12: B=LLAMA_BATCH, 32
+# heads of 128 on [B, T, H, D] views), and BERT's dense leg last
 # (bench_bert.py: B=64 T=128, 16 heads, non-causal); (B, H, Tq, Tk, D,
 # layout, causal)
 FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
@@ -454,18 +494,22 @@ FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
               (16, 6, 1024, 1024, 64, "qkv", True),
               (TPT_BATCH, 6, 1024, 1024, 64, "qkv", True),
               (2, 1, 64, 64, 16, "qkv", True),
+              (LLAMA_BATCH, 32, 1024, 1024, 128, "bthd", True),
               (64, 16, 128, 128, 64, "bthd", False))
 # the flash shapes that are timed: GPT-2 training's, tensor-parallel
 # training's (6 heads a rank at bench.py's micro-batch of 16, and at
-# phase 10's) and BERT's dense leg
+# phase 10's), Llama-2 7B's (phase 12: 32 heads of 128 on [B, T, H, D]
+# views at its training micro-batch) and BERT's dense leg
 TIMED_FLASH = ((16, 12, 1024), (16, 6, 1024), (TPT_BATCH, 6, 1024),
-               (64, 16, 128))
+               (LLAMA_BATCH, 32, 1024), (64, 16, 128))
 # flash backward: the training shape in both layouts (timed), then ragged
 # and offset cases, B=1 at T=1024 (64 rows a CTA on the tensor cores),
 # the other head dims (D=128 over several tiles with 128 rows a CTA), a
 # short causal case, tensor-parallel training's (timed: 6 heads a rank at
-# bench.py's B=16 and phase 10's B=TPT_BATCH; 1 head a rank at tp=4), and
-# BERT's dense leg last (timed); (B, H, Tq, Tk, D, layout, causal)
+# bench.py's B=16 and phase 10's B=TPT_BATCH; 1 head a rank at tp=4),
+# Llama-2 7B's training shape (timed: phase 12's micro-batch, 32 heads of
+# 128) and BERT's dense leg last (timed); (B, H, Tq, Tk, D, layout,
+# causal)
 BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (16, 12, 1024, 1024, 64, "bthd", True),
               (2, 12, 100, 100, 64, "bhtd", True),
@@ -483,6 +527,7 @@ BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (16, 6, 1024, 1024, 64, "tp", True),
               (TPT_BATCH, 6, 1024, 1024, 64, "tp", True),
               (2, 1, 64, 64, 16, "tp", True),
+              (LLAMA_BATCH, 32, 1024, 1024, 128, "bthd", True),
               (64, 16, 128, 128, 64, "bthd", False))
 
 
@@ -1002,24 +1047,33 @@ def check_block_sparse(dtype, gen):
 # MIN_SPLIT_KEYS = 256), keys that end inside the first split (47
 # keys: one split, which writes O itself), and generate()'s own first and
 # last steps (a 128-token prompt, 32 new tokens: idx 128 and 159), and
-# the same two steps at tensor-parallel generate's 6 heads a rank
+# the same two steps at tensor-parallel generate's 6 heads a rank, and
+# Llama-2 7B's (phase 12: 32 heads of 128, a 4096-position cache) at idx
+# 1000
 APPEND_CASES = ((2, 12, 64, 1024, 0, 1), (2, 12, 64, 1024, 255, 1),
                 (2, 12, 64, 1024, 1000, 1), (2, 12, 64, 1024, 255, 3),
                 (2, 12, 64, 1024, 1019, 5), (1, 12, 64, 1024, 1000, 1),
                 (2, 12, 128, 1024, 1000, 1), (2, 12, 64, 1024, 511, 1),
                 (2, 12, 64, 1024, 46, 1), (2, 12, 64, 1024, 128, 1),
                 (2, 12, 64, 1024, 159, 1), (2, TP_HEADS, 64, 1024, 128, 1),
-                (2, TP_HEADS, 64, 1024, 159, 1))
+                (2, TP_HEADS, 64, 1024, 159, 1),
+                (LLAMA_BATCH, 32, 128, 4096, 1000, 1))
 
 
 # the append kernel with a per-row first key (left-padded generate()):
 # (B, H, D, S, idx, T_q, pads). idx 1000 with pads 0 / 37 / 500 / 1000,
 # so the last row sees its last key alone (T_q = 1) or its 4 query rows 1-4
 # keys (T_q = 4); then the padded-generate phase's first decode step (4
-# prompts of 128 / 100 / 37 / 1 tokens left-padded to 128)
+# prompts of 128 / 100 / 37 / 1 tokens left-padded to 128); then Llama-2
+# 7B's (32 heads of 128, a 4096-position cache) at idx 1000, and phase
+# 12's padded batch's first decode step (prompts of 128 / 256 / 512 /
+# 1024 tokens left-padded to 1024)
 APPEND_PAD_CASES = ((4, 12, 64, 1024, 1000, 1, (0, 37, 500, 1000)),
                     (4, 12, 64, 1024, 1000, 4, (0, 37, 500, 1000)),
-                    (4, 12, 64, 1024, 128, 1, (0, 28, 91, 127)))
+                    (4, 12, 64, 1024, 128, 1, (0, 28, 91, 127)),
+                    (LLAMA_BATCH, 32, 128, 4096, 1000, 1, (0, 128, 512, 896)),
+                    (LLAMA_BATCH, 32, 128, 4096, 1024, 1,
+                     (896, 768, 512, 0)))
 
 
 def check_append(dtype, gen, padded=False):
@@ -1476,9 +1530,11 @@ def phase_serving(model, seed, card):
     return counts, [r.tokens for r in reqs]
 
 
-def run_generate(engine, ids, max_new, **kwargs):
+def run_generate(engine, ids, max_new, forced=None, **kwargs):
     """engine.generate with every step's logits recorded (the greedy and
-    the keyed sampler's alike)."""
+    the keyed sampler's alike); with ``forced`` (``[B, max_new]`` tokens)
+    each step takes those tokens in place of the sampler's (teacher
+    forcing on another path's tokens)."""
     from deepspeed_tpu_torch.inference import engine as eng_mod
 
     calls = []
@@ -1487,7 +1543,10 @@ def run_generate(engine, ids, max_new, **kwargs):
     def record(fn):
         def call(logits, *args, **kw):
             calls.append(logits.float().cpu())
-            return fn(logits, *args, **kw)
+            token = fn(logits, *args, **kw)
+            if forced is not None:
+                token = forced[:, len(calls) - 1].to(token)
+            return token
         return call
 
     with mock.patch.object(eng_mod, "sample_logits", record(sample)), \
@@ -1558,20 +1617,22 @@ def top2_gap(logits, knobs, position):
     return (top[0] - top[1]).item()
 
 
-def agree_until_tie(what, got, want, want_calls, prompt_len, knobs=None):
+def agree_until_tie(what, got, want, want_calls, prompt_len, knobs=None,
+                    tie=LOGITS_ATOL):
     """Hold ``got``'s new tokens to ``want``'s (one row each) up to the
-    first step where ``want``'s own two best scores lie within
-    LOGITS_ATOL: there another rounding may pick the other token, and the
-    streams may part. Returns (tokens agreeing, steps held)."""
+    first step where ``want``'s own two best scores lie within ``tie``
+    (LOGITS_ATOL by default): there another rounding may pick the other
+    token, and the streams may part. Returns (tokens agreeing, steps
+    held)."""
     held = len(want)
     for t in range(len(want)):
-        if top2_gap(want_calls[t][0], knobs, prompt_len + t) < LOGITS_ATOL:
+        if top2_gap(want_calls[t][0], knobs, prompt_len + t) < tie:
             held = t
             break
         if got[t] != want[t]:
             raise AssertionError(f"{what}: token {t} is {got[t]}, the solo "
                                  f"run's {want[t]} (top-2 gap above "
-                                 f"{LOGITS_ATOL})")
+                                 f"{tie})")
     return sum(a == b for a, b in zip(got, want)), held
 
 
@@ -3575,6 +3636,647 @@ def phase_fleet(model, seed, card, single):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the Llama family
+# ---------------------------------------------------------------------------
+# (a) Llama-2 7B at full width and depth: one greedy generate() a prompt
+# (B = 1) of each length, LLAMA_NEW new tokens
+LLAMA_PROMPTS = (128, 256, 512, 1024)
+LLAMA_NEW = 32
+# (b) grouped-query attention at 7B width: 8 KV heads (4 query heads a KV
+# head), depth cut to 4; the same prompts alone, then left-padded into one
+# batch
+LLAMA_GQA = {"num_key_value_heads": 8, "num_hidden_layers": 4}
+# (c) training at 7B width, depth cut to 4: micro-batch 4 x 1024, bench.py's
+# keys (bf16, fused AdamW, clip 1.0), "dots" remat; ZeRO stage 0, then
+# stage 3 on an NCCL group of one rank
+LLAMA_TRAIN_LAYERS = 4
+LLAMA_TRAIN_BATCH = LLAMA_BATCH
+LLAMA_TRAIN_SEQ = 1024
+LLAMA_TRAIN_STEPS = 3
+# (d) tp = 2 on 2 gloo ranks of the one card: 7B width, depth cut to 2,
+# LLAMA_TP_NEW new tokens on generate_ids' 2 x 128 prompt
+LLAMA_TP_LAYERS = 2
+LLAMA_TP_NEW = 16
+# (e) from_pretrained on an HF directory of (c)'s first 2 layers in bf16
+LLAMA_HF_LAYERS = 2
+# the card (a CPU rehearsal of the phase points it elsewhere)
+LLAMA_DEVICE = "cuda"
+# Llama-2 7B's width lifts the bf16 rounding noise of a correct path far
+# above GPT-2's: on the H100 the plain versions' own first-step logits
+# lie 0.34-0.38 from an fp32 forward on the same weights at 32 layers
+# (0.11-0.12 at 4; PERF.md), so LOGITS_ATOL would fail a correct kernel.
+# Phase 12 holds each bf16 path to that fp32 forward instead, at every
+# step: the reference path (the plain versions, or tp=1) and the fp32
+# forward are teacher-forced on the path's own tokens, and each step's
+# logits must lie within LLAMA_NOISE_RATIO times the reference's distance
+# from fp32 at that step (or LOGITS_ATOL, the larger); each token must be
+# fp32's best wherever fp32's two best scores lie more than twice the
+# reference's distance apart (hold_steps). The gate must refuse faults
+# planted in the decode steps (LLAMA_FAULTS)
+LLAMA_NOISE_RATIO = 1.5
+
+
+def llama_fp32_steps(engine, rows):
+    """The fp32 anchor: for each ``(prompt, new tokens)`` row, the
+    logits ``[len(new), V]`` (fp32, on the host) that an fp32 forward on
+    the engine's bf16 weights, through the plain versions, gives each new
+    token's step when teacher-forced on those tokens (one forward of the
+    prompt and all but the last new token)."""
+    import torch
+
+    model = engine.mode_module(dataclasses.replace(engine.model_config,
+                                                   dtype=torch.float32))
+    out = []
+    with torch.no_grad(), plain_versions():
+        for prompt, new in rows:
+            seq = torch.tensor([list(prompt) + list(new[:-1])],
+                               device=LLAMA_DEVICE)
+            hidden = model(seq, return_hidden=True)
+            out.append(model.lm_head(hidden[0, len(prompt) - 1:])
+                       .float().cpu())
+    return out
+
+
+def step_stats(got, ref, fp32, tokens):
+    """A path's every step against the fp32 anchor: ``got``, ``ref`` and
+    ``fp32`` are the path's, the reference's (teacher-forced on the
+    path's ``tokens``) and the anchor's logits ``[V]`` a step. A step's
+    limit is LLAMA_NOISE_RATIO times the reference's distance from fp32
+    at that step (or LOGITS_ATOL); a token is held where fp32's two best
+    scores lie at least twice that distance apart. Returns (the worst
+    step's share of its limit, that step, the path's largest distance,
+    the reference's, tokens held, the held steps whose token is not
+    fp32's best)."""
+    worst, far, ref_far, held, wrong = (0.0, 0), 0.0, 0.0, 0, []
+    for t, token in enumerate(tokens):
+        err = (got[t] - fp32[t]).abs().max().item()
+        near = (ref[t] - fp32[t]).abs().max().item()
+        limit = max(LLAMA_NOISE_RATIO * near, LOGITS_ATOL)
+        share = err / limit if np.isfinite(err) else float("inf")
+        worst = max(worst, (share, t))
+        far, ref_far = max(far, err), max(ref_far, near)
+        top = fp32[t].topk(2)
+        if (top.values[0] - top.values[1]).item() >= max(LOGITS_ATOL,
+                                                         2 * near):
+            held += 1
+            if token != top.indices[0].item():
+                wrong.append(t)
+    return worst[0], worst[1], far, ref_far, held, wrong
+
+
+def hold_steps(what, got, ref, fp32, tokens):
+    """step_stats, failing where a step passes its limit or a held token
+    is not fp32's best. Returns (worst share, the path's largest
+    distance, the reference's, tokens held)."""
+    share, step, far, ref_far, held, wrong = step_stats(got, ref, fp32,
+                                                        tokens)
+    if share > 1 or wrong:
+        raise AssertionError(
+            f"{what}: step {step}'s logits at {share:.3f} of their limit "
+            f"({LLAMA_NOISE_RATIO} x the reference's distance from fp32, "
+            f"or {LOGITS_ATOL}); tokens off fp32's clear best at steps "
+            f"{wrong}")
+    return share, far, ref_far, held
+
+
+# faults planted in the decode steps of the kernel path (kernel 7 run on
+# altered inputs), which hold_steps must refuse: the softmax scale of
+# D = 64 at D = 128, and (on a GQA model) query head h reading KV head
+# h % KV in place of h // rep
+LLAMA_FAULTS = ("scale", "kv_heads")
+
+
+def llama_faults_refused(what, engine, prompt, card):
+    """Generate ``prompt`` with each applicable LLAMA_FAULTS fault in the
+    decode steps, teacher-force the plain versions and the fp32 anchor on
+    its tokens, and fail unless hold_steps refuses it."""
+    import torch
+
+    from deepspeed_tpu_torch.models import llama
+
+    real = llama.decode_attention_tp
+    cfg = engine.model_config
+    rep = cfg.num_attention_heads // cfg.kv_heads
+
+    def tiled(t):
+        return t[:, :, ::rep].repeat(1, 1, rep, 1)
+
+    faults = {"scale": lambda q, k, v, index, **kw: real(
+        q * float(np.sqrt(2)), k, v, index, **kw),
+        "kv_heads": lambda q, k, v, index, **kw: real(
+            q, tiled(k), tiled(v), index, **kw)}
+    ids = torch.from_numpy(prompt)[None].to(LLAMA_DEVICE)
+    refused = {}
+    for name in LLAMA_FAULTS if rep > 1 else LLAMA_FAULTS[:1]:
+        with mock.patch.object(llama, "decode_attention_tp", faults[name]):
+            out, calls = run_generate(engine, ids, LLAMA_NEW)
+        new = out[:, len(prompt):]
+        with plain_versions():
+            _, plain = run_generate(engine, ids, LLAMA_NEW, forced=new)
+        fp32 = llama_fp32_steps(engine, [(prompt.tolist(),
+                                          new[0].tolist())])[0]
+        share, step, far, ref_far, _, wrong = step_stats(
+            [c[0] for c in calls], [c[0] for c in plain], fp32,
+            new[0].tolist())
+        refused[name] = (share > 1 or bool(wrong),
+                         f"step {step} at {share:.3f} of its limit (max "
+                         f"{far:.4g} from fp32's, plain versions "
+                         f"{ref_far:.4g}), tokens off at {wrong}")
+    report = {name: text for name, (_, text) in refused.items()}
+    if not all(ok for ok, _ in refused.values()):
+        raise AssertionError(f"{what}: the gate passed a planted fault: "
+                             f"{report}")
+    log(f"{what}: the gate refuses each fault planted in the decode steps "
+        f"on a {len(prompt)}-token prompt: {report} [{card}]")
+
+
+def llama_engine(seed, **cut):
+    """``init_inference`` (bf16) on a Llama-2 7B-width model whose
+    weights are drawn on the card from ``seed``; ``cut`` overrides the
+    config (depth, KV heads)."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+    engine = init_inference(LlamaModel(LlamaConfig.llama2_7b(**cut),
+                                       device=LLAMA_DEVICE, seed=seed))
+    torch.cuda.synchronize()
+    return engine
+
+
+def llama_generate(what, engine, prompts, card):
+    """One greedy ``generate`` a prompt (B = 1) of LLAMA_NEW tokens, the
+    prefill timed alone first (a 1-token call); launch counts zeroed just
+    before the prompts and read just after. Then the plain versions and
+    the fp32 anchor teacher-forced on each prompt's tokens, and every
+    step held to fp32 (hold_steps). Returns the counts."""
+    import torch
+
+    run_generate(engine, torch.from_numpy(prompts[0][:16])[None].to(
+        LLAMA_DEVICE), 2)
+    torch.cuda.reset_peak_memory_stats()
+    solo, timing = {}, []
+    reset_launch_counts()
+    for p in prompts:
+        ids = torch.from_numpy(p)[None].to(LLAMA_DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_generate(engine, ids, 1)
+        t1 = time.perf_counter()
+        out, calls = run_generate(engine, ids, LLAMA_NEW)
+        t2 = time.perf_counter()
+        if not all(torch.isfinite(c).all() for c in calls):
+            raise AssertionError(f"{what} prompt {len(p)}: non-finite "
+                                 f"logits")
+        solo[len(p)] = (out[:, len(p):], calls)
+        timing.append(f"{len(p)}: prefill {1e3 * (t1 - t0):.2f} ms, "
+                      f"decode {(LLAMA_NEW - 1) / ((t2 - t1) - (t1 - t0)):.1f}"
+                      f" tokens/s")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    layers = engine.model_config.num_hidden_layers
+    want = {"flash_fwd": 2 * len(prompts) * layers,
+            "decode_append": (LLAMA_NEW - 1) * len(prompts) * layers}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{what}: launches {counts}, not {want}")
+    plain = {}
+    with plain_versions():
+        for p in prompts:
+            plain[len(p)] = run_generate(
+                engine, torch.from_numpy(p)[None].to(LLAMA_DEVICE), LLAMA_NEW,
+                forced=solo[len(p)][0])[1]
+    anchors = llama_fp32_steps(engine, [(p.tolist(), solo[len(p)][0][0]
+                                         .tolist()) for p in prompts])
+    held = [hold_steps(f"{what} prompt {len(p)}",
+                       [c[0] for c in solo[len(p)][1]],
+                       [c[0] for c in plain[len(p)]], fp32,
+                       solo[len(p)][0][0].tolist())
+            for p, fp32 in zip(prompts, anchors)]
+    log(f"{what}: {engine.model_config.num_hidden_layers} layers, "
+        f"{sum(p.numel() for p in engine.module.parameters()) / 1e9:.3f} B "
+        f"parameters (bf16), {engine.model_config.kv_heads} KV heads; "
+        f"prompts {'; '.join(timing)}; peak memory {peak / 1e9:.2f} GB; "
+        f"every step's logits from fp32's (teacher-forced on the kernels' "
+        f"tokens): kernels max {[round(h[1], 4) for h in held]}, plain "
+        f"versions max {[round(h[2], 4) for h in held]}, worst step "
+        f"{max(h[0] for h in held):.3f} of its limit ({LLAMA_NOISE_RATIO} x "
+        f"plain or {LOGITS_ATOL}); tokens fp32's best at "
+        f"{sum(h[3] for h in held)}/{len(prompts) * LLAMA_NEW} steps with "
+        f"a clear best, none off; launches {counts} [{card}]")
+    return counts
+
+
+def llama_padded(engine, prompts, card):
+    """The prompts left-padded into one batch, greedy: every decode step
+    on the append kernel with each row's first key. The plain versions
+    (the same padded batch) and the fp32 anchor (each row's prompt alone)
+    teacher-forced on its tokens, and every step of each row held to
+    fp32 (hold_steps). Returns the launch counts."""
+    import torch
+
+    T = max(len(p) for p in prompts)
+    ids = torch.zeros((len(prompts), T), dtype=torch.long)
+    mask = torch.zeros((len(prompts), T), dtype=torch.int32)
+    for b, p in enumerate(prompts):
+        ids[b, T - len(p):] = torch.from_numpy(p)
+        mask[b, T - len(p):] = 1
+    ids, mask = ids.to(LLAMA_DEVICE), mask.to(LLAMA_DEVICE)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, calls = run_generate(engine, ids, LLAMA_NEW, attention_mask=mask)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = (LLAMA_NEW - 1) * engine.model_config.num_hidden_layers
+    want = {"decode_append": steps, "decode_append_padded": steps,
+            "flash_fwd": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"llama padded generate launched {counts}, "
+                             f"not {want}")
+    new = out[:, T:]
+    with plain_versions():
+        plain = run_generate(engine, ids, LLAMA_NEW, forced=new,
+                             attention_mask=mask)[1]
+    anchors = llama_fp32_steps(engine, [(p.tolist(), new[b].tolist())
+                                        for b, p in enumerate(prompts)])
+    held = [hold_steps(f"llama padded generate row {b} ({len(p)} tokens)",
+                       [c[b] for c in calls], [c[b] for c in plain],
+                       anchors[b], new[b].tolist())
+            for b, p in enumerate(prompts)]
+    log(f"llama gqa padded generate: {len(prompts)} x "
+        f"({'/'.join(str(len(p)) for p in prompts)} left-padded to {T}) + "
+        f"{LLAMA_NEW} tokens in {secs:.3f} s; every step's logits from "
+        f"fp32's (each row's prompt alone, teacher-forced): kernels max "
+        f"{[round(h[1], 4) for h in held]}, plain versions (padded) max "
+        f"{[round(h[2], 4) for h in held]}, worst step "
+        f"{max(h[0] for h in held):.3f} of its limit; tokens fp32's best at "
+        f"{sum(h[3] for h in held)}/{len(prompts) * LLAMA_NEW} steps with "
+        f"a clear best, none off; launches {counts} [{card}]")
+    return counts
+
+
+def llama_gqa_copy(seed, card):
+    """Device ms of one decode step's KV-head repeat (one cache, K or V,
+    at (b)'s padded batch: B = 4, S = 4096, 8 KV heads to 32) beside
+    kernel 7's on the repeated caches at idx 1000."""
+    import torch
+
+    from deepspeed_tpu_torch.models.llama import repeat_kv
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+
+    B, S, KV, H, D = 4, 4096, 8, 32, 128
+    gen = torch.Generator(device=LLAMA_DEVICE).manual_seed(seed)
+    kc, vc = (torch.randn((B, S, KV, D), generator=gen, device=LLAMA_DEVICE)
+              .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, 1, H, D), generator=gen, device=LLAMA_DEVICE).to(
+        torch.bfloat16)
+    index = torch.tensor(1000, dtype=torch.int32, device=LLAMA_DEVICE)
+    copy_ms = device_ms(lambda: repeat_kv(kc, H // KV))
+    ke, ve = repeat_kv(kc, H // KV), repeat_kv(vc, H // KV)
+    kernel_ms = device_ms(lambda: decode_attention(q, ke, ve, index))
+    log(f"llama gqa: a decode step repeats each layer's K and V caches "
+        f"[{B}, {S}, {KV}, {D}] -> {H} heads: {copy_ms:.4f} ms a cache (2 a"
+        f" layer: {2 * copy_ms:.4f} ms), against kernel 7's {kernel_ms:.4f}"
+        f" ms on the repeated caches at idx 1000 [{card}]")
+    return copy_ms, kernel_ms
+
+
+def llama_train(seed, stage, batch, card):
+    """(c)'s engine at ``stage``: step-1 gradients (reduced and gathered
+    by the stage), one warm-up and LLAMA_TRAIN_STEPS timed steps, the
+    launch and collective counts zeroed just before them. Returns
+    (engine, grads, losses, counts)."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig,
+                                                  LlamaForTraining)
+    from deepspeed_tpu_torch.tools.profile_training import (BENCH_CONFIG,
+                                                            timed_steps)
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=LLAMA_TRAIN_LAYERS,
+                                remat=True, remat_policy="dots")
+    config = {**BENCH_CONFIG,
+              "train_micro_batch_size_per_gpu": LLAMA_TRAIN_BATCH,
+              "zero_optimization": {"stage": stage}}
+    engine = deepspeed_tpu_torch.initialize(
+        model=LlamaForTraining(cfg, device=LLAMA_DEVICE, seed=seed),
+        config=config)[0]
+    engine.module(batch).backward()
+    grads = {n: g.detach().clone()
+             for n, g in engine.gathered_grads().items()}
+    engine.zero_grad()
+    first, _ = timed_steps(engine, batch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    comm.reset_counts()
+    losses, secs = timed_steps(engine, batch, LLAMA_TRAIN_STEPS)
+    counts = launch_counts()
+    collectives = {k: comm.counts.get(k, 0) for k in
+                   ("all_gather", "reduce_scatter", "all_reduce")}
+    peak = torch.cuda.max_memory_allocated()
+    losses = first + losses
+    what = f"llama training stage {stage}"
+    # random weights: the head's logits have a standard deviation of 0.02
+    # sqrt(C) over unit-RMS hidden states, which lifts the first loss
+    # from ln V by about their variance / 2 (0.82 at C = 4096)
+    check_losses(what, losses, float(np.log(cfg.vocab_size))
+                 + cfg.hidden_size * 0.02 ** 2 / 2)
+    check_per_step(what, counts, LLAMA_TRAIN_STEPS,
+                   {k: LLAMA_TRAIN_LAYERS for k in
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    if engine._zero is not None:
+        plan = {k: v * LLAMA_TRAIN_STEPS for k, v in engine._zero.comm_plan(
+            1, recompute=True).items()}
+        if collectives != plan:
+            raise AssertionError(f"{what}: collectives {collectives}, the "
+                                 f"plan {plan}")
+    tokens = LLAMA_TRAIN_BATCH * LLAMA_TRAIN_SEQ
+    n = sum(p.numel() for p in engine.module.parameters())
+    if engine._zero is not None:
+        n = sum(int(np.prod(e.pplan.shape)) for e in engine._zero.entries)
+    # bench.py's accounting without the embedding lookup (no matmul):
+    # 6 N of the matrices, head included, plus causal attention 6 L T C
+    flops = (6 * (n - cfg.vocab_size * cfg.hidden_size)
+             + 6 * LLAMA_TRAIN_LAYERS * LLAMA_TRAIN_SEQ * cfg.hidden_size)
+    tokens_per_s = LLAMA_TRAIN_STEPS * tokens / secs
+    per_step = {k: counts[k] / LLAMA_TRAIN_STEPS
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"{what}: 7B width, {LLAMA_TRAIN_LAYERS} layers ({n / 1e9:.3f} B "
+        f"parameters), batch {LLAMA_TRAIN_BATCH} x {LLAMA_TRAIN_SEQ}, bf16, "
+        f"dots remat, fused AdamW, clip 1.0: {LLAMA_TRAIN_STEPS} steps in "
+        f"{secs:.3f} s ({1e3 * secs / LLAMA_TRAIN_STEPS:.1f} ms/step, "
+        f"{tokens_per_s:.0f} tokens/s, MFU "
+        f"{tokens_per_s * flops / PEAK_FLOPS['bfloat16']:.4f} of 989 TF/s "
+        f"at {flops / 1e9:.3f} GFLOP a token), peak memory {peak / 1e9:.2f} "
+        f"GB; losses {[round(x, 4) for x in losses]}; collectives per step "
+        f"{ {k: v / LLAMA_TRAIN_STEPS for k, v in collectives.items()} }; "
+        f"launches per step {per_step} [{card}]")
+    return engine, grads, losses, counts
+
+
+def llama_tp_ids(seed):
+    import torch
+
+    rng = np.random.default_rng(seed + 41)
+    return torch.tensor(rng.integers(1, 32000, (2, 128)), device=LLAMA_DEVICE)
+
+
+def llama_tp_rank_main(rank, world, store, seed, out_dir):
+    """One tp rank of (d) (a spawned process): join the gloo group on
+    ``cuda:0``, draw the 7B-width model of LLAMA_TP_LAYERS layers whole on
+    the card from ``seed``, keep this rank's slices through
+    ``init_inference(tensor_parallel=...)`` and generate; writes its
+    tokens, each step's logits, its launch and collective counts and the
+    heads of every launch of kernels 1 and 7."""
+    import pickle
+    import traceback
+
+    try:
+        os.environ["LOCAL_RANK"] = "0"
+        import torch
+
+        from deepspeed_tpu_torch import comm
+        from deepspeed_tpu_torch.ops import decode_attention as da
+        from deepspeed_tpu_torch.ops import flash_attention as fa
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        comm.init_distributed(dist_backend="gloo",
+                              init_method=f"file://{store}", rank=rank,
+                              world_size=world, timeout=TP_TIMEOUT,
+                              verbose=False)
+        from deepspeed_tpu_torch import init_inference
+        from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+        engine = init_inference(
+            LlamaModel(LlamaConfig.llama2_7b(
+                num_hidden_layers=LLAMA_TP_LAYERS), device=LLAMA_DEVICE,
+                seed=seed), tensor_parallel={"tp_size": world})
+        ids = llama_tp_ids(seed)
+        heads = collections.defaultdict(collections.Counter)
+
+        def spy(name, fn, dim):
+            def call(q, *args, **kwargs):
+                heads[name][q.shape[dim]] += 1
+                return fn(q, *args, **kwargs)
+            return call
+
+        run_generate(engine, ids, 2)  # warm-up
+        with mock.patch.object(fa, "_fwd_launch",
+                               spy("flash_fwd", fa._fwd_launch, 1)), \
+                mock.patch.object(da, "_append_launch",
+                                  spy("decode_append", da._append_launch,
+                                      2)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            comm.reset_counts()
+            t0 = time.perf_counter()
+            out, calls = run_generate(engine, ids, LLAMA_TP_NEW)
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            collectives = dict(comm.counts)
+        res = {"tokens": out[:, ids.shape[1]:].tolist(), "calls": calls,
+               "counts": counts, "collectives": collectives, "secs": secs,
+               "heads": {k: dict(v) for k, v in heads.items()},
+               "split": sorted(n for n, s in engine.param_shardings.items()
+                               if s is not None)}
+        comm.destroy_process_group()
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def llama_tensor_parallel(seed, card):
+    """(d): TP_SIZE spawned gloo ranks on ``cuda:0``: both ranks' tokens
+    bit for bit rank 0's, every launch of kernels 1 and 7 at 16 heads,
+    and 2 L + 1 all-reduces (the rows' sums and the vocab-parallel
+    lookup) and one all-gather (the head's) a forward; then a tp=1
+    engine in this process and the fp32 anchor teacher-forced on rank
+    0's tokens, and every step held to fp32 (hold_steps, tp=1 the
+    reference). Returns rank 0's launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    ranks = spawn_tp_ranks(llama_tp_rank_main, seed, TP_SIZE)
+    secs = time.perf_counter() - t0
+    first = ranks[0]
+    heads = 32 // TP_SIZE
+    forwards = LLAMA_TP_NEW
+    coll = {"all_reduce": (2 * LLAMA_TP_LAYERS + 1) * forwards,
+            "all_gather": forwards}
+    for rank, res in enumerate(ranks):
+        if res["tokens"] != first["tokens"]:
+            raise AssertionError(f"llama tp: rank {rank}'s tokens differ "
+                                 f"from rank 0's")
+        for name in ("flash_fwd", "decode_append"):
+            if set(res["heads"].get(name, {})) != {heads}:
+                raise AssertionError(f"llama tp rank {rank}: {name} at heads"
+                                     f" {res['heads'].get(name)}, not only "
+                                     f"{heads}")
+        got = {k: res["collectives"].get(k, 0) for k in coll}
+        if got != coll:
+            raise AssertionError(f"llama tp rank {rank}: collectives {got},"
+                                 f" not {coll}")
+    engine = llama_engine(seed, num_hidden_layers=LLAMA_TP_LAYERS)
+    ids = llama_tp_ids(seed)
+    new = torch.tensor(first["tokens"])
+    ref = run_generate(engine, ids, LLAMA_TP_NEW, forced=new)[1]
+    anchors = llama_fp32_steps(engine, [(ids[b].tolist(), new[b].tolist())
+                                        for b in range(len(new))])
+    held = [hold_steps(f"llama tp row {b}", [c[b] for c in first["calls"]],
+                       [c[b] for c in ref], anchors[b], new[b].tolist())
+            for b in range(len(new))]
+    del engine
+    torch.cuda.empty_cache()
+    log(f"llama tensor parallel: {TP_SIZE} gloo ranks on cuda:0, 7B width, "
+        f"{LLAMA_TP_LAYERS} layers, {heads} heads a rank, split "
+        f"{len(first['split'])} tensors (vocabulary included), in "
+        f"{secs:.1f} s: both ranks' tokens bit for bit rank 0's; every "
+        f"step's logits from fp32's (teacher-forced on rank 0's tokens): "
+        f"tp=2 max {[round(h[1], 4) for h in held]}, tp=1 max "
+        f"{[round(h[2], 4) for h in held]}, worst step "
+        f"{max(h[0] for h in held):.3f} of its limit; tokens fp32's best at "
+        f"{sum(h[3] for h in held)}/{len(new) * LLAMA_TP_NEW} steps with a "
+        f"clear best, none off; collectives {coll} over {forwards} "
+        f"forwards; kernels 1/7 at {heads} heads on every launch "
+        f"({first['heads']}); generate {first['secs']:.3f} s a rank over "
+        f"gloo (host-staged, nothing of NCCL's speed); launches "
+        f"{first['counts']} [{card}]")
+    return first["counts"]
+
+
+def llama_pretrained(state, card):
+    """(e): (c)'s trained weights, cut to LLAMA_HF_LAYERS layers, written
+    as an HF directory in bf16 (``save_hf_llama``: ``pytorch_model.bin``
+    and ``config.json``), read back by ``from_pretrained``: its logits on
+    a 2 x 128 prompt bit for bit those of ``init_inference`` on the
+    source model. The directory is deleted. Returns the launch counts of
+    the two forwards."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import from_pretrained
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from deepspeed_tpu_torch.runtime.state_dict_factory import save_hf_llama
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=LLAMA_HF_LAYERS)
+    source = LlamaModel(cfg, device="meta")
+    source.load_state_dict(state, assign=True)
+    path = tempfile.mkdtemp(prefix="chip_smoke_llama_hf")
+    try:
+        t0 = time.perf_counter()
+        save_hf_llama(path, cfg, state, dtype=torch.bfloat16)
+        t1 = time.perf_counter()
+        loaded = from_pretrained(path, dtype=torch.bfloat16)
+        t2 = time.perf_counter()
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    engine = init_inference(source)
+    ids = llama_tp_ids(7)
+    reset_launch_counts()
+    got, want = loaded(ids), engine(ids)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"llama from_pretrained: logits differ from the source model's "
+            f"by {(got - want).abs().max().item()}")
+    if counts["flash_fwd"] != 2 * LLAMA_HF_LAYERS:
+        raise AssertionError(f"llama from_pretrained: launches {counts}")
+    log(f"llama from_pretrained: (c)'s weights at {LLAMA_HF_LAYERS} layers "
+        f"written as an HF directory ({size / 1e9:.3f} GB, bf16 "
+        f"pytorch_model.bin) in {t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s; "
+        f"logits on 2 x 128 tokens bit for bit the source model's; the "
+        f"directory deleted; launches {counts} [{card}]")
+    return counts
+
+
+def phase_llama(seed, card):
+    """Phase 12: the Llama family through ``init_inference``,
+    ``initialize`` and ``from_pretrained`` (module docstring). Returns
+    the launch counts of each ``llama_*`` path."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    by_path = {}
+    vocab = 32000
+    rng = np.random.default_rng(seed + 31)
+    prompts = [rng.integers(1, vocab, n) for n in LLAMA_PROMPTS]
+    t0 = time.perf_counter()
+    engine = llama_engine(seed)
+    log(f"llama: Llama-2 7B drawn on the card and cast to bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    by_path["llama_generate"] = llama_generate("llama 7b", engine, prompts,
+                                               card)
+    llama_faults_refused("llama 7b", engine, prompts[0], card)
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = llama_engine(seed, **LLAMA_GQA)
+    by_path["llama_gqa"] = llama_generate("llama gqa", engine, prompts, card)
+    by_path["llama_gqa_padded"] = llama_padded(engine, prompts, card)
+    llama_faults_refused("llama gqa", engine, prompts[0], card)
+    del engine
+    torch.cuda.empty_cache()
+    llama_gqa_copy(seed, card)
+
+    batch = {"input_ids": torch.from_numpy(np.random.default_rng(
+        seed + 37).integers(0, vocab, (LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ))
+        ).to(LLAMA_DEVICE)}
+    engine, grads, losses, by_path["llama_training"] = llama_train(
+        seed, 0, batch, card)
+    state = {k: v.detach().cpu().clone()
+             for k, v in engine.module.model.state_dict().items()
+             if not k.startswith("layers.")
+             or int(k.split(".")[1]) < LLAMA_HF_LAYERS}
+    del engine
+    torch.cuda.empty_cache()
+    import tempfile
+
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_llama"),
+                         "store")
+    comm.init_distributed(init_method=f"file://{store}", rank=0,
+                          world_size=1, verbose=False)
+    try:
+        engine, grads3, losses3, by_path["llama_zero3"] = llama_train(
+            seed, 3, batch, card)
+        del engine
+    finally:
+        comm.destroy_process_group()
+    torch.cuda.empty_cache()
+    loss_err = max(abs(a - b) for a, b in zip(losses3, losses))
+    grad_err = {n: ((grads3[n].float() - g.float()).norm()
+                    / g.float().norm().clamp_min(1e-30)).item()
+                for n, g in grads.items()}
+    worst = max(grad_err, key=grad_err.get)
+    if loss_err > TRAIN_LOSS_ATOL or grad_err[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(
+            f"llama training stage 3 vs stage 0: losses {losses3} vs "
+            f"{losses} (max diff {loss_err}); step-1 gradient {worst} "
+            f"relative L2 {grad_err[worst]}")
+    log(f"llama training stage 3 vs stage 0: losses max |diff| "
+        f"{loss_err:.3g} (limit {TRAIN_LOSS_ATOL}, bit-equal: "
+        f"{losses3 == losses}); step-1 gradients relative L2 max "
+        f"{grad_err[worst]:.3g} at {worst} (limit {TRAIN_GRAD_RTOL})")
+    del grads, grads3
+
+    by_path["llama_tp"] = llama_tensor_parallel(seed, card)
+    by_path["llama_pretrained"] = llama_pretrained(state, card)
+    return by_path
+
+
 Kernel = collections.namedtuple(
     "Kernel", "source replaces path port row dtype rows noncausal "
     "fp32_source", defaults=("bfloat16", None, False, None))
@@ -3808,6 +4510,9 @@ def main():
     by_path["tp_training"] = phase_tp_training(args.seed, card)
     log(f"phase 10: tensor-parallel training at tp={TP_SIZE} in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path.update(phase_llama(args.seed, card))
+    log(f"phase 12: the Llama family in {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernel_line(kernel_rows, by_path)}))
     log(card_line())

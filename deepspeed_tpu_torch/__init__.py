@@ -11,7 +11,9 @@ one-card training path
 (:func:`initialize`, the training engine with the fused step, AdamW/SGD/
 LAMB, and the flash-attention backward kernels) for GPT-2 and for BERT,
 whose ``sparse_attention`` config section routes attention through the
-block-sparse layout zoo and its kernels (``ops/sparse_attention``).
+block-sparse layout zoo and its kernels (``ops/sparse_attention``), and
+for the Llama family (``models/llama.py``: ``init_inference``,
+``initialize`` and ``inference.from_pretrained`` on HF directories).
 Training runs over ``torch.distributed`` (``comm``), one process per
 device, with ZeRO stages 0-3 (``runtime/zero``, ``zero``) on a ``data x
 fsdp x tp`` mesh (``parallel/topology.py``; GPT-2's layers split over

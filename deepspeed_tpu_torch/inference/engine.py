@@ -1,10 +1,12 @@
 """Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``).
 
-Wraps a :class:`~deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel` on one
-device: the weights are cast to the config dtype once (``_convert_dtype``
-in the JAX engine), ``forward``/``forward_last`` run the causal forward,
-and ``generate`` runs one prefill then a Python loop of decode steps over
-an append KV cache, sampling greedily or with temperature/top-k/top-p
+Wraps a :class:`~deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel` or a
+:class:`~deepspeed_tpu_torch.models.llama.LlamaModel` on one device (its
+window ``n_positions`` or ``max_position_embeddings``:
+:func:`model_window`): the weights are cast to the config dtype once
+(``_convert_dtype`` in the JAX engine), ``forward``/``forward_last`` run
+the causal forward, and ``generate`` runs one prefill then a Python loop
+of decode steps over an append KV cache, sampling greedily or with temperature/top-k/top-p
 from a ``torch.Generator``, or, given a ``seed``, with the keyed sampler
 (``ops/sampling.py``): the token at absolute position P is a pure
 function of (seed, P, logits), the same as the JAX engine's and the
@@ -56,6 +58,14 @@ def warn_inert_options(config):
     for name, why in config.inert_notes():
         log_dist(f"inference config '{name}' has no effect on this "
                  f"backend: {why}", ranks=[0])
+
+
+def model_window(model_config) -> int:
+    """The positions a model's KV cache holds: the GPT-2 family's
+    ``n_positions``, else ``max_position_embeddings`` (Llama's name, and
+    HF configs' generally)."""
+    return (getattr(model_config, "n_positions", None)
+            or getattr(model_config, "max_position_embeddings", None))
 
 
 def filter_logits(logits, temperature, top_k: int, top_p: float):
@@ -229,7 +239,7 @@ class InferenceEngine:
         the JAX engine."""
         ids = self._ids(input_ids)
         B, T = ids.shape
-        limit = self.model_config.n_positions
+        limit = model_window(self.model_config)
         if max_new_tokens is None:
             max_new_tokens = min(self._config.max_out_tokens, limit) - T
         if T + max_new_tokens > limit:

@@ -78,7 +78,7 @@ class BertConfig:
                 ("cpu_checkpointing", self.cpu_checkpointing,
                  "the offload slice"),
                 ("partition_activations", self.partition_activations,
-                 "the multi-GPU slice")):
+                 "the rest of the tensor-parallel training slice ([7d])")):
             if value:
                 raise NotImplementedError(
                     f"BertConfig.{knob} is not ported yet: it comes with "

@@ -121,6 +121,13 @@ class GPT2Config:
     partition_activations: bool = False
     # accepted for the JAX config's sake: the port loops over its layers
     scan_layers: bool = True
+    # accepted for the JAX config's sake, and inert: JAX's "bthd" runs
+    # flash attention on [B, T, H, D] views to spare XLA its transposes
+    # (any other value is its "bhtd" path; it checks no value), and the
+    # port's attention always reads [B, T, H, D] views through the
+    # kernels' strides (flash_attention_bthd), so both values give the
+    # same outputs in both packages
+    attn_layout: str = "bhtd"
     # None/True: flash attention; False: the dense plain attention (the
     # JAX model's escape hatch for numerics comparison)
     use_flash: Optional[bool] = None
@@ -184,20 +191,17 @@ class GPT2Config:
 
 
 class KVCache:
-    """Append KV cache of one decode batch: per-layer ``[B, n_positions,
-    H, D]`` key/value buffers (``H = heads``, this rank's heads; all of
-    them by default), the 0-d int32 device index of the next free row
-    (read by the decode kernel on the card, never synced to the host) and
-    its host mirror ``length``; ``pad``, the ``[B]`` int32 device tensor
-    of each row's left-padded prefix, set by a padded prefill (``None``
-    when unpadded)."""
+    """Append KV cache of one decode batch: ``layers`` key/value buffers
+    of ``shape`` ``[B, window, H, D]`` (``H``: the KV heads this rank
+    holds), the 0-d int32 device index of the next free row (read by the
+    decode kernel on the card, never synced to the host) and its host
+    mirror ``length``; ``pad``, the ``[B]`` int32 device tensor of each
+    row's left-padded prefix, set by a padded prefill (``None`` when
+    unpadded). The decoders' ``new_cache`` give the shapes."""
 
-    def __init__(self, config: GPT2Config, batch: int, device,
-                 heads: Optional[int] = None):
-        shape = (batch, config.n_positions, heads or config.n_head,
-                 config.head_dim)
-        self.keys = [torch.zeros(shape, dtype=config.dtype, device=device)
-                     for _ in range(config.n_layer)]
+    def __init__(self, layers: int, shape, dtype, device):
+        self.keys = [torch.zeros(shape, dtype=dtype, device=device)
+                     for _ in range(layers)]
         self.values = [torch.zeros_like(k) for k in self.keys]
         self.index = torch.zeros((), dtype=torch.int32, device=device)
         self.length = 0
@@ -239,10 +243,12 @@ class PagedKVCache:
 
 
 def _dense(layer, x, dtype):
-    """A dense layer in ``dtype``: an ``nn.Linear`` (weights cast at use)
-    or a column- / row-parallel layer holding this rank's slice."""
+    """A dense layer in ``dtype``: an ``nn.Linear`` (weights cast at use;
+    with or without a bias) or a column- / row-parallel layer holding
+    this rank's slice."""
     if isinstance(layer, nn.Linear):
-        return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+        return F.linear(x, layer.weight.to(dtype), None if layer.bias is None
+                        else layer.bias.to(dtype))
     return layer(x, dtype)
 
 
@@ -498,7 +504,9 @@ class GPT2LMHeadModel(nn.Module):
         heads = _cache_heads(self.config, self.h[0].attn.tp)
         if self.config.paged:
             return PagedKVCache(self.config, device, heads)
-        return KVCache(self.config, batch, device, heads)
+        cfg = self.config
+        return KVCache(cfg.n_layer, (batch, cfg.n_positions, heads,
+                                     cfg.head_dim), cfg.dtype, device)
 
     def _step(self, input_ids, cache, paging, attention_mask):
         """Cache addressing shared by every layer of one call, and the
@@ -838,18 +846,22 @@ class GPT2ForTraining(nn.Module):
         """The tensor-parallel collectives of one micro-step (forward and
         backward) on ``rows`` x ``seq`` tokens a rank: g's all-reduce a
         split pair forward and f's backward, and under ``"full"`` remat
-        g's again at the recompute (``"dots"`` saves it); the split
+        the attention's g again at the recompute (``"dots"`` saves it;
+        the MLP's g ends the block, where the recompute, which stops once
+        backward has what it needs, never gets); the split
         vocabulary's lookup, head (f) and loss (2 a call, and under the
         chunked head 2 more a chunk at its recompute); under
         ``partition_activations`` one all-gather a block. Empty at tp 1."""
         tp, cfg = self.tp, self.config
         if tp is None or tp.size == 1:
             return {}
-        pairs = sum(isinstance(layer, ColumnParallelLinear)
-                    for block in self.model.h
-                    for layer in (block.attn.c_attn, block.mlp.c_fc))
+        attn = sum(isinstance(block.attn.c_attn, ColumnParallelLinear)
+                   for block in self.model.h)
+        pairs = attn + sum(isinstance(block.mlp.c_fc, ColumnParallelLinear)
+                           for block in self.model.h)
         remat = cfg.remat
-        all_reduce = pairs * (2 + int(remat and cfg.remat_policy == "full"))
+        all_reduce = 2 * pairs + attn * int(remat
+                                            and cfg.remat_policy == "full")
         all_gather = 0
         if remat and cfg.partition_activations and seq % tp.size == 0:
             all_gather = cfg.n_layer

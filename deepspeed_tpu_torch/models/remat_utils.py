@@ -68,7 +68,11 @@ def dots_policy(ctx, op, *args, **kwargs):
 
 def _partitioned_rows(tp):
     """Saved-tensor hooks keeping this tp rank's rows (dim 1) of a
-    ``[B, T, C]`` tensor and all-gathering them at unpack."""
+    ``[B, T, C]`` tensor and all-gathering them at unpack, contiguous as
+    the tensor was saved: a strided input would change the ops a block's
+    recompute runs (RMSNorm's elementwise output keeps its input's
+    strides, and a projection of a strided input copies it first), which
+    the ``"dots"`` policy's selective checkpoint replays by count."""
     def pack(t):
         if t.dim() != 3 or t.shape[1] % tp.size:
             return t, False
@@ -77,8 +81,8 @@ def _partitioned_rows(tp):
 
     def unpack(packed):
         t, rows = packed
-        return (comm.all_gather(t, group=tp.group, axis=1, tiled=True)
-                if rows else t)
+        return (comm.all_gather(t, group=tp.group, axis=1,
+                                tiled=True).contiguous() if rows else t)
 
     return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 

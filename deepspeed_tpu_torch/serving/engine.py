@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
+                                                  model_window,
                                                   sample_logits)
 from deepspeed_tpu_torch.ops.sampling import keyed_sample
 from deepspeed_tpu_torch.runtime.resilience.chaos import raise_if
@@ -121,8 +122,15 @@ class ServingEngine:
         self.device = self.engine.device
 
         mcfg = self.engine.model_config
-        window = mcfg.n_positions
-        self.max_len = min(int(self.config.max_model_len or window), window)
+        if mcfg is None or not hasattr(mcfg, "for_paged_decode"):
+            raise ValueError(
+                "serving needs a model whose config provides "
+                "for_paged_decode() — the canonical decoder family "
+                "(GPT2LMHeadModel and its OPT/BLOOM/GPT-J/NeoX variants)")
+        window = model_window(mcfg)
+        self.max_len = int(self.config.max_model_len or window or 1024)
+        if window:
+            self.max_len = min(self.max_len, int(window))
         bs = self.config.block_size
         self.blocks_per_seq = blocks_for_tokens(self.max_len, bs)
         # garbage block + conservative worst-case reservation per slot:

@@ -28,6 +28,14 @@ the same weights at any tp size.
 ``output_dense``, ``intermediate``, ``output``, ``transform``, the pooler
 and the classifier) becomes an ``nn.Linear``, every LayerNorm an
 ``nn.LayerNorm``, and the tables and ``decoder_bias`` stay as they are.
+
+:func:`llama_params_from_jax` does the same for the JAX Llama
+(``LlamaModel``, which ``LlamaForTraining`` trains): blocks under
+``layers/block`` with a leading layer axis (scanned) or under
+``layers_<i>``, each Dense kernel transposed into its ``nn.Linear``
+weight, each RMSNorm ``scale`` a ``weight``; ``embed_tokens`` and an
+untied ``lm_head`` (both ``[V, C]``) as they are, and under
+``tie_word_embeddings`` the embedding again as ``lm_head.weight``.
 """
 
 import numpy as np
@@ -154,5 +162,63 @@ def bert_training_model_from_jax(tree, config):
 
     model = BertForTraining(config, device="meta")
     model.model.load_state_dict(bert_params_from_jax(tree, config),
+                                assign=True)
+    return model
+
+
+def _llama_layer(tree, i: int):
+    """Llama layer ``i``'s flax sub-tree (stacked or per-layer layout)."""
+    if "layers" in tree:
+        return _index(tree["layers"]["block"], i)
+    return tree[f"layers_{i}"]
+
+
+def llama_params_from_jax(tree, config, tp_rank: int = 0, tp_size: int = 1,
+                          policy="auto") -> dict:
+    """State dict of the port's ``LlamaModel`` (fp32 tensors on the CPU)
+    from the JAX model's flax params (``{"params": ...}`` or the bare
+    tree), scanned or unrolled; with ``tp_size`` above 1, tp rank
+    ``tp_rank``'s slices of it under ``policy`` (the ones the inference
+    engine keeps: :meth:`~deepspeed_tpu_torch.models.llama.LlamaModel.
+    tp_specs`)."""
+    if tp_size > 1:
+        from deepspeed_tpu_torch.models.llama import LlamaModel
+        from deepspeed_tpu_torch.module_inject.policies import \
+            shard_params_with_policy
+
+        specs = LlamaModel(config, device="meta").tp_specs(policy, tp_size)
+        return shard_params_with_policy(
+            llama_params_from_jax(tree, config), policy, tp_rank, tp_size,
+            specs=specs)[0]
+    tree = tree.get("params", tree)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    sd = {"embed_tokens": t(tree["embed_tokens"]),
+          "norm.weight": t(tree["norm"]["scale"])}
+    sd["lm_head.weight"] = (sd["embed_tokens"] if config.tie_word_embeddings
+                            else t(tree["lm_head"]))
+    for i in range(config.num_hidden_layers):
+        layer = _llama_layer(tree, i)
+        p = f"layers.{i}."
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{p}{norm}.weight"] = t(layer[norm]["scale"])
+        for mod, names in (("self_attn", ("q_proj", "k_proj", "v_proj",
+                                          "o_proj")),
+                           ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+            for name in names:
+                sd[f"{p}{mod}.{name}.weight"] = t(
+                    layer[mod][name]["kernel"]).T.contiguous()
+    return sd
+
+
+def llama_training_model_from_jax(tree, config):
+    """The port's ``LlamaForTraining(config)`` holding the JAX model's
+    weights (fp32, on the CPU; the engine moves them to its device)."""
+    from deepspeed_tpu_torch.models.llama import LlamaForTraining
+
+    model = LlamaForTraining(config, device="meta")
+    model.model.load_state_dict(llama_params_from_jax(tree, config),
                                 assign=True)
     return model

@@ -28,6 +28,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     decode_attention_paged_int8_tp, decode_attention_paged_tp,
     decode_attention_tp)
 from deepspeed_tpu_torch.models.bert import BertConfig, BertForTraining
+from deepspeed_tpu_torch.models.llama import (LlamaConfig, LlamaForTraining,
+                                              LlamaModel)
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_dkv,
     flash_attention_bthd, flash_attention_bthd_tp)
@@ -57,6 +59,9 @@ DATA_PARALLEL = ("comm.comm", "comm.backend", "parallel.topology",
                  "runtime.zero.reduce", "runtime.zero.stage", "zero")
 # the tensor-parallel slice's modules
 TENSOR_PARALLEL = ("module_inject.layers", "runtime.state_dict_factory")
+# the Llama family's modules
+LLAMA = ("models.llama", "inference.auto", "runtime.state_dict_factory",
+         "utils.params")
 # the serving fleet's modules
 FLEET = ("serving.router", "serving.health", "serving.autoscaler",
          "serving.migration", "serving.capacity", "serving.replay",
@@ -73,7 +78,8 @@ def test_import_pulls_in_no_jax():
         "p.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        f"missing = [m for m in {DATA_PARALLEL + TENSOR_PARALLEL + FLEET!r} "
+        "missing = [m for m in "
+        f"{DATA_PARALLEL + TENSOR_PARALLEL + FLEET + LLAMA!r} "
         "if 'deepspeed_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -129,6 +135,13 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
             model=GPT2ForTraining(GPT2Config.tiny(), device="meta"),
             config={"train_batch_size": 1,
                     "zero_optimization": {"stage": 1}})
+    with pytest.raises(RuntimeError, match="cuda"):  # Llama: the card
+        deepspeed_tpu_torch.init_inference(
+            LlamaModel(LlamaConfig.tiny(), device="meta"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        deepspeed_tpu_torch.initialize(
+            model=LlamaForTraining(LlamaConfig.tiny(), device="meta"),
+            config={"train_batch_size": 1})
     with pytest.raises(RuntimeError, match="cuda"):
         deepspeed_tpu_torch.init_distributed()  # NCCL needs the card
     assert not deepspeed_tpu_torch.comm.is_initialized()

@@ -815,3 +815,99 @@ def tp_checks(rank, world, args):
     res["ln_f"] = _np(sd["model.ln_f.weight"])
     out["zero_init"] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# the Llama family
+# ---------------------------------------------------------------------------
+def _llama(weights, **extra):
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.utils.params import \
+        llama_training_model_from_jax
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32, **extra)
+    return llama_training_model_from_jax(weights, cfg)
+
+
+def _llama_train(model, config, mesh, batches):
+    """Step-1 gradients (reduced and merged whole) of the first batch,
+    then one optimizer step a batch: ``(grads, losses, collectives,
+    plan)``, the collectives and the plan those of the steps."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                            mesh=mesh, device="cpu")[0]
+    engine.module({"input_ids": torch.from_numpy(batches[0])}).backward()
+    grads = {k: _np(v) for k, v in engine.gathered_grads().items()}
+    engine.zero_grad()
+    comm.reset_counts()
+    losses = _steps(engine, batches, len(batches))
+    plan = engine._zero.comm_plan(1, recompute=True) if engine._zero else {}
+    rows, seq = batches[0].shape
+    if engine.topology is not None:
+        rows //= engine.topology.get_data_parallel_world_size()
+    for k, v in engine.module.comm_plan(rows, seq).items():
+        plan[k] = plan.get(k, 0) + v
+    plan = {k: v * len(batches) for k, v in plan.items()}
+    counts = {k: comm.counts.get(k, 0) for k in plan}
+    return grads, losses, counts, plan
+
+
+def llama(rank, world, args):
+    """The Llama cases on one spawn: ZeRO stage 3 on ``{"data": world}``
+    (``args["zero"]``), then for each tiny config of ``args["tp"]`` (KV
+    heads that divide ``world`` and ones that do not) greedy and
+    left-padded ``generate`` through ``init_inference(tensor_parallel=
+    world)`` and one training step on ``{"tp": world}``, each with its
+    step-1 gradients merged whole."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from deepspeed_tpu_torch.utils.params import llama_params_from_jax
+
+    zero = args["zero"]
+    remat = dict(remat=True, remat_policy="dots")
+    out = {"zero": _llama_train(
+        _llama(zero["weights"], num_key_value_heads=zero["kv"], **remat),
+        zero["config"], {"data": world}, zero["batches"])}
+    for case in args["tp"]:
+        cfg = LlamaConfig.tiny(dtype=torch.float32,
+                               num_key_value_heads=case["kv"])
+        model = LlamaModel(cfg, device="meta")
+        model.load_state_dict(llama_params_from_jax(case["weights"], cfg),
+                              assign=True)
+        engine = deepspeed_tpu_torch.init_inference(
+            model, dtype="fp32", device="cpu",
+            tensor_parallel={"tp_size": world})
+        ids, mask = case["ids"], case["mask"]
+        res = {"greedy": _generate(engine, ids, case["new"]),
+               "padded": _generate(engine, ids, case["new"], mask),
+               "split": sorted(n for n, s in engine.param_shardings.items()
+                               if s is not None),
+               "kv_heads": engine.module.layers[0].self_attn.n_kv}
+        res["grads"], res["losses"], res["counts"], res["plan"] = \
+            _llama_train(_llama(case["weights"],
+                                num_key_value_heads=case["kv"], **remat),
+                         case["config"], {"tp": world}, case["batches"])
+        if case.get("partition"):  # partition_activations: T / tp rows
+            res["partitioned"] = _llama_train(
+                _llama(case["weights"], num_key_value_heads=case["kv"],
+                       partition_activations=True, **remat),
+                case["config"], {"tp": world}, case["batches"])[1:]
+            # "full" remat: the collectives its recompute issues
+            res["full"] = _llama_train(
+                _llama(case["weights"], num_key_value_heads=case["kv"],
+                       remat=True, remat_policy="full"),
+                case["config"], {"tp": world}, case["batches"])[1:]
+        out[f"tp-kv{case['kv']}"] = res
+    if "gpt2" in args:  # GPT-2's plan under "full" remat, the same rule
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+        from deepspeed_tpu_torch.utils.params import training_model_from_jax
+
+        model = training_model_from_jax(
+            args["gpt2"], GPT2Config.tiny(dtype=torch.float32, remat=True,
+                                          remat_policy="full"))
+        out["gpt2-full"] = _llama_train(model, args["tp"][0]["config"],
+                                        {"tp": world},
+                                        args["tp"][0]["batches"])[1:]
+    return out
