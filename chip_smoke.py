@@ -230,12 +230,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
    KV heads) that this gate must refuse. Phase 2 holds kernels 1-3 at
    B=4 H=32 T=1024 D=128 and kernel 7 at B=4 S=4096 D=128, idx=1000 and,
    with first keys, the padded batch's first step, timed beside SDPA.
+13. "bert_tp" (run after phase 10): BERT-large at its published widths
+   (hidden 1024, 16 heads of 64, FFN 4096, vocab 30522, 4096 positions;
+   bf16, dots remat, bench_bert.py's keys, weights from ``--seed``)
+   through ``initialize(config={"mesh": {"tp": 2}, "tensor_parallel":
+   {...}})`` on 2 spawned gloo ranks on ``cuda:0``, 8 heads a rank:
+   (a) phase 8's sparse workload (block 128, 2 x 4096, 24 layers, the
+   ``"bert"`` policy: q/k/v, ``intermediate`` column- and
+   ``output_dense``, ``output`` row-parallel, the vocabulary split):
+   losses within 0.05 and step-1 gradients (merged from the slices)
+   within 5 % relative L2 a tensor of a tp=1 engine on the same seed and
+   batch (run first, here), or, past that, no further from an fp32
+   forward's gradient (through the plain versions) than twice tp=1's
+   distance (bf16 noise alone parts two correct paths by more than 5 % on
+   the deep layers' query biases), kernels 10-12 once a layer a step, no
+   flash;
+   (b) ZeRO 3 with ``partition_activations`` at 4 layers, within 1e-3
+   (losses) and 1e-4 (gradients) of (a)'s stage 0 at 4 layers; (c) phase
+   8's dense 64 x 128 leg at 4 layers under ``"auto"`` (split heads
+   gathered before a whole ``output_dense``, the MLP whole), held to its
+   tp=1 leg, kernels 1-3 non-causal once a layer a step; (d)
+   ``eval_batch`` on (a)'s engine: a no-grad forward's loss bit for bit,
+   parameters unchanged; (e) two tp faults planted in (a)'s step-1
+   gradients (no f before q/k/v; the decoder bias's gradient left as the
+   rank's slice), each of which (a)'s gradient gate must refuse. Both
+   ranks' losses and replicated parameters
+   bit-equal, every attention launch at 8 heads, collectives a step equal
+   to the plan (``ZeroPartition.comm_plan`` plus ``BertForTraining.
+   comm_plan``), the split weights half of tp=1's bytes. Key biases are
+   held as in phase 8 (their exact gradient is zero). Phase 2 holds
+   kernels 10-12 on rank 1's 8-head rows of the 2 x 16 x 4096 layout and
+   kernels 1-3 at B=64 H=8 T=128 non-causal. ms a step and peak memory a
+   rank are printed for information: host-staged gloo.
 
-Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10, 11 and 12 are the main paths (6,
-7 and 8 in two legs each, 3b one window a stage and 10 one an engine,
-summed; 9's and 10's launch counts are rank 0's, zeroed in the rank
-before each window; 11 one window over its five parts; 12 one window
-each of its ``llama_*`` paths):
+Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10, 11, 12 and 13 are the main paths
+(6, 7 and 8 in two legs each, 3b one window a stage, 10 one an engine and
+13 one a leg, summed; 9's, 10's and 13's launch counts are rank 0's,
+zeroed in the rank before each window; 11 one window over its five
+parts; 12 one window each of its ``llama_*`` paths):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -471,9 +503,9 @@ def shape_name(b, h, tq, tk, d, layout, causal=True):
 # serving bucket, on views cut from the fused projection), tensor-parallel
 # training's on such views (bench.py's B=16 and phase 10's B=TPT_BATCH),
 # Llama-2 7B's prefill and training forward (phase 12: B=LLAMA_BATCH, 32
-# heads of 128 on [B, T, H, D] views), and BERT's dense leg last
-# (bench_bert.py: B=64 T=128, 16 heads, non-causal); (B, H, Tq, Tk, D,
-# layout, causal)
+# heads of 128 on [B, T, H, D] views), BERT's dense leg at tp=2 (phase
+# 13: 8 heads a rank) and BERT's dense leg last (bench_bert.py: B=64
+# T=128, 16 heads, non-causal); (B, H, Tq, Tk, D, layout, causal)
 FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
               (1, 12, 100, 100, 64, "bhtd", True),
               (1, 12, 1024, 1024, 64, "bhtd", True),
@@ -495,21 +527,23 @@ FWD_SHAPES = ((1, 12, 16, 16, 64, "bhtd", True),
               (TPT_BATCH, 6, 1024, 1024, 64, "qkv", True),
               (2, 1, 64, 64, 16, "qkv", True),
               (LLAMA_BATCH, 32, 1024, 1024, 128, "bthd", True),
+              (64, 8, 128, 128, 64, "bthd", False),
               (64, 16, 128, 128, 64, "bthd", False))
 # the flash shapes that are timed: GPT-2 training's, tensor-parallel
 # training's (6 heads a rank at bench.py's micro-batch of 16, and at
 # phase 10's), Llama-2 7B's (phase 12: 32 heads of 128 on [B, T, H, D]
-# views at its training micro-batch) and BERT's dense leg
+# views at its training micro-batch), BERT's dense leg at tp=2 (phase
+# 13: 8 heads a rank) and BERT's dense leg
 TIMED_FLASH = ((16, 12, 1024), (16, 6, 1024), (TPT_BATCH, 6, 1024),
-               (LLAMA_BATCH, 32, 1024), (64, 16, 128))
+               (LLAMA_BATCH, 32, 1024), (64, 8, 128), (64, 16, 128))
 # flash backward: the training shape in both layouts (timed), then ragged
 # and offset cases, B=1 at T=1024 (64 rows a CTA on the tensor cores),
 # the other head dims (D=128 over several tiles with 128 rows a CTA), a
 # short causal case, tensor-parallel training's (timed: 6 heads a rank at
 # bench.py's B=16 and phase 10's B=TPT_BATCH; 1 head a rank at tp=4),
 # Llama-2 7B's training shape (timed: phase 12's micro-batch, 32 heads of
-# 128) and BERT's dense leg last (timed); (B, H, Tq, Tk, D, layout,
-# causal)
+# 128), BERT's dense leg at tp=2 (timed: phase 13, 8 heads a rank) and
+# BERT's dense leg last (timed); (B, H, Tq, Tk, D, layout, causal)
 BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (16, 12, 1024, 1024, 64, "bthd", True),
               (2, 12, 100, 100, 64, "bhtd", True),
@@ -528,6 +562,7 @@ BWD_SHAPES = ((16, 12, 1024, 1024, 64, "bhtd", True),
               (TPT_BATCH, 6, 1024, 1024, 64, "tp", True),
               (2, 1, 64, 64, 16, "tp", True),
               (LLAMA_BATCH, 32, 1024, 1024, 128, "bthd", True),
+              (64, 8, 128, 128, 64, "bthd", False),
               (64, 16, 128, 128, 64, "bthd", False))
 
 
@@ -867,9 +902,12 @@ def check_flash_bwd(dtype, gen):
 # backward on the CUDA-core kernels (the tensor-core ones take blocks that
 # are a multiple of 64), and a per-head BigBird layout of block 64, whose
 # rows and columns have uneven walks, on the tensor-core kernels' one
-# warpgroup instances (64 rows a CTA; 128 at blocks of 128 and 256)
+# warpgroup instances (64 rows a CTA; 128 at blocks of 128 and 256); the
+# BERT slice's layout at tp=2 (phase 13) is tp rank 1's 8 heads, rows
+# [8, 16) of the 16-head layout
 SPARSE_CASES = (
     (2, 16, 4096, "BERT_SPARSE"),
+    (2, 8, 4096, "BERT_SPARSE_TP1"),
     (1, 12, 8192, {"mode": "bigbird", "block": 256, "num_random_blocks": 1,
                    "num_sliding_window_blocks": 3, "num_global_blocks": 1}),
     (1, 4, 1024, {"mode": "fixed", "block": 32, "num_local_blocks": 4,
@@ -882,11 +920,15 @@ SPARSE_CASES = (
 
 def sparse_layout(section, heads, seq):
     """The numpy bool layout of a ``sparse_attention`` section, as BERT's
-    shared SparseSelfAttention draws it (bidirectional)."""
+    shared SparseSelfAttention draws it (bidirectional); "BERT_SPARSE_TP1"
+    is tp rank 1's ``heads`` rows of the layout drawn at twice as many."""
     from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
         sparsity_config_from_dict)
     from deepspeed_tpu_torch.tools.profile_training import BERT_SPARSE
 
+    if section == "BERT_SPARSE_TP1":
+        return np.ascontiguousarray(
+            sparse_layout("BERT_SPARSE", 2 * heads, seq)[heads:])
     section = dict(BERT_SPARSE if section == "BERT_SPARSE" else section)
     section.setdefault("attention", "bidirectional")
     return sparsity_config_from_dict(section, heads).make_layout(seq) \
@@ -2732,28 +2774,35 @@ def spawn_tp_ranks(target, seed, world):
     :func:`tp_rank_main`, phase 10's :func:`tpt_rank_main`) on ``world``
     spawned processes joined through a ``FileStore``; returns the results
     each pickled, by rank. Every child is joined within TP_TIMEOUT or
-    killed."""
+    killed; the results' directory is removed."""
     import multiprocessing
-    import pickle
     import tempfile
 
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp")
-    store = os.path.join(out_dir, "store")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=target,
-                         args=(rank, world, store, seed, out_dir))
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + TP_TIMEOUT
-    try:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp") as out_dir:
+        store = os.path.join(out_dir, "store")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=target,
+                             args=(rank, world, store, seed, out_dir))
+                 for rank in range(world)]
         for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(30)
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        return _rank_results(procs, out_dir)
+
+
+def _rank_results(procs, out_dir):
+    """The spawned ranks' pickled results, by rank; raises with every
+    failed rank's traceback or exit code."""
+    import pickle
+
     errors = []
     for rank, p in enumerate(procs):
         err = os.path.join(out_dir, f"{rank}.err")
@@ -2766,7 +2815,7 @@ def spawn_tp_ranks(target, seed, world):
         raise AssertionError("tensor parallel ranks failed:\n"
                              + "\n".join(errors))
     results = []
-    for rank in range(world):
+    for rank in range(len(procs)):
         with open(os.path.join(out_dir, f"{rank}.pkl"), "rb") as f:
             results.append(pickle.load(f))
     return results
@@ -4277,6 +4326,448 @@ def phase_llama(seed, card):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 13: BERT-large under tensor parallelism
+# ---------------------------------------------------------------------------
+# legs (b) and (c), and (a)'s twin that (b) is held to, cut to 4 of the 24
+# layers: every step's gloo collectives are staged through the host, and
+# full depth in all four would not fit the phase's ~90 s
+BTP_LAYERS = 4
+BTP_STEPS = 3
+# BERT-large's 16 heads split over TP_SIZE ranks
+BTP_HEADS = 8
+# a step-1 gradient beyond its relative limit passes only as close to an
+# fp32 forward's as its reference path's distance times this: at 24
+# layers bf16 rounding alone parts two correct paths by more than 5 % on
+# the deep layers' query biases (their gradient near the noise: the key
+# biases', exactly zero, read 0.30 of it), and the tp path rounds the
+# row-parallel partial sums in bf16 besides (2 more roundings a layer)
+BTP_NOISE_RATIO = 2.0
+# (e) tp faults planted in (a)'s step-1 gradients, which (a)'s gradient
+# gate must refuse: no f before q/k/v (the attention input's gradient
+# keeps only this rank's heads' share), and the decoder bias's gradient
+# left as this rank's slice (a plain slice in place of the gather). Rank
+# 1 taking rank 0's rows of the layout is no fault here: the workload's
+# 4 global patterns over 16 heads give both ranks the same 8 rows
+BTP_FAULTS = ("no_f_before_qkv", "decoder_bias_slice")
+# the attention kernels of the legs, spied on at their ``_*_launch``
+BTP_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq",
+               "block_sparse_bwd_dkv", "flash_fwd", "flash_bwd_dq",
+               "flash_bwd_dkv")
+
+
+def btp_config(sparse, policy, stage=0):
+    """bench_bert.py's keys (phase 8's) on ``{"mesh": {"tp": 2}}``."""
+    from deepspeed_tpu_torch.tools.profile_training import (
+        BERT_CONFIG, BERT_DENSE_SHAPE, BERT_SPARSE, BERT_SPARSE_SHAPE)
+
+    config = {"train_micro_batch_size_per_gpu":
+              (BERT_SPARSE_SHAPE if sparse else BERT_DENSE_SHAPE)[0],
+              **BERT_CONFIG, "zero_optimization": {"stage": stage},
+              "mesh": {"tp": TP_SIZE},
+              "tensor_parallel": {"policy": policy}}
+    if sparse:
+        config["sparse_attention"] = dict(BERT_SPARSE)
+    return config
+
+
+def btp_fault(name):
+    """A context planting the BTP_FAULTS fault ``name`` in the port's
+    BERT (module globals looked up at each forward)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models import bert as mb
+
+    def no_f(layers, x, dtype):
+        return [F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+                for layer in layers]
+
+    def plain_slice(x, tp):
+        k = x.shape[0] // tp.size
+        return x.narrow(0, tp.rank * k, k)
+
+    if name == "no_f_before_qkv":
+        return mock.patch.object(mb, "column_projections", no_f)
+    if name == "decoder_bias_slice":
+        return mock.patch.object(mb, "scatter_to_tp", plain_slice)
+    raise ValueError(name)
+
+
+def btp_run(engine, batch, what, want, faults=()):
+    """Step-1 gradients (whole, on the host), and those of each planted
+    fault of ``faults``; one warm-up and BTP_STEPS timed steps with the
+    launch and collective counts zeroed just before and read just after;
+    each step's collectives against the plan and each kernel of ``want``
+    launched ``want[name]`` times a step."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.tools.profile_training import timed_steps
+
+    grads = {}
+    for fault in (None,) + tuple(faults):
+        with btp_fault(fault) if fault else contextlib.nullcontext():
+            engine.module(batch).backward()
+            grads[fault] = {n: g.cpu() for n, g in
+                            engine.gathered_grads().items()}
+        engine.zero_grad()
+    faulty = {k: v for k, v in grads.items() if k}
+    grads = grads[None]
+    first, _ = timed_steps(engine, batch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    comm.reset_counts()
+    losses, secs = timed_steps(engine, batch, BTP_STEPS)
+    counts = launch_counts()
+    plan = engine._zero.comm_plan(1, recompute=engine.module.config.remat)
+    for k, v in engine.module.comm_plan(*batch["input_ids"].shape).items():
+        plan[k] = plan.get(k, 0) + v
+    plan = {k: v * BTP_STEPS for k, v in plan.items()}
+    collectives = {k: comm.counts.get(k, 0) for k in plan}
+    if collectives != plan:
+        raise AssertionError(f"{what}: collectives {collectives} in "
+                             f"{BTP_STEPS} steps, the plan {plan}")
+    check_per_step(what, counts, BTP_STEPS, want)
+    return {"losses": first + losses, "ms": 1e3 * secs / BTP_STEPS,
+            "peak": torch.cuda.max_memory_allocated(), "counts": counts,
+            "collectives": collectives}, grads, faulty
+
+
+def btp_rank_main(rank, world, store, seed, out_dir):
+    """One rank of phase 13 (a spawned process): join the gloo group on
+    ``cuda:0`` and train BERT-large through ``initialize(config={"mesh":
+    {"tp": world}})``: (a) the sparse workload at full depth, ZeRO 0,
+    the ``"bert"`` policy, then ``eval_batch`` on its engine; its twin at
+    BTP_LAYERS; (b) ZeRO 3 with ``partition_activations`` at BTP_LAYERS;
+    (c) the dense 64 x 128 leg at BTP_LAYERS under ``"auto"``. Writes per
+    engine the losses, ms a step, peak memory, launch and collective
+    counts; the heads of every attention launch; (a)'s replicated
+    parameters' hash, split-weight bytes and ``eval_batch`` check; rank 0
+    also the step-1 gradients (whole) of every leg, and (e) those of (a)
+    under each planted fault of BTP_FAULTS, for the parent."""
+    import gc
+    import hashlib
+    import pickle
+    import traceback
+
+    try:
+        os.environ["LOCAL_RANK"] = "0"
+        import torch
+        import torch.distributed as tdist
+
+        import deepspeed_tpu_torch
+        from deepspeed_tpu_torch import comm
+        from deepspeed_tpu_torch.ops import flash_attention as fa
+        from deepspeed_tpu_torch.ops.sparse_attention import \
+            block_sparse_kernel as bs
+        from deepspeed_tpu_torch.tools.profile_training import (
+            bert_batch, bert_model)
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        comm.init_distributed(dist_backend="gloo",
+                              init_method=f"file://{store}", rank=rank,
+                              world_size=world, timeout=TP_TIMEOUT,
+                              verbose=False)
+        if tdist.get_backend() != "gloo":
+            raise AssertionError("BERT tp ranks not on gloo")
+        heads = collections.defaultdict(collections.Counter)
+
+        def spy(module, name, label):
+            fn = getattr(module, name)
+
+            def call(q, *args, **kwargs):
+                heads[label][q.shape[1]] += 1
+                return fn(q, *args, **kwargs)
+            return mock.patch.object(module, name, call)
+
+        res, grads = {}, {}
+        with contextlib.ExitStack() as stack:
+            for label in BTP_KERNELS:
+                module = bs if label.startswith("block_sparse") else fa
+                name = "_" + label.rsplit("_", 1)[-1] + "_launch"
+                stack.enter_context(spy(module, name, label))
+            for label, sparse, layers, stage, policy, extra in (
+                    ("sparse", True, None, 0, "bert", {}),
+                    ("sparse4", True, BTP_LAYERS, 0, "bert", {}),
+                    ("zero3", True, BTP_LAYERS, 3, "bert",
+                     {"partition_activations": True}),
+                    ("dense", False, BTP_LAYERS, 0, "auto", {})):
+                whole = bert_model(seed, sparse, layers, **extra)
+                engine = deepspeed_tpu_torch.initialize(
+                    model=whole, config=btp_config(sparse, policy,
+                                                   stage))[0]
+                n_layer = whole.config.num_hidden_layers
+                # once a layer a step: the dots policy saves the forward
+                prefix = "block_sparse" if sparse else "flash"
+                want = {k: n_layer if k.startswith(prefix) else 0
+                        for k in BTP_KERNELS}
+                batch = bert_batch(whole.config.vocab_size, seed,
+                                   engine.device, sparse=sparse)
+                res[label], grads[label], faulty = btp_run(
+                    engine, batch, f"bert tp {label}", want,
+                    BTP_FAULTS if label == "sparse" else ())
+                if faulty:
+                    grads["faults"] = faulty
+                if label == "sparse":
+                    res["layers"] = n_layer
+                    specs = engine.module.param_specs()
+                    split = {n for n, sp in specs.items() if sp is not None}
+                    res["split_bytes"] = (
+                        sum(4 * p.numel() for n, p in
+                            engine.module.named_parameters() if n in split),
+                        sum(4 * p.numel() for n, p in
+                            whole.named_parameters() if n in split))
+
+                    def digest(names):
+                        h = hashlib.sha256()
+                        for n, p in engine.module.named_parameters():
+                            if n in names:
+                                h.update(p.detach().cpu().numpy().tobytes())
+                        return h.hexdigest()
+
+                    every = {n for n, _ in engine.module.named_parameters()}
+                    res["replicated_sha256"] = digest(every - split)
+                    # (d) eval_batch: a no-grad forward's loss, the
+                    # parameters untouched
+                    before = digest(every)
+                    evaluated = float(engine.eval_batch(batch))
+                    with torch.no_grad():
+                        forward = float(engine.module(batch))
+                    res["eval"] = {"loss": evaluated, "forward": forward,
+                                   "unchanged": digest(every) == before}
+                # stage 3's gather hooks tie the engine in reference
+                # cycles: collect them before the next engine's peak
+                del engine, whole
+                gc.collect()
+                torch.cuda.empty_cache()
+        res["heads"] = {k: dict(v) for k, v in heads.items()}
+        if rank == 0:
+            res["grads"] = grads
+        comm.destroy_process_group()
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def btp_grad_check(grads, ref, rtol, exact=None):
+    """Each step-1 gradient of ``grads`` against ``ref``'s: within
+    ``rtol`` relative L2, or, where bf16 rounding leaves it further, no
+    further from ``exact`` (an fp32 forward's gradient on the same weights
+    and batch, through the plain versions) than BTP_NOISE_RATIO times
+    ``ref``'s distance from it; a
+    key bias (exact gradient zero: bf16 noise alone) also passes below
+    KEY_BIAS_NOISE of its layer's query-bias gradient in ``ref`` (phase
+    8's rule). Returns (failing tensors with their numbers, the worst
+    relative L2 and its tensor among the other tensors, the largest
+    key-bias share, the largest distance ratio among the tensors the fp32
+    rule held, how many it held)."""
+    shares = key_bias_shares(grads, ref)
+    rel = rel_l2(grads, ref)
+    failed, ratios = {}, {}
+    for name, err in rel.items():
+        if err <= rtol or shares.get(name, np.inf) <= KEY_BIAS_NOISE:
+            continue
+        if exact is not None:
+            g, r, e = (t[name].float().cpu() for t in (grads, ref, exact))
+            ratios[name] = ((g - e).norm() / (r - e).norm().clamp_min(
+                1e-30)).item()
+            if ratios[name] <= BTP_NOISE_RATIO:
+                continue
+        failed[name] = (err, ratios.get(name))
+    worst = max((n for n in rel if n not in shares), key=rel.get)
+    return (failed, (rel[worst], worst), max(shares.values()),
+            max(ratios.values(), default=0.0), len(ratios))
+
+
+def phase_bert_tp(seed, card):
+    """BERT-large at its published widths under tensor parallelism on the
+    one card: the tp=1 references here (phase 8's sparse engine at full
+    depth and its dense leg at BTP_LAYERS: step-1 gradients and 1 +
+    BTP_STEPS losses), then TP_SIZE spawned ranks on ``cuda:0`` over a
+    gloo group (NCCL refuses two ranks on one device; gloo stages CUDA
+    tensors through the host) train the same models from the same seed
+    and batch (:func:`btp_rank_main`). Holds: the ranks' losses bit-equal
+    on every leg and (a)'s replicated parameters bit-equal; (a) within
+    TPT_LOSS_ATOL (losses) and TPT_GRAD_RTOL (step-1 gradients merged from
+    the slices, relative L2 a tensor) of tp=1, (c) likewise of its tp=1
+    leg, a gradient beyond that no further from an fp32 forward's (same
+    weights and batch, computed here through the plain versions) than
+    BTP_NOISE_RATIO times tp=1's (:func:`btp_grad_check`); (b), ZeRO 3 with
+    ``partition_activations``, within ZERO_LOSS_ATOL and ZERO_GRAD_RTOL
+    of (a)'s stage-0 twin at the same depth; every leg's collectives a
+    step equal to the plan; kernels
+    10-12 launched once a layer a step on (a) and (b) and kernels 1-3
+    (non-causal) on (c), every launch at 8 heads, and no other attention
+    kernel; (d) ``eval_batch`` on (a)'s engine equal to a no-grad
+    forward's loss bit for bit, the parameters unchanged; (e) (a)'s
+    gradient gate refusing each fault of BTP_FAULTS planted in (a)'s
+    step-1 gradients (:func:`btp_fault`); the split
+    weights half of tp=1's bytes. Depth cuts: (b), (c) and (a)'s twin at
+    BTP_LAYERS of 24 layers (gloo's host-staged collectives). Returns rank
+    0's launch counts summed over the legs' timed steps."""
+    import torch
+
+    from deepspeed_tpu_torch.tools.profile_training import (
+        bert_batch, bert_engine, bert_model, timed_steps)
+
+    from deepspeed_tpu_torch.models.bert import BertForTraining
+
+    refs = {}
+    for label, sparse, layers in (("sparse", True, None),
+                                  ("dense", False, BTP_LAYERS)):
+        model = bert_model(seed, sparse, layers)
+        batch = bert_batch(model.config.vocab_size, seed, "cuda",
+                           sparse=sparse)
+        # the same weights and batch computed in fp32 through the plain
+        # versions (no kernel of the paths under test): the yardstick of
+        # the bf16 paths' rounding noise (a copy on the card; the model
+        # stays on the host until its own engine)
+        exact = BertForTraining(dataclasses.replace(
+            model.config, dtype=torch.float32), device="meta")
+        exact.load_state_dict(model.state_dict(), assign=True)
+        exact = bert_engine(exact, sparse=sparse)
+        with plain_versions():
+            exact_grads = {n: g.cpu() for n, g in
+                           first_grads(exact, batch).items()}
+        del exact
+        torch.cuda.empty_cache()
+        engine = bert_engine(model, sparse=sparse)
+        grads = {n: g.cpu() for n, g in first_grads(engine, batch).items()}
+        warm, _ = timed_steps(engine, batch, 1)
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = timed_steps(engine, batch, BTP_STEPS)
+        refs[label] = {"losses": warm + losses,
+                       "ms": 1e3 * secs / BTP_STEPS,
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "grads": grads, "exact": exact_grads}
+        del engine, model, batch
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_tp_ranks(btp_rank_main, seed, TP_SIZE)
+    secs = time.perf_counter() - t0
+    grads = ranks[0].pop("grads")
+    first = ranks[0]
+    legs = ("sparse", "sparse4", "zero3", "dense")
+    for rank, res in enumerate(ranks):
+        what = f"bert tp rank {rank}"
+        for label in legs:
+            if res[label]["losses"] != first[label]["losses"]:
+                raise AssertionError(f"{what} {label}: losses "
+                                     f"{res[label]['losses']} differ from "
+                                     f"rank 0's {first[label]['losses']}")
+        if res["replicated_sha256"] != first["replicated_sha256"]:
+            raise AssertionError(f"{what}: replicated parameters differ "
+                                 f"from rank 0's")
+        if set(res["heads"]) != set(BTP_KERNELS) or any(
+                set(h) != {BTP_HEADS} for h in res["heads"].values()):
+            raise AssertionError(f"{what}: attention launches at heads "
+                                 f"{res['heads']}, not only {BTP_HEADS}")
+        e = res["eval"]
+        if e["loss"] != e["forward"] or not e["unchanged"]:
+            raise AssertionError(f"{what}: eval_batch loss {e['loss']} vs a "
+                                 f"no-grad forward's {e['forward']}, "
+                                 f"parameters unchanged: {e['unchanged']}")
+        local, whole = res["split_bytes"]
+        if not local or 2 * local != whole:
+            raise AssertionError(f"{what}: {local} bytes of split weights, "
+                                 f"not half of tp=1's {whole}")
+    # every leg's numbers are logged before any of them fails the phase
+    failures, held = [], {}
+    for label, twin, loss_atol, rtol in (
+            ("sparse", "sparse", TPT_LOSS_ATOL, TPT_GRAD_RTOL),
+            ("dense", "dense", TPT_LOSS_ATOL, TPT_GRAD_RTOL),
+            ("zero3", "sparse4", ZERO_LOSS_ATOL, ZERO_GRAD_RTOL)):
+        ref = refs.get(twin, {"losses": first[twin]["losses"],
+                              "grads": grads[twin]})
+        loss_err = max(abs(a - b) for a, b in zip(first[label]["losses"],
+                                                  ref["losses"]))
+        failed, *stats = btp_grad_check(grads[label], ref["grads"], rtol,
+                                        ref.get("exact"))
+        held[label] = (loss_err, *stats)
+        if loss_err > loss_atol or failed:
+            failures.append(
+                f"bert tp {label} vs {'tp=1' if twin in refs else twin}: "
+                f"losses {first[label]['losses']} vs {ref['losses']} (max "
+                f"diff {loss_err}, limit {loss_atol}); step-1 gradients "
+                f"beyond {rtol} relative L2 and {BTP_NOISE_RATIO}x tp=1's "
+                f"distance from fp32: {failed}")
+
+    # (e) each planted fault refused by (a)'s gradient gate: how many
+    # tensors, and the furthest past its limit (the nearer of its two
+    # limits: relative L2, and the fp32 distance ratio)
+    refused = {}
+    for name, fault in grads["faults"].items():
+        failed = btp_grad_check(fault, refs["sparse"]["grads"],
+                                TPT_GRAD_RTOL, refs["sparse"]["exact"])[0]
+        if not failed:
+            failures.append(f"bert tp (e): the gradient gate passed the "
+                            f"planted fault {name}")
+            continue
+        margin = {n: min(err / TPT_GRAD_RTOL, ratio / BTP_NOISE_RATIO)
+                  for n, (err, ratio) in failed.items()}
+        worst = max(margin, key=margin.get)
+        refused[name] = (len(failed), margin[worst], worst)
+
+    def per_step(counts):
+        return {k: v / BTP_STEPS for k, v in counts.items() if v}
+
+    def gates(label):
+        loss_err, (err, name), share, ratio, n_noise = held[label]
+        return (f"losses max |diff| {loss_err:.3g}, step-1 gradients "
+                f"relative L2 max {err:.3g} at {name} (key biases apart: "
+                f"at most {share:.3g} of their query bias's), {n_noise} "
+                f"tensors past the relative limit held by their fp32 "
+                f"distance (at most {ratio:.3g}x the reference's)")
+
+    log(f"bert tensor parallel: BERT-large (hidden 1024, 16 heads of 64, "
+        f"FFN 4096, vocab 30522, 4096 positions), bf16, dots remat, "
+        f"bench_bert.py's keys, {TP_SIZE} ranks on cuda:0 over gloo (NCCL "
+        f"refuses two ranks on one device; gloo stages CUDA tensors "
+        f"through the host), in {secs:.1f} s: ranks' losses and "
+        f"replicated parameters bit-equal; (a) sparse 2 x 4096, "
+        f"{first['layers']} layers, \"bert\" policy, vs tp=1: "
+        f"{gates('sparse')}; losses "
+        f"{[round(x, 4) for x in first['sparse']['losses']]} vs "
+        f"{[round(x, 4) for x in refs['sparse']['losses']]}; (b) ZeRO 3 + "
+        f"partition_activations at {BTP_LAYERS} layers vs stage 0: "
+        f"{gates('zero3')}; (c) dense 64 x 128 at {BTP_LAYERS} layers, "
+        f"\"auto\" (split heads gathered before a whole output_dense), vs "
+        f"tp=1: {gates('dense')}; (d) eval_batch = the no-grad forward's "
+        f"loss bit for bit, parameters unchanged; (e) (a)'s gradient gate "
+        f"refuses each planted fault: "
+        + "; ".join(f"{k} {n} tensors, up to {m:.3g}x the limit at {t}"
+                    for k, (n, m, t) in refused.items())
+        + "; collectives a step "
+        + "; ".join(f"{k} {per_step(first[k]['collectives'])}"
+                    for k in legs)
+        + f" (= the plan); launches a step "
+        + "; ".join(f"{k} {per_step(first[k]['counts'])}" for k in legs)
+        + f", all at {BTP_HEADS} heads; split weights "
+        f"{first['split_bytes'][0]} of {first['split_bytes'][1]} bytes a "
+        f"rank [{card}]")
+    log(f"bert tensor parallel, for information only (gloo host-staged "
+        f"collectives, nothing of NCCL's speed): ms a step per rank "
+        + ", ".join(f"{k} {first[k]['ms']:.1f}" for k in legs)
+        + f" (tp=1: sparse {refs['sparse']['ms']:.1f}, dense "
+        f"{refs['dense']['ms']:.1f}); peak memory a rank "
+        + ", ".join(f"{k} {first[k]['peak'] / 1e9:.3f} GB" for k in legs)
+        + f" (tp=1: sparse {refs['sparse']['peak'] / 1e9:.3f} GB, dense "
+        f"{refs['dense']['peak'] / 1e9:.3f} GB) [{card}]")
+    if failures:
+        raise AssertionError("\n".join(failures))
+    total = collections.Counter()
+    for k in legs:
+        total.update(first[k]["counts"])
+    return dict(total)
+
+
+
+
+
 Kernel = collections.namedtuple(
     "Kernel", "source replaces path port row dtype rows noncausal "
     "fp32_source", defaults=("bfloat16", None, False, None))
@@ -4509,6 +5000,10 @@ def main():
     t0 = time.perf_counter()
     by_path["tp_training"] = phase_tp_training(args.seed, card)
     log(f"phase 10: tensor-parallel training at tp={TP_SIZE} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["bert_tp"] = phase_bert_tp(args.seed, card)
+    log(f"phase 13: BERT-large at tp={TP_SIZE} in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path.update(phase_llama(args.seed, card))

@@ -27,9 +27,18 @@ the whole model on the host, keeps its slices by the injection policy
 those to its device; every rank returns the same tokens, since the
 row-parallel all-reduce gives each rank the same bits.
 
-Not in this slice: weight-only int8, telemetry and resilience.
+Every ``forward``, ``forward_last`` and ``generate`` call is timed on the
+host, ending in a synchronize of the device, into the list
+:meth:`InferenceEngine.model_times` drains (the JAX engine also mirrors
+each entry into its telemetry stream, which comes with the telemetry
+slice).
+
+Not in this slice: weight-only int8, telemetry, resilience and
+``load_checkpoint`` (the checkpoint slice).
 """
 
+import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -155,6 +164,8 @@ class InferenceEngine:
                              if config.serving is not None else None)
         # the decode-mode modules sharing the weights, unpadded and padded
         self._decode_models = {}
+        self._model_times = []
+        self.model_profile_enabled = False
         log_dist(f"InferenceEngine: device={self.device} "
                  f"dtype={config.dtype} tp={self.mp_world_size}", ranks=[0])
 
@@ -204,18 +215,61 @@ class InferenceEngine:
         ids = torch.as_tensor(input_ids, device=self.device).long()
         return ids[None] if ids.dim() == 1 else ids
 
+    def _timed(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its host time up to a synchronize of
+        the device appended to the model times."""
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._model_times.append(time.perf_counter() - start)
+        return out
+
     @torch.inference_mode()
     def forward(self, input_ids):
         """Full (non-cached) forward: fp32 logits ``[B, T, vocab]``."""
-        return self._logits_of(self.module(self._ids(input_ids)))
+        return self._timed(lambda: self._logits_of(
+            self.module(self._ids(input_ids))))
 
     __call__ = forward
 
     @torch.inference_mode()
     def forward_last(self, input_ids):
         """Last-position logits only: the LM head runs on one position."""
-        hidden = self.module(self._ids(input_ids), return_hidden=True)
-        return self.module.lm_head(hidden[:, -1])
+        def last():
+            hidden = self.module(self._ids(input_ids), return_hidden=True)
+            return self.module.lm_head(hidden[:, -1])
+
+        return self._timed(last)
+
+    def profile_model_time(self, use_cuda_events=None):
+        """The JAX engine's: latencies are always collected (each call
+        ends in a synchronize), so this only records the request;
+        ``use_cuda_events`` is accepted, warned about and ignored."""
+        if use_cuda_events is not None:
+            warnings.warn(
+                "profile_model_time(use_cuda_events=...) is ignored: every "
+                "forward and generate call is synchronized and timed on "
+                "the host regardless", DeprecationWarning, stacklevel=2)
+        self.model_profile_enabled = True
+
+    def model_times(self):
+        """The host seconds of each forward / generate call since the
+        last drain; drains the list."""
+        times, self._model_times = self._model_times, []
+        return times
+
+    def destroy(self):
+        """Drop the decode-mode modules and the model times (the JAX
+        engine releases its compiled programs and telemetry)."""
+        self._decode_models.clear()
+        self._model_times = []
+
+    def eval(self):
+        return self
+
+    def train(self, mode=False):
+        return self
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -223,7 +277,7 @@ class InferenceEngine:
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 0.0, eos_token_id: int = -1,
                  attention_mask=None, generator=None, seed=None):
-        """Autoregressive generation. Returns ``[batch, prompt_len +
+        """Autoregressive generation (timed into :meth:`model_times`). Returns ``[batch, prompt_len +
         max_new_tokens]`` token ids on the engine's device (prompt
         included, HF-style); after ``eos_token_id`` a row repeats it
         (``-1`` disables the stop). ``attention_mask`` (``[B, T]``, 0 =
@@ -281,16 +335,21 @@ class InferenceEngine:
             return sample_logits(logits, generator, temperature, do_sample,
                                  top_k, top_p)
 
-        token = next_token(ids, 0, attention_mask)
-        done = token == eos_token_id
-        tokens = [token]
-        for step in range(1, max_new_tokens):
-            nxt = next_token(token[:, None], step)
-            nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
-            done = done | (nxt == eos_token_id)
-            tokens.append(nxt)
-            token = nxt
-        return torch.cat([ids[:, trim:], torch.stack(tokens, dim=1)], dim=1)
+        def loop():
+            token = next_token(ids, 0, attention_mask)
+            done = token == eos_token_id
+            tokens = [token]
+            for step in range(1, max_new_tokens):
+                nxt = next_token(token[:, None], step)
+                nxt = torch.where(done, torch.full_like(nxt, eos_token_id),
+                                  nxt)
+                done = done | (nxt == eos_token_id)
+                tokens.append(nxt)
+                token = nxt
+            return torch.cat([ids[:, trim:], torch.stack(tokens, dim=1)],
+                             dim=1)
+
+        return self._timed(loop)
 
     def _bucket_prompt(self, ids, attention_mask, limit, max_new_tokens):
         """Round the prompt length up to the serving bucket set by LEFT

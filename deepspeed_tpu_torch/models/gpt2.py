@@ -73,7 +73,7 @@ from deepspeed_tpu_torch.module_inject.layers import (ColumnParallelLinear,
                                                       TensorParallel,
                                                       copy_to_tp,
                                                       gather_from_tp,
-                                                      tp_all_reduce)
+                                                      vocab_parallel_lookup)
 from deepspeed_tpu_torch.module_inject.policies import (decode_cache_specs,
                                                         get_tp_policy)
 from deepspeed_tpu_torch.ops.attention import attention_reference
@@ -565,7 +565,9 @@ class GPT2LMHeadModel(nn.Module):
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache from new_cache()")
         step, pos = self._step(input_ids, cache, paging, attention_mask)
-        x = self._embed(input_ids) + self.wpe[pos].to(cfg.dtype)
+        x = (vocab_parallel_lookup(self.wte, input_ids, self.vocab_tp,
+                                   cfg.dtype)
+             + self.wpe[pos].to(cfg.dtype))
         remat = cfg.remat and torch.is_grad_enabled()
         partition = (self.tp if cfg.partition_activations and self.tp
                      and self.tp.size > 1 else None)
@@ -585,20 +587,6 @@ class GPT2LMHeadModel(nn.Module):
             cache.length += input_ids.shape[1]
         x = _layer_norm(self.ln_f, x, cfg.dtype)
         return x if return_hidden else self.lm_head(x)
-
-    def _embed(self, input_ids):
-        """Token embeddings in the compute dtype. Vocab-parallel: each
-        rank looks up the ids in its rows of the table (zeros elsewhere),
-        and the all-reduce sums the one real row per token."""
-        dtype = self.config.dtype
-        if self.vocab_tp is None:
-            return self.wte[input_ids].to(dtype)
-        rows = self.wte.shape[0]
-        local = input_ids - self.vocab_tp.rank * rows
-        inside = (local >= 0) & (local < rows)
-        e = torch.where(inside[..., None],
-                        self.wte[local.clamp(0, rows - 1)].to(dtype), 0)
-        return tp_all_reduce(e, self.vocab_tp.group)
 
     def lm_head(self, hidden):
         """Tied-embedding logits in fp32 (:func:`head_logits`);

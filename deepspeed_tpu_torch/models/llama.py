@@ -61,9 +61,10 @@ from deepspeed_tpu_torch.models.remat_utils import (REMAT_POLICIES,
 from deepspeed_tpu_torch.module_inject.layers import (ColumnParallelLinear,
                                                       RowParallelLinear,
                                                       TensorParallel,
+                                                      column_projections,
                                                       copy_to_tp,
                                                       gather_from_tp,
-                                                      tp_all_reduce)
+                                                      vocab_parallel_lookup)
 from deepspeed_tpu_torch.module_inject.policies import get_tp_policy
 from deepspeed_tpu_torch.ops.attention import attention
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention_tp
@@ -198,14 +199,6 @@ def _linear(in_features, out_features, tp, parallel, device):
                     device=device)
 
 
-def _columns(layers, x, dtype):
-    """``x`` through each column projection of ``layers`` in ``dtype``;
-    under tp one f (``copy_to_tp``) for the group."""
-    if isinstance(layers[0], ColumnParallelLinear):
-        x = copy_to_tp(x, layers[0].tp.group)
-    return [F.linear(x, layer.weight.to(dtype)) for layer in layers]
-
-
 class LlamaAttention(nn.Module):
     """Grouped-query attention with rotary positions over ``H`` query and
     ``KV`` key/value heads, or this rank's ``H / tp`` and ``KV / tp``
@@ -232,7 +225,8 @@ class LlamaAttention(nn.Module):
         B, T, _ = x.shape
         H, KV, D = self.n_head, self.n_kv, cfg.head_dim
         dt = cfg.dtype
-        q, k, v = _columns((self.q_proj, self.k_proj, self.v_proj), x, dt)
+        q, k, v = column_projections(
+            (self.q_proj, self.k_proj, self.v_proj), x, dt)
         cos, sin = step["rope"]
         q = apply_rope(q.view(B, T, H, D), cos, sin)
         k = apply_rope(k.view(B, T, KV, D), cos, sin)
@@ -279,7 +273,7 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         dt = self.config.dtype
-        gate, up = _columns((self.gate_proj, self.up_proj), x, dt)
+        gate, up = column_projections((self.gate_proj, self.up_proj), x, dt)
         return _dense(self.down_proj, F.silu(gate) * up, dt)
 
 
@@ -476,7 +470,8 @@ class LlamaModel(nn.Module):
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache from new_cache()")
         step = self._step(input_ids, cache, attention_mask)
-        x = self._embed(input_ids)
+        x = vocab_parallel_lookup(self.embed_tokens, input_ids,
+                                  self.vocab_tp, cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         partition = (self.tp if cfg.partition_activations and self.tp
                      and self.tp.size > 1 else None)
@@ -494,21 +489,6 @@ class LlamaModel(nn.Module):
             cache.length += input_ids.shape[1]
         x = self.norm(x)
         return x if return_hidden else self.lm_head(x)
-
-    def _embed(self, input_ids):
-        """Token embeddings in the compute dtype. Vocab-parallel: each
-        rank looks up the ids in its rows of the table (zeros elsewhere),
-        and the all-reduce sums the one real row per token."""
-        dtype = self.config.dtype
-        if self.vocab_tp is None:
-            return self.embed_tokens[input_ids].to(dtype)
-        rows = self.embed_tokens.shape[0]
-        local = input_ids - self.vocab_tp.rank * rows
-        inside = (local >= 0) & (local < rows)
-        e = torch.where(inside[..., None],
-                        self.embed_tokens[local.clamp(0, rows - 1)].to(dtype),
-                        0)
-        return tp_all_reduce(e, self.vocab_tp.group)
 
 
 def llama_loss_fn(model: LlamaModel):

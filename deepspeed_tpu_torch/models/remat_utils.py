@@ -18,11 +18,12 @@ Two policies, as in the JAX model:
   S]`` fp32 a layer) is the port's choice, since that forward is a
   kernel's whole run.
 
-Under tensor parallelism the row-parallel sums run inside each block:
-``"dots"`` saves their output too (the custom op ``deepspeed_tpu_torch::
-tp_all_reduce``), so a block's recompute issues no collective; an
-in-place ``torch.distributed`` all-reduce would run again at every
-recompute under that policy. ``"full"`` re-runs the block, its sums
+Under tensor parallelism the row-parallel sums (and BERT's gather of
+split heads before a whole projection) run inside each block: ``"dots"``
+saves their outputs too (the custom ops ``deepspeed_tpu_torch::
+tp_all_reduce`` and ``::tp_all_gather``), so a block's recompute issues
+no collective; a plain ``torch.distributed`` collective would run again
+at every recompute under that policy. ``"full"`` re-runs the block, its sums
 included: 2 all-reduces a block more a step.
 
 ``partition_activations`` (``checkpointed(..., partition=tp)``, JAX
@@ -43,8 +44,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from deepspeed_tpu_torch import comm
-# register the deepspeed_tpu_torch::flash_fwd, ::block_sparse_fwd and
-# ::tp_all_reduce ops
+# register the deepspeed_tpu_torch::flash_fwd, ::block_sparse_fwd,
+# ::tp_all_reduce and ::tp_all_gather ops
 import deepspeed_tpu_torch.module_inject.layers  # noqa: F401
 import deepspeed_tpu_torch.ops.flash_attention  # noqa: F401
 import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel  # noqa
@@ -57,6 +58,7 @@ SAVED_OPS = frozenset({
     _aten.baddbmm.default, torch.ops.deepspeed_tpu_torch.flash_fwd.default,
     torch.ops.deepspeed_tpu_torch.block_sparse_fwd.default,
     torch.ops.deepspeed_tpu_torch.tp_all_reduce.default,
+    torch.ops.deepspeed_tpu_torch.tp_all_gather.default,
 })
 
 

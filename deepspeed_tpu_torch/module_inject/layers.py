@@ -22,11 +22,15 @@ each column-parallel layer, :func:`tp_all_reduce` (g, Megatron's
 ``reduce_from_tp``: the sum forward, the identity backward) after each
 row-parallel one, and
 :func:`gather_from_tp` (a tiled all-gather forward, this rank's slice of
-the gradient backward) after the vocab-parallel head. Every collective
+the gradient backward) after the vocab-parallel head and after split
+heads that feed a whole projection, and :func:`scatter_to_tp` (the rank's
+slice forward, the all-gathered gradient backward) where a replicated
+tensor meets a split one. Every collective
 is out of place: autograd may have saved the tensor an in-place sum would
-overwrite. g's sum is the custom op ``deepspeed_tpu_torch::
-tp_all_reduce``, so the "dots" remat policy saves its output by op
-(``models/remat_utils.py``) and a block's recompute issues no collective.
+overwrite. g's sum and the gather are the custom ops ``deepspeed_tpu_torch::
+tp_all_reduce`` and ``::tp_all_gather``, so the "dots" remat policy saves
+their outputs by op (``models/remat_utils.py``) and a block's recompute
+issues no collective.
 
 :class:`TensorParallel` names a rank's place in its tp group; the models
 hold one (or None) and :class:`ColumnParallelLinear` /
@@ -132,24 +136,76 @@ def copy_to_tp(x, group):
     return _CopyToTP.apply(x, group)
 
 
-class _GatherFromTP(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.dim, ctx.rank, ctx.k = dim, comm.get_rank(group), x.shape[dim]
-        return comm.all_gather(x, group=group, axis=dim, tiled=True)
+@torch.library.custom_op("deepspeed_tpu_torch::tp_all_gather",
+                         mutates_args=())
+def tp_all_gather_op(x: torch.Tensor, group_name: str,
+                     dim: int) -> torch.Tensor:
+    """Every member's ``x`` of the process group registered as
+    ``group_name``, concatenated along ``dim``."""
+    group = torch.distributed.distributed_c10d._resolve_process_group(
+        group_name)
+    return comm.all_gather(x, group=group, axis=dim, tiled=True)
 
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.narrow(ctx.dim, ctx.rank * ctx.k, ctx.k), None, None
+
+@tp_all_gather_op.register_fake
+def _tp_all_gather_fake(x, group_name, dim):
+    group = torch.distributed.distributed_c10d._resolve_process_group(
+        group_name)
+    shape = list(x.shape)
+    shape[dim] *= comm.get_world_size(group)
+    return x.new_empty(shape)
+
+
+def _gather_setup(ctx, inputs, output):
+    x, group_name, dim = inputs
+    group = torch.distributed.distributed_c10d._resolve_process_group(
+        group_name)
+    ctx.dim, ctx.rank, ctx.k = dim, comm.get_rank(group), x.shape[dim]
+
+
+def _slice_backward(ctx, grad):
+    return grad.narrow(ctx.dim, ctx.rank * ctx.k, ctx.k), None, None
+
+
+tp_all_gather_op.register_autograd(_slice_backward,
+                                   setup_context=_gather_setup)
 
 
 def gather_from_tp(x, group, dim: int = -1):
     """Every tp rank's ``x`` concatenated along ``dim`` (the vocab-
-    parallel head's logits); backward, this rank's slice of the
-    gradient (every rank holds the same gradient of the whole)."""
+    parallel head's logits, the heads' outputs before a whole
+    projection); backward, this rank's slice of the gradient (every
+    rank holds the same gradient of the whole). The custom op
+    ``deepspeed_tpu_torch::tp_all_gather``, so the "dots" remat policy
+    saves its output as it saves g's."""
     if _alone(group):
         return x
-    return _GatherFromTP.apply(x, group, dim % x.dim())
+    return tp_all_gather_op(x, group.group_name, dim % x.dim())
+
+
+class _ScatterToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        ctx.group = group
+        k = x.shape[0] // size
+        return x.narrow(0, rank * k, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (comm.all_gather(grad.contiguous(), group=ctx.group,
+                                tiled=True), None, None, None)
+
+
+def scatter_to_tp(x, tp: "TensorParallel"):
+    """This tp rank's ``1 / tp.size`` of ``x`` along dim 0 (Megatron's
+    scatter, the inverse pair of :func:`gather_from_tp`): forward a view
+    of the rank's slice; backward, every rank's slice of the gradient
+    all-gathered, so every rank holds the whole gradient of ``x``, a
+    tensor replicated over the group (the MLM head's ``decoder_bias``
+    under a split vocabulary)."""
+    if _alone(tp.group):
+        return x
+    return _ScatterToTP.apply(x, tp.group, tp.rank, tp.size)
 
 
 _ACTIVATIONS = {
@@ -244,7 +300,38 @@ class RowParallelLinear(nn.Module):
             self.tp.group)
 
 
+def column_projections(layers, x, dtype):
+    """``x`` through each column projection of ``layers`` in ``dtype``
+    (with its bias, where it has one); under tp one f (:func:`copy_to_tp`)
+    for the group, where the projections are :class:`ColumnParallelLinear`
+    slices (plain ``nn.Linear`` layers are whole on every rank)."""
+    if isinstance(layers[0], ColumnParallelLinear):
+        x = copy_to_tp(x, layers[0].tp.group)
+    return [F.linear(x, layer.weight.to(dtype),
+                     None if layer.bias is None else layer.bias.to(dtype))
+            for layer in layers]
+
+
+def vocab_parallel_lookup(table, ids, tp: Optional[TensorParallel],
+                          dtype=None):
+    """Rows of the embedding ``table`` for ``ids``, cast to ``dtype``
+    (None: the table's). Under a ``tp`` that splits the vocabulary
+    (``table`` is this rank's contiguous rows), each rank looks the ids up
+    in its rows, zeros elsewhere, and :func:`tp_all_reduce` sums the one
+    real row per token, exactly."""
+    if tp is None:
+        rows = table[ids]
+        return rows if dtype is None else rows.to(dtype)
+    n = table.shape[0]
+    local = ids - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    if dtype is not None:
+        rows = rows.to(dtype)
+    return tp_all_reduce(torch.where(inside[..., None], rows, 0), tp.group)
+
+
 __all__ = ["ColumnParallelLinear", "RowParallelLinear", "TensorParallel",
-           "column_parallel_linear", "copy_to_tp", "gather_from_tp",
-           "injected_mlp", "row_parallel_linear",
-           "tp_all_reduce"]
+           "column_parallel_linear", "column_projections", "copy_to_tp",
+           "gather_from_tp", "injected_mlp", "row_parallel_linear",
+           "scatter_to_tp", "tp_all_reduce", "vocab_parallel_lookup"]

@@ -18,7 +18,7 @@ position window.
 
 import dataclasses
 import inspect
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,14 +48,28 @@ class SparseSelfAttention:
 
     ``key_padding_mask_mode``/``attn_mask_mode``: "add" (additive logits
     mask) or "mul" (multiplicative 0/1) — reference surface kept.
+
+    ``heads``: ``(start, stop)``, the heads this instance attends (a
+    tensor-parallel rank's ``[r·H/tp, (r+1)·H/tp)``; q/k/v then hold
+    ``stop - start`` heads). The layout is drawn at all of the config's
+    ``num_heads``, from the same generator state as a whole model's, and
+    these rows are taken: drawn at fewer heads, the random modes
+    (``bigbird``, ``variable``) and ``different_layout_per_head`` would
+    give another pattern.
     """
 
     def __init__(self, sparsity_config: Optional[sc.SparsityConfig] = None,
                  key_padding_mask_mode: str = "add",
                  attn_mask_mode: str = "mul",
-                 max_seq_length: int = 2048):
+                 max_seq_length: int = 2048,
+                 heads: Optional[Tuple[int, int]] = None):
         self.sparsity_config = (sparsity_config
                                 or sc.FixedSparsityConfig(num_heads=4))
+        all_heads = self.sparsity_config.num_heads
+        self.heads = tuple(heads) if heads is not None else (0, all_heads)
+        if not 0 <= self.heads[0] < self.heads[1] <= all_heads:
+            raise ValueError(f"heads {self.heads} outside the layout's "
+                             f"{all_heads}")
         if key_padding_mask_mode not in ("add", "mul"):
             raise ValueError("key_padding_mask_mode must be 'add' or 'mul'")
         if attn_mask_mode not in ("add", "mul"):
@@ -67,13 +81,15 @@ class SparseSelfAttention:
         self._layout_cache = {}
 
     def _layout(self, seq_len: int) -> np.ndarray:
-        """Block layout drawn ONCE per seq_len: the random modes advance a
-        stateful generator in ``make_layout``, so a shared instance must
-        not redraw per call — the kernel path, the masked path and every
-        layer see one pattern."""
+        """Block layout drawn ONCE per seq_len at all heads, and this
+        instance's rows of it: the random modes advance a stateful
+        generator in ``make_layout``, so a shared instance must not redraw
+        per call — the kernel path, the masked path and every layer see
+        one pattern."""
         if seq_len not in self._layout_cache:
-            self._layout_cache[seq_len] = \
-                self.sparsity_config.make_layout(seq_len)
+            start, stop = self.heads
+            self._layout_cache[seq_len] = np.ascontiguousarray(
+                self.sparsity_config.make_layout(seq_len)[start:stop])
         return self._layout_cache[seq_len]
 
     def _layout_mask(self, seq_len: int, device) -> torch.Tensor:

@@ -33,10 +33,16 @@ over ``torch.distributed`` (starting the group if none runs):
   (``train_micro_batch_size_per_gpu x dp`` rows, ``_shard_batch``); each
   rank keeps its rows by ``SpecLayout.batch_spec`` (split over ``data x
   expert`` only: ranks that differ only in ``fsdp`` take the same rows);
-- the loss it returns is the mean over the global micro-batch (each
-  rank's mean, averaged over the data-parallel group: the global mean
-  whenever the ranks hold as many labelled tokens, as GPT-2's shifted
-  labels do);
+- the loss it returns is the mean over the global micro-batch: each
+  rank's mean, averaged over the data-parallel group. A model whose loss
+  averages over labelled tokens only (``loss_tokens(batch)``: BERT's
+  labels != -100) has each rank's mean weighted by its share of the
+  global micro-batch's tokens times the number of row shards, which
+  every rank counts from the global batch it was given, with no
+  collective: the ranks' weighted means average to the global mean, as
+  JAX's loss over the whole batch is, and so do their gradients. Rows
+  that do not divide over ``data x expert`` stay whole on every rank
+  (one shard: the loss is the model's own);
 - gradients are mean-reduced over the ZeRO group and the optimizer runs
   on the stage's shards (:class:`~deepspeed_tpu_torch.runtime.zero.stage.
   ZeroPartition`): the global norm counts every element once, and an
@@ -61,6 +67,14 @@ the ranks' slices; ``load_module_state_dict`` slices them again. A mesh
 always builds a ZeroPartition (stage 0 included), so the group-less path
 below never runs under tp.
 
+The rest of the JAX engine's surface: ``eval_batch`` (the loss under
+``torch.no_grad()``, touching no gradient, master, optimizer slot or
+counter), ``train`` / ``eval``, ``set_train_batch_size`` (the
+accumulation factor only), ``get_batch_info``, ``allreduce_gradients``
+(a no-op, as in JAX: the reduction is the stage's), ``destroy``,
+``spec_layout``, ``describe_topology`` and the config getters of the
+ported keys. Getters of unported slices' keys raise naming the slice.
+
 Offload, the 1-bit optimizers, compression, MoQ, curriculum, PLD,
 telemetry hooks and the flops profiler are config keys that raise at
 parse time (``runtime/config.py``), naming their slice.
@@ -82,14 +96,17 @@ from deepspeed_tpu_torch.parallel import topology as topo_mod
 from deepspeed_tpu_torch.parallel.topology import (AXIS_TP, MeshTopology,
                                                    normalize_axis_dict)
 from deepspeed_tpu_torch.runtime import constants as C
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
+                                                DeepSpeedConfigError)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (create_loss_scaler,
                                                           has_inf_or_nan,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       get_lr_schedule_fn)
 from deepspeed_tpu_torch.runtime.utils import global_norm
-from deepspeed_tpu_torch.runtime.zero.partition import BATCH_AXES, SpecLayout
+from deepspeed_tpu_torch.runtime.zero.partition import (BATCH_AXES,
+                                                        SpecLayout,
+                                                        spec_entries)
 from deepspeed_tpu_torch.runtime.zero.reduce import GradScale
 from deepspeed_tpu_torch.runtime.zero.stage import ZeroPartition
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
@@ -140,15 +157,16 @@ class DeepSpeedEngine:
         # the model's parameters are the fp32 masters (their shards under
         # ZeRO, which places them on the device itself)
         self._zero = None
-        self.spec_layout = None
+        zc = self._config.zero_config
+        stage3 = zc.stage >= 3
+        # the layout of a run with no process group is a world of one
+        self.spec_layout = SpecLayout(
+            self.topology or MeshTopology(world_size=1, rank=0),
+            policy=self._tp_policy(),
+            persistence_threshold=(zc.param_persistence_threshold
+                                   if stage3 else 0),
+            hierarchical_gather=zc.hierarchical_gather and stage3)
         if self.topology is not None:
-            zc = self._config.zero_config
-            stage3 = zc.stage >= 3
-            self.spec_layout = SpecLayout(
-                self.topology, policy=self._tp_policy(),
-                persistence_threshold=(zc.param_persistence_threshold
-                                       if stage3 else 0),
-                hierarchical_gather=zc.hierarchical_gather and stage3)
             if (zc.hierarchical_gather and stage3
                     and not self.spec_layout.hierarchical_active):
                 logger.warning(
@@ -166,6 +184,7 @@ class DeepSpeedEngine:
                               if p.requires_grad])
 
         # --- optimizer ---
+        self._client_optimizer = optimizer is not None
         if optimizer is not None:
             self.optimizer = optimizer
             if self._config.optimizer_name is not None:
@@ -218,6 +237,7 @@ class DeepSpeedEngine:
         self._last_grad_norm = None
         self._last_overflow = None
         self.training_dataloader = None
+        self.module_train = True
         log_dist(f"DeepSpeedEngine configured: device={self.device} "
                  f"zero_stage={self.zero_optimization_stage()} "
                  f"mesh={self.topology} "
@@ -283,9 +303,9 @@ class DeepSpeedEngine:
         if not hasattr(model, "with_tensor_parallel"):
             raise NotImplementedError(
                 f"{type(model).__name__} has no tensor-parallel form: "
-                f"training at mesh.tp {size} runs GPT2ForTraining; other "
-                f"model families (BERT) come with the rest of the "
-                f"tensor-parallel training slice ([7d]) of the PyTorch port")
+                f"training at mesh.tp {size} runs a model with a "
+                f"with_tensor_parallel hook (GPT2ForTraining, "
+                f"LlamaForTraining, BertForTraining)")
         return model.with_tensor_parallel(
             TensorParallel(group=topo.get_tensor_parallel_group(),
                            size=size, rank=rank), policy=self._tp_policy())
@@ -310,12 +330,51 @@ class DeepSpeedEngine:
         if isinstance(batch, np.ndarray):
             batch = torch.from_numpy(batch)
         if isinstance(batch, torch.Tensor):
-            if self.spec_layout is not None and batch.ndim >= 1:
+            if self.topology is not None and batch.ndim >= 1:
                 rows = self.spec_layout.batch_sharding(batch.ndim,
                                                        tuple(batch.shape))
                 batch = rows.local(batch)
             return batch.to(self.device, non_blocking=True)
         return batch
+
+    def _row_shards(self, batch) -> int:
+        """How many row shards :meth:`_to_device` cuts the global
+        micro-batch ``batch`` into: the batch plan's group, or 1 where the
+        rows do not divide over ``data x expert`` and stay whole on every
+        rank (a last, partial batch)."""
+        if isinstance(batch, dict):
+            batch = list(batch.values())
+        if isinstance(batch, (tuple, list)):
+            return max((self._row_shards(v) for v in batch), default=1)
+        if (self.topology is None
+                or not isinstance(batch, (np.ndarray, torch.Tensor))
+                or batch.ndim < 1):
+            return 1
+        return self.spec_layout.batch_sharding(batch.ndim,
+                                               tuple(batch.shape)).n
+
+    def _local_loss(self, batch):
+        """This rank's loss of the global micro-batch ``batch``: the
+        model's loss of the rank's rows, weighted by their share of the
+        labelled tokens where the model counts them and the rows are split
+        (module docstring)."""
+        count = getattr(self.module, "loss_tokens", None)
+        shards = self._row_shards(batch) if count is not None else 1
+        whole = count(batch) if shards > 1 else None
+        batch = self._to_device(batch)
+        loss = self.module(batch)
+        if whole is None:
+            return loss
+        share = count(batch).to(loss.device) / whole.to(
+            loss.device).clamp_min(1)
+        return loss * (share * shards)
+
+    def _batch_mean(self, loss):
+        """The mean of the ranks' losses over the batch axes."""
+        if self._zero is None:
+            return loss
+        return dist.all_reduce(loss.clone(), op=dist.ReduceOp.AVG,
+                               group=self.topology.group(BATCH_AXES))
 
     def _loss_scale(self):
         return self._loss_scaler.loss_scale if self.fp16_enabled_ else 1.0
@@ -372,17 +431,14 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Loss of one micro-batch; its gradients are computed too (and,
         with ``fused_step``, applied). Returns the detached loss tensor."""
-        batch = self._to_device(batch)
-        loss = self.module(batch)
+        loss = self._local_loss(batch)
         gas = 1 if self._fused_step else self.gradient_accumulation_steps()
         (loss * (self._loss_scale() / gas)).backward()
         loss = loss.detach()
         if self._zero is not None:
             self._zero.after_micro_step()
-            # the mean over the global micro-batch
-            loss = dist.all_reduce(
-                loss.clone(), op=dist.ReduceOp.AVG,
-                group=self.topology.group(BATCH_AXES))
+        # the mean over the global micro-batch
+        loss = self._batch_mean(loss)
         if self._fused_step:
             self._last_overflow, self._last_grad_norm = self._apply_math()
         self._last_loss = loss
@@ -416,6 +472,13 @@ class DeepSpeedEngine:
             self._report_progress()
         self.micro_steps += 1
 
+    @torch.no_grad()
+    def eval_batch(self, batch):
+        """The loss of one global micro-batch, as :meth:`forward` computes
+        it, with no gradient: no gradient, master, optimizer slot, loss
+        scale or counter changes (the JAX engine's ``eval_batch``)."""
+        return self._batch_mean(self._local_loss(batch))
+
     def train_batch(self, data_iter=None, batch=None):
         """``gas`` micro-steps and the optimizer step; returns the mean
         loss (one host sync, after the loop)."""
@@ -434,6 +497,104 @@ class DeepSpeedEngine:
                      f"skipped={self.get_skipped_steps()}, "
                      f"lr={self.get_lr()}, "
                      f"loss={float(self._last_loss):.6f}", ranks=[0])
+
+    # ------------------------------------------------------------------
+    # the JAX engine's remaining surface
+    def train(self, mode=True):
+        """Training mode flag (the JAX engine's; the module's own mode
+        follows it)."""
+        self.module_train = mode
+        self.module.train(mode)
+        return self
+
+    def eval(self):
+        return self.train(False)
+
+    def set_train_batch_size(self, train_batch_size):
+        """Change the global batch between steps by changing ONLY the
+        gradient-accumulation factor (the micro-batch and the
+        data-parallel world stay); the fused step stays on only at an
+        accumulation factor of 1."""
+        per_step = (self.train_micro_batch_size_per_gpu()
+                    * (self.topology.get_data_parallel_world_size()
+                       if self.topology is not None else 1))
+        if train_batch_size % per_step != 0:
+            raise DeepSpeedConfigError(
+                f"train_batch_size {train_batch_size} is not divisible by "
+                f"micro_batch x dp_world = {per_step}")
+        self._config.train_batch_size = train_batch_size
+        self._config.gradient_accumulation_steps = \
+            train_batch_size // per_step
+        self._fused_step = (self._config.fused_step
+                            and self._config.gradient_accumulation_steps
+                            == 1)
+
+    def get_batch_info(self):
+        return (self.train_batch_size(),
+                self.train_micro_batch_size_per_gpu(),
+                self.gradient_accumulation_steps())
+
+    def allreduce_gradients(self, bucket_size=None):
+        """A no-op, as in the JAX engine: the stage's plan reduces the
+        gradients inside :meth:`forward` and :meth:`step`."""
+        del bucket_size
+
+    def destroy(self):
+        """Drop the optimizer state and the ZeRO stage's plans and hooks
+        (the JAX engine releases its compiled programs and state); the
+        engine is not used after it."""
+        if self._zero is not None:
+            for hook in self._zero._hooks:
+                hook.remove()
+        self._zero = None
+        self._opt_state = None
+
+    def describe_topology(self, include_tensors: bool = True,
+                          include_data: bool = True) -> dict:
+        """The engine's topology manifest (the JAX engine's keys): the
+        mesh and world, the ZeRO stage, the batch geometry and the
+        counters; ``format`` "consolidated" and no data-pipeline cursor
+        or RNG (the checkpoint slice brings them); with
+        ``include_tensors``, each parameter's whole shape, dtype and spec
+        (``params/<name>``, the port's dim order) and its optimizer
+        state's layout (``opt_state/<name>``, every slot of it alike)."""
+        del include_data
+        layout = self.spec_layout
+        mesh = layout.mesh
+        manifest = {
+            "version": 1,
+            "mesh": {"axes": {a: int(n) for a, n in mesh.axis_sizes.items()},
+                     "world_size": int(mesh.world_size),
+                     "process_count": int(mesh.world_size)},
+            "zero_stage": int(self.zero_optimization_stage()),
+            "batch": {
+                "train_batch_size": int(self.train_batch_size()),
+                "micro_batch_per_gpu":
+                    int(self.train_micro_batch_size_per_gpu()),
+                "gradient_accumulation_steps":
+                    int(self.gradient_accumulation_steps()),
+                "dp_world_size": int(mesh.get_data_parallel_world_size())},
+            "counters": {"global_steps": int(self.global_steps),
+                         "micro_steps": int(self.micro_steps),
+                         "global_samples": int(self.global_samples)},
+            "format": "consolidated",
+            "data_pipeline": None,
+        }
+        if include_tensors:
+            planned = {e.name: e for e in (self._zero.entries
+                                           if self._zero is not None
+                                           else [])}
+            tensors = {}
+            for name, p in self.module.named_parameters():
+                e = planned.get(name)
+                shape = [int(d) for d in (e.pplan.shape if e else p.shape)]
+                for prefix, plan in (("params/", e and e.pplan),
+                                     ("opt_state/", e and e.oplan)):
+                    tensors[prefix + name] = {
+                        "shape": shape, "dtype": "float32",
+                        "spec": spec_entries(plan.spec) if plan else []}
+            manifest["tensors"] = tensors
+        return manifest
 
     # ------------------------------------------------------------------
     # accessors (reference engine surface)
@@ -472,6 +633,74 @@ class DeepSpeedEngine:
 
     def zero_allow_untested_optimizer(self):
         return self._config.zero_allow_untested_optimizer
+
+    def zero_allgather_partitions(self):
+        return self._config.zero_config.allgather_partitions
+
+    def zero_reduce_scatter(self):
+        return self._config.zero_config.reduce_scatter
+
+    def zero_overlap_comm(self):
+        return self._config.zero_config.overlap_comm
+
+    def zero_contiguous_gradients(self):
+        return self._config.zero_config.contiguous_gradients
+
+    def zero_sub_group_size(self):
+        return self._config.zero_config.sub_group_size
+
+    def zero_prefetch_bucket_size(self):
+        return self._config.zero_config.prefetch_bucket_size
+
+    def zero_model_persistence_threshold(self):
+        return self._config.zero_config.model_persistence_threshold
+
+    def zero_max_live_parameters(self):
+        return self._config.zero_config.max_live_parameters
+
+    def zero_max_reuse_distance(self):
+        return self._config.zero_config.max_reuse_distance
+
+    def zero_gather_16bit_weights_on_model_save(self):
+        return self._config.zero_config.gather_16bit_weights_on_model_save
+
+    def zero_ignore_unused_parameters(self):
+        return self._config.zero_config.ignore_unused_parameters
+
+    def zero_legacy_stage1(self):
+        return self._config.zero_config.legacy_stage1
+
+    def zero_round_robin_gradients(self):
+        return self._config.zero_config.round_robin_gradients
+
+    def zero_elastic_checkpoint(self):
+        return self._config.zero_config.elastic_checkpoint
+
+    def zero_load_from_fp32_weights(self):
+        return self._config.zero_config.load_from_fp32_weights
+
+    def optimizer_name(self):
+        return (self.optimizer.__class__.__name__
+                if self._client_optimizer else self._config.optimizer_name)
+
+    def optimizer_params(self):
+        return self._config.optimizer_params
+
+    def scheduler_name(self):
+        return self._config.scheduler_name
+
+    def scheduler_params(self):
+        return self._config.scheduler_params
+
+    def dynamic_loss_scale(self):
+        return self._config.fp16.loss_scale == 0
+
+    def dynamic_loss_scale_args(self):
+        f = self._config.fp16
+        return {"init_scale": 2 ** f.initial_scale_power,
+                "scale_window": f.loss_scale_window,
+                "min_scale": f.min_loss_scale,
+                "delayed_shift": f.hysteresis}
 
     def postscale_gradients(self):
         return not self._config.prescale_gradients
@@ -566,3 +795,36 @@ class DeepSpeedEngine:
             p.grad = None
         if self._zero is not None:
             self._zero.clear()
+
+
+# getters of the JAX engine whose keys belong to unported slices: each
+# raises naming its slice (``runtime/config.py`` refuses the keys too)
+_UNPORTED_GETTERS = {
+    "the offload slice": (
+        "zero_cpu_offload", "zero_offload_param", "zero_offload_optimizer",
+        "swap_tensor_config", "aio_config"),
+    "the training-features slice": (
+        "eigenvalue_verbose", "eigenvalue_max_iter", "eigenvalue_tol",
+        "eigenvalue_stability", "eigenvalue_gas_boundary_resolution",
+        "eigenvalue_layer_name", "eigenvalue_layer_num",
+        "curriculum_learning_config", "curriculum_learning_enabled",
+        "get_pld_theta", "flops_profiler_enabled",
+        "flops_profiler_profile_step", "flops_profiler_module_depth",
+        "flops_profiler_top_modules", "flops_profiler_detailed",
+        "flops_profiler_output_file"),
+}
+
+
+def _unported_getter(name, where):
+    def getter(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"DeepSpeedEngine.{name} is not ported yet: it comes with "
+            f"{where} of the PyTorch port")
+
+    getter.__name__ = name
+    return getter
+
+
+for _where, _names in _UNPORTED_GETTERS.items():
+    for _name in _names:
+        setattr(DeepSpeedEngine, _name, _unported_getter(_name, _where))

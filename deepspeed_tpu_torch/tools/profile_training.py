@@ -135,13 +135,15 @@ def bench_batch(vocab_size, seed, device):
     return {"input_ids": torch.from_numpy(ids).to(device)}
 
 
-def bert_model(seed, sparse=True, layers=None):
+def bert_model(seed, sparse=True, layers=None, **extra):
     """BERT-large MLM at full width (bf16 compute, "dots" remat); the
     sparse workload's 4096-token position table or bench_bert.py's 512;
-    ``layers`` cuts the depth (the plain-version comparison)."""
-    cfg = BertConfig.bert_large(
-        max_position_embeddings=4096 if sparse else 512, dtype=torch.bfloat16,
-        remat=True, remat_policy="dots")
+    ``layers`` cuts the depth (the plain-version comparison); ``extra``:
+    other config fields (``dtype``, ``partition_activations``)."""
+    cfg = BertConfig.bert_large(**{
+        "max_position_embeddings": 4096 if sparse else 512,
+        "dtype": torch.bfloat16, "remat": True, "remat_policy": "dots",
+        **extra})
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
     return BertForTraining(cfg, seed=seed)

@@ -22,7 +22,8 @@ CPU.
   without it, with one all-gather a block a step; fp16 with an overflow
   in one tp rank's slice skips every rank; ``module_state_dict`` /
   ``load_module_state_dict``; ``zero.Init`` and ``GatheredParameters``
-  under tp; the group queries; BERT (no tensor-parallel form) refused.
+  under tp; the group queries; a model with no tensor-parallel form
+  refused. The spawn also runs ``test_torch_bert_tp.py``'s programs.
   In this process: ``mesh.tp`` above 1 with no process group raises.
 - ``mesh.dcn``: the port's rank -> coordinate map equals the device
   order of JAX's ``MeshTopology(dcn_axis_sizes=)`` on 8 CPU devices, and
@@ -54,7 +55,7 @@ MESHES = {"data2_tp2": {"data": 2, "tp": 2},
           "fsdp2_tp2": {"fsdp": 2, "tp": 2}, "tp4": {"tp": 4}}
 LR, STEPS, T, RTOL = 6e-4, 3, 16, 1e-5
 THRESHOLD = 4096
-RANKS_TIMEOUT = 600
+RANKS_TIMEOUT = 900
 
 
 def case_configs(mesh_name):
@@ -84,11 +85,21 @@ def global_batches(mesh, n, seed=0):
             .astype(np.int32) for _ in range(n)]
 
 
+_GPT2 = {}
+
+
+def gpt2_params():
+    """The tiny JAX GPT-2's initial weights (plain numpy)."""
+    if not _GPT2:
+        model = jax_gpt2.GPT2ForTraining(jax_config())
+        _GPT2["params"] = _plain(jax.device_get(model.init(
+            jax.random.PRNGKey(0), jnp.zeros((2, T), jnp.int32))["params"]))
+    return _GPT2["params"]
+
+
 @pytest.fixture(scope="module")
 def jax_params():
-    model = jax_gpt2.GPT2ForTraining(jax_config())
-    return _plain(jax.device_get(model.init(
-        jax.random.PRNGKey(0), jnp.zeros((2, T), jnp.int32))["params"]))
+    return gpt2_params()
 
 
 def function_inputs():
@@ -112,10 +123,13 @@ def function_inputs():
 _PORT = {}
 
 
-def tp_ranks(tmp_path_factory, jax_params):
-    """Every program of this file on one spawn of 4 gloo ranks;
-    ``{name: each rank's results}``."""
+def tp_ranks(tmp_path_factory, jax_params=None):
+    """Every program of this file and of ``test_torch_bert_tp.py`` on one
+    spawn of 4 gloo ranks; ``{name: each rank's results}``."""
     if not _PORT:
+        from tests.test_torch_bert_tp import bert_programs
+
+        jax_params = gpt2_params() if jax_params is None else jax_params
         programs = [(f"train-{m}", torch_ranks.train, {
             "mesh": mesh, "cases": case_configs(m), "steps": STEPS,
             "batches": global_batches(mesh, 2 * STEPS),
@@ -123,6 +137,7 @@ def tp_ranks(tmp_path_factory, jax_params):
         programs.append(("checks", torch_ranks.tp_checks, {
             **function_inputs(), "weights": jax_params,
             "batches": global_batches(torch_ranks.TP_MESH, 3)}))
+        programs += bert_programs()
         ranks = torch_ranks.cached(
             tmp_path_factory, "tp-training-ranks",
             lambda d: torch_ranks.run_ranks(
@@ -280,8 +295,13 @@ def test_group_queries_on_a_training_mesh(checks):
 
 
 def test_models_without_a_tp_form_are_refused(checks):
+    """A model with no ``with_tensor_parallel`` hook (a plain loss
+    module) is refused at mesh.tp 2, the message naming the hook and the
+    families that have it."""
     for r in checks:
-        assert "BertForTraining" in r["bert"] and "[7d]" in r["bert"]
+        assert r["refused"].startswith("Probe has no tensor-parallel form")
+        assert "with_tensor_parallel" in r["refused"]
+        assert "BertForTraining" in r["refused"]
 
 
 def test_tp_needs_a_process_group(monkeypatch):

@@ -737,15 +737,20 @@ def tp_checks(rank, world, args):
                           groups.get_data_parallel_group()))}
     batches = args["batches"]
 
-    # a model with no tensor-parallel form is refused, naming the rest
-    # of the slice
-    from deepspeed_tpu_torch.models.bert import BertConfig, BertForTraining
+    # a model with no tensor-parallel form is refused, naming the hook
+    class Probe(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(4))
+
+        def forward(self, batch):
+            return self.w.sum()
 
     try:
-        _tp_engine_of(BertForTraining(BertConfig.tiny()), zero_config(0))
-        out["bert"] = None
+        _tp_engine_of(Probe(), zero_config(0))
+        out["refused"] = None
     except NotImplementedError as e:
-        out["bert"] = str(e)
+        out["refused"] = str(e)
 
     # partition_activations: the same bits, one all-gather a block
     for part in (False, True):
@@ -911,3 +916,161 @@ def llama(rank, world, args):
                                         {"tp": world},
                                         args["tp"][0]["batches"])[1:]
     return out
+
+
+# ---------------------------------------------------------------------------
+# BERT under tensor parallelism
+# ---------------------------------------------------------------------------
+def _bert(weights, **extra):
+    from deepspeed_tpu_torch.models.bert import BertConfig
+    from deepspeed_tpu_torch.utils.params import bert_training_model_from_jax
+
+    cfg = BertConfig.tiny(dtype=torch.float32, remat=True,
+                          remat_policy="dots", **extra)
+    return bert_training_model_from_jax(weights, cfg)
+
+
+def bert_train(rank, world, args):
+    """Each BERT case of ``args["cases"]`` (name -> ``{"mesh", "config",
+    "model"}``: the mesh, the engine config, the tiny model's extra
+    fields and its JAX weights under ``"weights"``) for ``args["steps"]``
+    steps on its global micro-batches (``"batches"``, dicts): as
+    :func:`train` returns them, plus the decoder bias's first-step
+    gradient and, after the steps, ``eval_batch``'s loss of each of
+    ``"evals"``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+
+    out = {}
+    for name, case in args["cases"].items():
+        topo = MeshTopology(axis_sizes=case["mesh"])
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_bert(case["weights"], **case["model"]),
+            config=case["config"], mesh=topo, device="cpu")
+        batches = case["batches"]
+        engine.module(engine._to_device(batches[0])).backward()
+        bias = engine.module.model.decoder_bias.grad  # None: a ZeRO shard
+        bias = None if bias is None else _np(bias)
+        engine.zero_grad()
+        losses, norms = [], []
+        comm.reset_counts()
+        for batch in batches[:args["steps"]]:
+            losses.append(float(engine(batch)))
+            engine.backward(None)
+            engine.step()
+            norms.append(engine.get_global_grad_norm())
+        counts = dict(comm.counts)
+        zero = engine._zero
+        plan = zero.comm_plan(1, recompute=True)
+        ids = batches[0]["input_ids"]
+        rows, seq = engine.spec_layout.batch_sharding(
+            ids.ndim, ids.shape).shard_shape
+        for k, v in engine.module.comm_plan(rows, seq).items():
+            plan[k] = plan.get(k, 0) + v
+        out[name] = {
+            "losses": losses, "norms": norms, "decoder_bias_grad": bias,
+            "evals": [float(engine.eval_batch(b)) for b in case["evals"]],
+            "counts": {k: counts.get(k, 0) for k in plan},
+            "plan": {k: v * args["steps"] for k, v in plan.items()},
+            "param_shapes": {e.name: tuple(e.param.shape)
+                             for e in zero.entries},
+            "master_shapes": {e.name: tuple(e.master.shape)
+                              for e in zero.entries},
+            "applied": engine.was_step_applied()}
+        params = engine.module_state_dict()
+        if rank == 0:
+            out[name]["params"] = {k: _np(v) for k, v in params.items()}
+    return out
+
+
+def bert_tp_checks(rank, world, args):
+    """BERT's tensor-parallel pieces on ``{"data": 2, "tp": 2}``:
+    ``partition_activations`` against the run without it (losses and the
+    collectives of 3 steps); each rank's sparse layout (``fixed`` per head
+    and ``bigbird``) at its heads; ``module_state_dict`` /
+    ``load_module_state_dict``; ``eval_batch`` under ZeRO 3 and
+    ``partition_activations`` after one step, and the state it leaves."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import bert as port_bert
+
+    batches = args["batches"]
+
+    def engine_of(config, **extra):
+        return deepspeed_tpu_torch.initialize(
+            model=_bert(args["weights"], **extra),
+            config={**config, "tensor_parallel": {"policy": "bert"}},
+            mesh=TP_MESH, device="cpu")[0]
+
+    out = {}
+    for part in (False, True):
+        engine = engine_of(zero_config(0), partition_activations=part)
+        comm.reset_counts()
+        losses = [float(engine(b)) for b in batches]
+        out[f"partition_{part}"] = {
+            "losses": losses, "counts": dict(comm.counts),
+            "plan": engine.module.comm_plan(
+                2, batches[0]["input_ids"].shape[1])}
+
+    # each rank's rows of the layout drawn at all heads
+    tp_rank = engine.tp.rank
+    layouts = {}
+    for name, section in args["sparse"].items():
+        model = engine_of(zero_config(0), sparse_attention=section).module
+        attn = model.model.bert.encoder.layers[0].attention.self
+        cfg = model.config
+        sp = port_bert._sparse_attn_for(
+            cfg.sparse_attention, cfg.num_attention_heads,
+            cfg.max_position_embeddings,
+            heads=(tp_rank * attn.n_head, (tp_rank + 1) * attn.n_head))
+        layouts[name] = sp._layout(args["seq"])
+    out["layouts"] = layouts
+
+    # the whole state dict back from the slices, and re-sliced
+    saved = engine.module_state_dict()
+    engine.load_module_state_dict(
+        {k: torch.zeros_like(v) for k, v in saved.items()})
+    zeroed = float(sum(v.abs().sum() for v in
+                       engine.module_state_dict().values()))
+    engine.load_module_state_dict(saved)
+    out["state_dict"] = {
+        "shapes": {k: tuple(v.shape) for k, v in saved.items()},
+        "word_embeddings": _np(saved["model.bert.word_embeddings"]),
+        "query": _np(saved["model.bert.encoder.layers.0.attention.self."
+                           "query.weight"]),
+        "zeroed": zeroed,
+        "reloaded": max(float((v - saved[k]).abs().max()) for k, v in
+                        engine.module_state_dict().items())}
+
+    # eval_batch after one step: its loss, and the state untouched
+    engine = engine_of(zero_config(3, stage3_param_persistence_threshold=0),
+                       partition_activations=True)
+    engine.backward(engine(batches[0]))
+    engine.step()
+    before = [_np(e.param) for e in engine._zero.entries]
+    masters = [_np(e.master) for e in engine._zero.entries]
+    slots = _flat_state(engine._opt_state)
+    loss = float(engine.eval_batch(batches[1]))
+    after = _flat_state(engine._opt_state)
+    out["eval"] = {
+        "loss": loss,
+        "params": all(np.array_equal(b, _np(e.param)) for b, e in
+                      zip(before, engine._zero.entries)),
+        "masters": all(np.array_equal(b, _np(e.master)) for b, e in
+                       zip(masters, engine._zero.entries)),
+        "slots": len(slots) == len(after) and all(
+            np.array_equal(a, b) for a, b in zip(slots, after)),
+        "grads": all(e.param.grad is None and e.slot is None
+                     for e in engine._zero.entries),
+        "counters": (engine.global_steps, engine.micro_steps)}
+    return out
+
+
+def _flat_state(state):
+    """An optimizer state's tensors and counters, flat, on the host."""
+    if isinstance(state, torch.Tensor):
+        return [_np(state)]
+    if isinstance(state, (list, tuple)):
+        return [a for part in state for a in _flat_state(part)]
+    return [] if state is None else [np.asarray(state)]
