@@ -263,11 +263,48 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernels 1-3 at B=64 H=8 T=128 non-causal. ms a step and peak memory a
    rank are printed for information: host-staged gloo.
 
-Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10, 11, 12 and 13 are the main paths
-(6, 7 and 8 in two legs each, 3b one window a stage, 10 one an engine and
-13 one a leg, summed; 9's, 10's and 13's launch counts are rank 0's,
-zeroed in the rank before each window; 11 one window over its five
-parts; 12 one window each of its ``llama_*`` paths):
+14. "dp_generate" and "group_replicas" (run after phase 12): [7e] on
+   GPT-2 125M at its published widths (bf16, 12 layers, 6 heads a rank),
+   4 spawned gloo ranks on ``cuda:0``: (a) ``init_inference(
+   tensor_parallel={"tp_size": 2})`` on the world of 4 builds data=2 x
+   tp=2; ``generate`` of 32 tokens for 8 prompts of 128 tokens, for 7 of
+   them (a batch that does not divide over data) and keyed for the 8:
+   tokens equal to a tp=1 run's (here, first) up to a near tie, the whole
+   tokens on every rank and bit-equal across ranks, kernels 1 and 7 at 6
+   heads on a rank's 4 rows only, as many launches as tp=1's; (b) two
+   tp=2 replicas (the data groups) behind ``init_serving(replicas=
+   [engine])``, rank 0 the controller: phase 11's 9 requests (tokens
+   equal to a one-process engine's up to a near tie), replica 1 crashing
+   mid-decode (failover replay, replay_divergence 0, the streams
+   unchanged, replica 1 dead), a drain migrating live sequences on bf16
+   and int8 pools as one chunk a rank (0 kernel-1 launches on the
+   target's rank 0, tokens of the unmigrated run, wire bytes int8 : bf16
+   = 0.53125), kernels 8 and 9 at 6 heads on every rank; prints ms per
+   generated token a rank, requests a second through the router, export
+   + import ms at 4 and 16 blocks and the peak memory a rank, all over
+   host-staged gloo.
+15. "telemetry_serving" (after phase 11, on its model) and
+   "telemetry_training" (last): (b) phase 4's serving engine behind a
+   one-replica router with ``telemetry`` (tracing, ``metrics_file``):
+   phase 4's tokens, each ``request.finish``'s TTFT and queue wait the
+   records ``stats()`` reads, the request / serve / queue / prefill /
+   decode spans of every request, a ``.prom`` that parses; (a) phase
+   3's engine at ZeRO 1 on an NCCL world of one with ``telemetry`` (a
+   2-step ``torch.profiler`` window, tracing), ``wall_clock_breakdown``,
+   ``memory_breakdown``, ``comms_logger`` and ``csv_monitor``: one
+   ``step`` span a step with ``fwd_bwd`` and ``optimizer``, a memory event
+   a step, ``step_cost`` FLOPs within 1 % of 6N + 6·L·T·C, kernel-build
+   ``compile`` events, an exposed-comm reading naming its source,
+   kernels 1-3 in the window's Chrome trace; the same engine with
+   telemetry off: its launches a step the same, its step ms printed
+   beside phase 3's.
+
+Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 are the
+main paths (6, 7 and 8 in two legs each, 3b one window a stage, 10 one an
+engine and 13 one a leg, summed; 9's, 10's, 13's and 14's launch counts
+are rank 0's, zeroed in the rank before each window; 11 one window over
+its five parts; 12 one window each of its ``llama_*`` paths; 14 one
+window a leg; 15 one window a leg, (a) the telemetry-on engine's):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -2398,6 +2435,8 @@ def phase_zero(seed, card, reference):
                 f"{counts['flash_bwd_dq'] / ZERO_STEPS}, flash_bwd_dkv "
                 f"{counts['flash_bwd_dkv'] / ZERO_STEPS} [{card}]")
             total.update(counts)
+            reference.setdefault("zero_ms", {})[stage] = \
+                1e3 * secs / ZERO_STEPS
             del engine
             torch.cuda.empty_cache()
     finally:
@@ -4771,6 +4810,684 @@ def phase_bert_tp(seed, card):
 Kernel = collections.namedtuple(
     "Kernel", "source replaces path port row dtype rows noncausal "
     "fp32_source", defaults=("bfloat16", None, False, None))
+# ---------------------------------------------------------------------------
+# phase 14: data-parallel inference and tp replicas behind the router
+# ---------------------------------------------------------------------------
+# (a): init_inference(tp_size=TP_SIZE) on DP_WORLD gloo ranks on cuda:0,
+# data=2 x tp=2; generate of DP_NEW tokens for DP_ROWS prompts of
+# DP_PROMPT tokens, for the first DP_UNEVEN of them (not dividing over
+# data), and keyed for the DP_ROWS
+DP_WORLD = 4
+DP_ROWS, DP_UNEVEN, DP_PROMPT, DP_NEW = 8, 7, 128, 32
+DP_KEYED = dict(seed=11, temperature=0.8, top_p=0.9)
+# (b): the timed moves between the two group replicas, by blocks
+DP_MOVE_BLOCKS = (4, 16)
+
+
+def dp_ids(seed, vocab):
+    return np.random.default_rng(seed + 14).integers(
+        1, vocab, (DP_ROWS, DP_PROMPT))
+
+
+def dp_generate(engine, ids):
+    """14a's three generate calls: {name: tokens (whole), seconds, and
+    (where the engine holds every row) every step's logits a row}."""
+    import torch
+
+    ids = torch.as_tensor(ids, device=engine.device)
+    out = {}
+    for name, rows, kw in (("greedy", ids, {}),
+                           ("uneven", ids[:DP_UNEVEN], {}),
+                           ("keyed", ids, {"do_sample": True, **DP_KEYED})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, calls = run_generate(engine, rows, DP_NEW, **kw)
+        torch.cuda.synchronize()
+        out[name] = {"tokens": tokens[:, DP_PROMPT:].tolist(),
+                     "secs": time.perf_counter() - t0}
+        if calls[0].shape[0] == rows.shape[0]:
+            out[name]["steps"] = [[c[b:b + 1] for c in calls]
+                                  for b in range(rows.shape[0])]
+    return out
+
+
+def fleet_reference(model, seed):
+    """Phase 11's 9 requests on one process, every step's logits kept
+    (what 14b's streams are held to up to a near tie): the 8 greedy ones
+    through phase 4's serving engine, the keyed one through
+    ``generate(do_sample=True, seed=...)``, whose tokens a keyed serving
+    stream equals."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference, init_serving
+    from deepspeed_tpu_torch.tools.profile_serving import (MAX_NEW_TOKENS,
+                                                           SERVING,
+                                                           serving_prompts)
+
+    prompts = serving_prompts(model.config.vocab_size, seed)
+    srv = init_serving(model, serving=SERVING)
+    steps = record_steps(srv)
+    reqs = [srv.submit(p, max_new_tokens=MAX_NEW_TOKENS, request_id=f"r{i}")
+            for i, p in enumerate(prompts)]
+    srv.drain()
+    out = {r.request_id: (r.tokens, steps[r.request_id], r.prompt_len)
+           for r in reqs}
+    engine = init_inference(model)
+    ids = torch.as_tensor(prompts[2], device=engine.device)[None]
+    tokens, calls = run_generate(engine, ids, MAX_NEW_TOKENS,
+                                 do_sample=True, **FLEET_KEYED)
+    out["k"] = (tokens[0, ids.shape[1]:].tolist(), calls, ids.shape[1])
+    return out
+
+
+def group_stream(front, prompts, keyed, max_new, events=None):
+    """Phase 11's stream through a group front; its handles' summary."""
+    import torch
+
+    if events is not None:
+        front.telemetry = events
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles, streamed = fleet_stream(front, prompts, keyed, max_new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_stream("group replicas", handles, streamed, None, max_new)
+    return {"tokens": {rid: h.tokens for rid, h in handles.items()},
+            "secs": secs, "stats": front.stats()}
+
+
+def group_migration(front, prompts, max_new):
+    """Phase 11's (c) on a group front: 4 requests, migrate_work(1) after
+    FLEET_MIGRATE_STEP steps; kernel launches on the target's rank 0
+    (this rank) from the move to the end, and the moves' events."""
+    events = EventLog()
+    front.telemetry = events
+    streamed = {}
+    handles = {f"r{i}": front.submit(
+        p, max_new_tokens=max_new, request_id=f"r{i}",
+        stream=lambda h, t, d: streamed.setdefault(h.request_id,
+                                                   []).append(int(t)))
+        for i, p in enumerate(prompts)}
+    for _ in range(FLEET_MIGRATE_STEP):
+        front.step()
+    on_1 = front.assigned(1)
+    before = launch_counts()
+    moved = front.migrate_work(1)
+    front.drain()
+    after = launch_counts()
+    check_stream("group replicas (c)", handles, streamed, None, max_new)
+    return {"tokens": {rid: h.tokens for rid, h in handles.items()},
+            "moved": moved, "on_1": on_1, "stats": front.stats(),
+            "launches_after_move": {k: after[k] - before[k]
+                                    for k in after},
+            "moves": [d for _, name, d in events.events
+                      if name == "migrate"]}
+
+
+def group_time_moves(front, vocab):
+    """Export + import (and the source's detach) of one sequence from
+    group replica 0 to group replica 1, by covered blocks, on the
+    controller's clock around calls that end in every rank's sync:
+    {blocks: (ms, wire bytes)}."""
+    src, dst = front.replicas
+    rng = np.random.default_rng(5)
+    out = {}
+    for n, blocks in enumerate(b for b in DP_MOVE_BLOCKS for _ in "12"):
+        prompt = rng.integers(1, vocab, blocks * 16 - 2)
+        src.submit(prompt, max_new_tokens=8, request_id=f"t{n}")
+        src.step()
+        src.synchronize()
+        dst.synchronize()
+        t0 = time.perf_counter()
+        export = src.export_sequence(f"t{n}")
+        moved = dst.import_sequence(export)
+        src.migrate_out(f"t{n}")
+        dst.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if export["blocks"] != blocks or moved is None:
+            raise AssertionError(f"group move of {blocks} blocks: export "
+                                 f"{export['blocks']}, import {moved}")
+        dst.cancel(moved.request_id)
+        if n % 2:
+            out[blocks] = (ms, export["wire_bytes"])
+    return out
+
+
+def group_fleet(model, seed):
+    """14b on every rank: two tp=2 replicas (data groups) behind
+    ``init_serving(replicas=[engine])``, rank 0 the controller: phase
+    11's stream, replica 1 crashing at its FLEET_CRASH_STEP-th step, a
+    drain that migrates on bf16 and on int8 pools (and an unmigrated
+    int8 run), timed moves. Rank 0 returns the results; the followers
+    return {} once the controller destroys each front."""
+    from deepspeed_tpu_torch import init_inference, init_serving
+    from deepspeed_tpu_torch.runtime.resilience.chaos import ChaosReplica
+    from deepspeed_tpu_torch.tools.profile_serving import (MAX_NEW_TOKENS,
+                                                           serving_prompts)
+
+    max_new = MAX_NEW_TOKENS
+    prompts = serving_prompts(model.config.vocab_size, seed)
+
+    def front(kv="", migration=False):
+        serving = {**FLEET_SERVING, "kv_cache_dtype": kv,
+                   "router": {"replicas": 2}}
+        if migration:
+            serving["migration"] = {}
+        return init_serving(None, replicas=[init_inference(
+            model, tensor_parallel={"tp_size": TP_SIZE}, serving=serving)])
+
+    out = {}
+    f = front()
+    if f is not None:
+        out["stream"] = group_stream(f, prompts, prompts[2], max_new)
+        out["served"] = [r.stats()["finished"] for r in f.replicas]
+        f.destroy()
+    f = front()
+    if f is not None:
+        f.replicas[1] = ChaosReplica(f.replicas[1],
+                                     crash_at_step=FLEET_CRASH_STEP)
+        out["crash"] = group_stream(f, prompts, prompts[2], max_new)
+        f.destroy()
+    for kv in ("", "int8"):
+        f = front(kv, migration=True)
+        if f is not None:
+            out[f"migrate-{kv or 'bf16'}"] = group_migration(
+                f, prompts[:FLEET_MIGRATE_REQUESTS], max_new)
+            out[f"moves-{kv or 'bf16'}"] = group_time_moves(
+                f, model.config.vocab_size)
+            f.destroy()
+    f = front("int8")
+    if f is not None:
+        out["unmigrated-int8"] = group_stream(
+            f, prompts[:FLEET_MIGRATE_REQUESTS], None, max_new)
+        f.destroy()
+    return out
+
+
+def dp_rank_main(rank, world, store, seed, out_dir):
+    """One rank of phase 14 (a spawned process): join the gloo group of
+    ``world`` ranks on ``cuda:0``, build GPT-2 125M from ``seed`` on the
+    host, run 14a on ``init_inference(tensor_parallel={"tp_size":
+    TP_SIZE})`` (data = world / TP_SIZE) and 14b's group replicas;
+    writes its launch counts, the heads and rows of every launch of
+    kernels 1, 7, 8 and 9, its peak memory and its results."""
+    import pickle
+    import traceback
+
+    try:
+        os.environ["LOCAL_RANK"] = "0"
+        import torch
+
+        from deepspeed_tpu_torch import comm, init_inference
+        from deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+        from deepspeed_tpu_torch.ops import decode_attention as da
+        from deepspeed_tpu_torch.ops import flash_attention as fa
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        comm.init_distributed(dist_backend="gloo",
+                              init_method=f"file://{store}", rank=rank,
+                              world_size=world, timeout=TP_TIMEOUT,
+                              verbose=False)
+        model = gpt2_mod.GPT2LMHeadModel(gpt2_mod.GPT2Config.gpt2_125m(),
+                                         seed=seed)
+        launches = collections.defaultdict(collections.Counter)
+
+        def spy(name, fn, dim):
+            def call(q, *args, **kwargs):
+                launches[name][(q.shape[dim], q.shape[0])] += 1
+                return fn(q, *args, **kwargs)
+            return call
+
+        with mock.patch.object(fa, "_fwd_launch",
+                               spy("flash_fwd", fa._fwd_launch, 1)), \
+                mock.patch.object(da, "_append_launch",
+                                  spy("decode_append", da._append_launch,
+                                      2)), \
+                mock.patch.object(da, "_paged_launch",
+                                  spy("decode_paged", da._paged_launch, 2)), \
+                mock.patch.object(da, "_paged_int8_launch",
+                                  spy("decode_paged_int8",
+                                      da._paged_int8_launch, 2)):
+            engine = init_inference(model,
+                                    tensor_parallel={"tp_size": TP_SIZE})
+            ids = dp_ids(seed, model.config.vocab_size)
+            run_generate(engine, torch.as_tensor(ids[:2], device=engine.device), 2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches.clear()
+            reset_launch_counts()
+            gen = dp_generate(engine, ids)
+            counts_a = launch_counts()
+            heads_a = {k: dict(v) for k, v in launches.items()}
+            peak_a = torch.cuda.max_memory_allocated()
+            launches.clear()
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            fleet = group_fleet(model, seed)
+            torch.cuda.synchronize()
+            counts_b = launch_counts()
+            heads_b = {k: dict(v) for k, v in launches.items()}
+            peak_b = torch.cuda.max_memory_allocated()
+        res = {"shape": engine.topo.shape,
+               "coord": (engine.dp_rank,
+                         engine.topo.get_tensor_parallel_rank()),
+               "generate": {k: {kk: vv for kk, vv in v.items()
+                                if kk != "steps"} for k, v in gen.items()},
+               "counts_a": counts_a, "heads_a": heads_a, "peak_a": peak_a,
+               "fleet": fleet, "counts_b": counts_b, "heads_b": heads_b,
+               "peak_b": peak_b}
+        comm.destroy_process_group()
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def hold_streams(what, got, ref):
+    """Hold a group run's tokens (by request id) to the one-process
+    reference's up to a near tie (keyed requests with their keys).
+    Returns (tokens agreeing, tokens in all)."""
+    agree = total = 0
+    for rid, (want, steps, plen) in ref.items():
+        a, _ = agree_until_tie(f"{what} {rid}", got[rid], want, steps, plen,
+                               knobs=FLEET_KEYED if rid == "k" else None)
+        agree, total = agree + a, total + len(want)
+    return agree, total
+
+
+def phase_data_parallel(seed, card):
+    """[7e] on GPT-2 125M at its published widths (bf16, 12 layers, 12
+    heads: 6 a rank), DP_WORLD gloo ranks on ``cuda:0`` (NCCL refuses
+    several ranks on one device; gloo stages CUDA tensors through the
+    host, so every time here is the host-staged path's, not NCCL's).
+
+    (a) ``init_inference(tensor_parallel={"tp_size": 2})`` on the world
+    of 4 builds data=2 x tp=2; ``generate`` of DP_NEW tokens for
+    DP_ROWS prompts of DP_PROMPT tokens, the first DP_UNEVEN of them (a
+    batch data does not divide) and keyed (one seed) for the DP_ROWS:
+    greedy and keyed tokens equal the tp=1 run's (here, first: every
+    step's logits kept) up to a near tie, every rank returns the whole
+    tokens and they are bit for bit equal on all ranks; kernels 1 and 7
+    launch at 6 heads on a rank's rows (ceil(B / 2)) only, as often as
+    tp=1 does for the same calls.
+
+    (b) two tp=2 replicas (the two data groups) behind
+    ``init_serving(replicas=[engine])``, rank 0 the controller: phase
+    11's 9 requests (tokens equal to a one-process engine's, run first
+    here with every step's logits kept, up to a near tie); replica 1
+    crashing at
+    its FLEET_CRASH_STEP-th step (failover replay: replay_divergence 0,
+    the streams equal the uncrashed group run's, replica 1 dead); a drain
+    of replica 1 that migrates its live sequences on bf16 and on int8
+    pools (0 kernel-1 launches on the target's rank 0 from the move to
+    the end; tokens equal to the unmigrated group run's on the same
+    pools; wire bytes int8 : bf16 = (D + 4) / (2 D)); kernels 8 and 9 at
+    6 heads on every rank. Cuts: none of width or depth; the timed moves
+    stop at 16 blocks (phase 11 times 63). Returns rank 0's launch counts
+    of (a) and of (b)."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    model = GPT2LMHeadModel(GPT2Config.gpt2_125m(), seed=seed)
+    engine = init_inference(model)
+    ids = dp_ids(seed, model.config.vocab_size)
+    run_generate(engine, torch.as_tensor(ids[:2], device=engine.device), 2)
+    reset_launch_counts()
+    want = dp_generate(engine, ids)
+    want_counts = launch_counts()
+    ref_fleet = fleet_reference(model, seed)
+    hd = model.config.n_embd // model.config.n_head
+    del engine, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_tp_ranks(dp_rank_main, seed, DP_WORLD)
+    secs = time.perf_counter() - t0
+    first = ranks[0]
+    half = -(-DP_ROWS // 2)
+    for rank, res in enumerate(ranks):
+        what = f"data parallel rank {rank}"
+        if res["shape"]["data"] != 2 or res["shape"]["tp"] != TP_SIZE or \
+                res["coord"] != (rank // TP_SIZE, rank % TP_SIZE):
+            raise AssertionError(f"{what}: mesh {res['shape']} coord "
+                                 f"{res['coord']}")
+        for name in want:
+            if res["generate"][name]["tokens"] != \
+                    first["generate"][name]["tokens"]:
+                raise AssertionError(f"{what}: {name} tokens differ from "
+                                     f"rank 0's")
+        for name in ("flash_fwd", "decode_append"):
+            got = set(res["heads_a"].get(name, {}))
+            if got != {(TP_HEADS, half)}:
+                raise AssertionError(f"{what}: {name} launched at (heads, "
+                                     f"rows) {got}, not ({TP_HEADS}, "
+                                     f"{half}) only")
+            if res["counts_a"][name] != want_counts[name]:
+                raise AssertionError(f"{what}: {name} {res['counts_a'][name]}"
+                                     f" launches, tp=1 {want_counts[name]}")
+        for name in ("decode_paged", "decode_paged_int8"):
+            heads = {h for h, _ in res["heads_b"].get(name, {})}
+            if heads != {TP_HEADS}:
+                raise AssertionError(f"{what}: {name} launched at heads "
+                                     f"{heads} in (b)")
+    summary = []
+    for name in want:
+        knobs = DP_KEYED if name == "keyed" else None
+        agree = held = total = 0
+        for b, (toks, ref) in enumerate(zip(first["generate"][name]["tokens"],
+                                            want[name]["tokens"])):
+            a, h = agree_until_tie(f"data parallel {name} row {b}", toks,
+                                   ref, want[name]["steps"][b], DP_PROMPT,
+                                   knobs=knobs)
+            agree, held, total = agree + a, held + h, total + len(ref)
+        summary.append(f"{name} {agree}/{total} equal to tp=1 (held {held} "
+                       f"before a near tie)")
+    fleet = first["fleet"]
+    agree, total = hold_streams("group replicas (a)",
+                                fleet["stream"]["tokens"], ref_fleet)
+    group_want = fleet["stream"]["tokens"]
+    crash = fleet["crash"]
+    check_router("group replicas (b)", crash["stats"],
+                 failovers=lambda n: n > 0, replay_divergence=0,
+                 replica_states=["healthy", "dead"])
+    if crash["tokens"] != group_want:
+        raise AssertionError("group replicas (b): the crashed run's streams "
+                             "differ from (a)'s")
+    per_block = {}
+    for kv in ("bf16", "int8"):
+        mig = fleet[f"migrate-{kv}"]
+        ref = (group_want if kv == "bf16"
+               else fleet["unmigrated-int8"]["tokens"])
+        if mig["tokens"] != {rid: ref[rid] for rid in mig["tokens"]}:
+            raise AssertionError(f"group replicas (c) {kv}: tokens differ "
+                                 f"from the unmigrated run's")
+        check_router(f"group replicas (c) {kv}", mig["stats"],
+                     migrations=mig["on_1"], failovers=0,
+                     replay_divergence=0)
+        if mig["moved"] != mig["on_1"] or mig["moved"] == 0 or \
+                mig["launches_after_move"]["flash_fwd"] != 0:
+            raise AssertionError(f"group replicas (c) {kv}: moved "
+                                 f"{mig['moved']} of {mig['on_1']}; target "
+                                 f"launches after the move "
+                                 f"{mig['launches_after_move']}")
+        per_block[kv] = {d["wire_bytes"] / d["blocks"]
+                         for d in mig["moves"]}.pop()
+    ratio = per_block["int8"] / per_block["bf16"]
+    if abs(ratio - (hd + 4) / (2 * hd)) > 1e-9:
+        raise AssertionError(f"group replicas (c): wire bytes int8 : bf16 "
+                             f"{ratio}, not {(hd + 4) / (2 * hd)}")
+    rows = DP_ROWS * DP_NEW
+    ms_tok = [1e3 * r["generate"]["greedy"]["secs"] / (half * DP_NEW)
+              for r in ranks]
+    log(f"data parallel (a): {DP_WORLD} gloo ranks on cuda:0, data=2 x "
+        f"tp={TP_SIZE}, GPT-2 125M bf16 at {TP_HEADS} heads a rank, in "
+        f"{secs:.1f} s (both legs): " + "; ".join(summary)
+        + f"; every rank's tokens bit for bit rank 0's (the whole batch on "
+        f"each); kernels 1 and 7 at ({TP_HEADS} heads, {half} rows) every "
+        f"launch, launches {first['counts_a']['flash_fwd']} / "
+        f"{first['counts_a']['decode_append']} (tp=1 "
+        f"{want_counts['flash_fwd']} / {want_counts['decode_append']}); "
+        f"ms per generated token a rank (greedy, {rows} tokens, "
+        f"host-staged gloo) {[round(x, 3) for x in ms_tok]}, tp=1 "
+        f"{1e3 * want['greedy']['secs'] / rows:.3f}; peak memory a rank "
+        f"{[round(r['peak_a'] / 2**20, 1) for r in ranks]} MiB [{card}]")
+    st = fleet["stream"]
+    moves = {kv: fleet[f"moves-{kv}"] for kv in ("bf16", "int8")}
+    log(f"data parallel (b): two tp={TP_SIZE} replicas (rank groups "
+        f"{[[0, 1], [2, 3]]}) behind init_serving, rank 0 the controller: "
+        f"{len(st['tokens'])} requests in {st['secs']:.3f} s "
+        f"({len(st['tokens']) / st['secs']:.2f} requests/s through the "
+        f"router, host-staged gloo), finished per replica "
+        f"{fleet['served']}, tokens equal to a one-process engine's "
+        f"{agree}/{total}; crash: {crash['stats']['failovers']} failovers, "
+        f"replay_divergence 0, streams equal to the uncrashed run's; "
+        f"migration bf16 / int8 moved {fleet['migrate-bf16']['moved']} / "
+        f"{fleet['migrate-int8']['moved']} sequences, wire bytes a block "
+        f"{per_block['bf16']:.0f} / {per_block['int8']:.0f} (ratio "
+        f"{ratio:.5f}), 0 kernel-1 launches on the target; export + import "
+        f"(controller clock, every rank synced, host-staged): "
+        + "; ".join(f"{kv} " + ", ".join(
+            f"{b} blocks {ms:.3f} ms ({w / 1e6:.3f} MB)"
+            for b, (ms, w) in mv.items()) for kv, mv in moves.items())
+        + f"; kernels 8 / 9 at {TP_HEADS} heads on every rank; peak memory "
+        f"a rank {[round(r['peak_b'] / 2**20, 1) for r in ranks]} MiB "
+        f"[{card}]")
+    return first["counts_a"], first["counts_b"]
+
+
+# ---------------------------------------------------------------------------
+# phase 15: telemetry on the card
+# ---------------------------------------------------------------------------
+TEL_STEPS = 5
+TEL_TRACE = {"start_step": 2, "num_steps": 2}
+TEL_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+               "flash_bwd_dkv_sm90_kernel")
+
+
+def step_times(engine, batch, n):
+    """Per-step ms, each step synchronized (host clock)."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.backward(engine(batch))
+        engine.step()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def read_jsonl(directory):
+    from deepspeed_tpu_torch.telemetry.events import load_all_events
+
+    return load_all_events(os.path.join(directory, "telemetry.jsonl"))
+
+
+def telemetry_training(seed, card, reference):
+    """15a: phase 3's engine at ZeRO 1 on an NCCL world of one, first
+    with telemetry off, then with the telemetry section (a 2-step trace
+    window, tracing), wall_clock_breakdown, memory_breakdown (each step:
+    steps_per_print 1), comms_logger and csv_monitor, both timed a step
+    at a time (one warm-up, TEL_STEPS timed, launch counts over the
+    timed steps); ``reference["ms_per_step"]`` is phase 3b's stage-1
+    step, printed beside the off engine's spread. Cut: TEL_STEPS steps
+    of phase 3's 10."""
+    import tempfile
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.tools.profile_training import (
+        BATCH, BENCH_CONFIG, SEQ, bench_batch, bench_model, flops_per_token)
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_telemetry")
+    store = os.path.join(d, "store")
+    comm.init_distributed(init_method=f"file://{store}", rank=0,
+                          world_size=1, verbose=False)
+    out = {}
+    try:
+        base = {**BENCH_CONFIG, "zero_optimization": {"stage": 1}}
+        on = {**base, "telemetry": {
+            "enabled": True, "dir": os.path.join(d, "tel"),
+            "tracing": {"enabled": True},
+            "trace": {**TEL_TRACE, "dir": os.path.join(d, "trace")}},
+            "wall_clock_breakdown": True, "memory_breakdown": True,
+            "steps_per_print": 1, "comms_logger": {"enabled": True},
+            "csv_monitor": {"enabled": True,
+                            "output_path": os.path.join(d, "csv")}}
+        for label, config in (("off", base), ("on", on)):
+            engine = deepspeed_tpu_torch.initialize(
+                model=bench_model(seed), config=config)[0]
+            batch = bench_batch(engine.module.config.vocab_size, seed,
+                                engine.device)
+            step_times(engine, batch, 1)
+            reset_launch_counts()
+            ms = step_times(engine, batch, TEL_STEPS)
+            counts = launch_counts()
+            out[label] = {"ms": ms, "counts": counts}
+            if label == "on":
+                out["flops_ref"] = BATCH * SEQ * flops_per_token(
+                    engine.module)
+                out["summary"] = comm.log_summary()
+            engine.destroy()
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        comm.configure(enabled=False)
+        comm.destroy_process_group()
+    events = read_jsonl(os.path.join(d, "tel"))
+    kinds = collections.Counter(e["kind"] for e in events)
+    roots = [e for e in events if e["kind"] == "span" and e["name"] ==
+             "step"]
+    for root in roots:
+        kids = sorted(e["name"] for e in events if e["kind"] == "span"
+                      and e["data"].get("parent") == root["data"]["span"])
+        if kids != ["fwd_bwd", "optimizer"]:
+            raise AssertionError(f"telemetry (a): step {root['data']['step']}"
+                                 f" spans {kids}")
+    if len(roots) != 1 + TEL_STEPS or kinds["memory"] != 1 + TEL_STEPS:
+        raise AssertionError(f"telemetry (a): {len(roots)} step spans, "
+                             f"{kinds['memory']} memory events for "
+                             f"{1 + TEL_STEPS} steps")
+    cost = next(e["data"] for e in events if e["kind"] == "step_cost")
+    flops_err = cost["flops"] / out["flops_ref"] - 1
+    if abs(flops_err) > 0.01:
+        raise AssertionError(f"telemetry (a): step_cost FLOPs "
+                             f"{cost['flops']:.4g} vs 6N + 6LTC "
+                             f"{out['flops_ref']:.4g} ({flops_err:+.4%})")
+    builds = [e for e in events if e["kind"] == "compile"
+              and e["data"].get("source") == "kernel_build"]
+    if not builds:
+        raise AssertionError("telemetry (a): no kernel-build compile event")
+    exposed = [e for e in events if e["kind"] == "trace_window"]
+    actions = [e["data"]["action"] for e in exposed]
+    if actions[:2] != ["start", "stop"]:
+        raise AssertionError(f"telemetry (a): trace window {actions}")
+    reading = next((e["data"] for e in events if e["kind"] == "span"
+                    and e["name"] == "exposed_comm"), None) or next(
+        e["data"] for e in exposed
+        if e["data"]["action"] == "exposed_comm_unavailable")
+    trace = next(e["data"]["trace"] for e in exposed
+                 if e["data"]["action"] == "stop")
+    with open(trace) as f:
+        names = {ev.get("name", "") for ev in json.load(f).get(
+            "traceEvents", []) if ev.get("cat") == "kernel"}
+    missing = [k for k in TEL_KERNELS if not any(k in n for n in names)]
+    if missing:
+        raise AssertionError(f"telemetry (a): the trace window lacks "
+                             f"{missing}")
+    step_src = {e["data"].get("exposed_comm_source") for e in events
+                if e["kind"] == "step"}
+    for label in ("off", "on"):
+        per_step = {k: v / TEL_STEPS for k, v in out[label]["counts"].items()
+                    if v}
+        out[label]["per_step"] = per_step
+    if out["off"]["per_step"] != out["on"]["per_step"]:
+        raise AssertionError(f"telemetry (a): launches a step off "
+                             f"{out['off']['per_step']}, on "
+                             f"{out['on']['per_step']}")
+    ref_ms = reference["ms_per_step"]
+    off = np.array(out["off"]["ms"])
+    spread = (off.min(), off.max())
+    csv_files = sorted(os.listdir(os.path.join(d, "csv",
+                                               "DeepSpeedJobName")))
+    log(f"telemetry (a): phase 3's engine at ZeRO 1 (NCCL, world 1), "
+        f"telemetry on + wall_clock_breakdown + memory_breakdown + "
+        f"comms_logger + csv_monitor: {len(events)} events "
+        f"{dict(kinds)}; one step span a step with fwd_bwd and optimizer; "
+        f"step_cost FLOPs {cost['flops']:.6g} vs 6N + 6LTC "
+        f"{out['flops_ref']:.6g} ({flops_err:+.4%}), collectives "
+        f"{cost.get('collectives')}; kernel-build compile events "
+        f"{len(builds)}; exposed comm {reading} (step events: "
+        f"{step_src}); trace window {actions}, kernels 1-3 in its Chrome "
+        f"trace; csv files {csv_files}; comms log "
+        f"{ {k: sum(v['count'] for v in s.values()) for k, s in out['summary'].items()} } "
+        f"[{card}]")
+    log(f"telemetry (a) step ms (host clock, each step synced): off "
+        f"{[round(x, 2) for x in out['off']['ms']]}, on (breakdown syncs, "
+        f"the trace window's profiler, memory_breakdown's gc a step) "
+        f"{[round(x, 2) for x in out['on']['ms']]}; phase 3b's stage 1 "
+        f"{ref_ms:.2f} ms/step {'inside' if spread[0] <= ref_ms <= spread[1] else 'outside'} "
+        f"off's spread {spread[0]:.2f}-{spread[1]:.2f}; launches a step "
+        f"off {out['off']['per_step']} = on [{card}]")
+    return out["on"]["counts"]
+
+
+def telemetry_serving(model, seed, card, single):
+    """15b: phase 4's serving engine (behind a one-replica router, so
+    requests carry traces) with telemetry, tracing and metrics_file on:
+    tokens equal to phase 4's (``single``), each request's TTFT and
+    queue wait in ``request.finish`` equal to the records ``stats()``
+    aggregates, the serve / queue / prefill / decode spans closed for
+    every request, the .prom file parses."""
+    import tempfile
+
+    from deepspeed_tpu_torch import init_serving
+    from deepspeed_tpu_torch.telemetry.prom import parse_exposition
+    from deepspeed_tpu_torch.tools.profile_serving import (
+        MAX_NEW_TOKENS, SERVING, serving_prompts)
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_serving_telemetry")
+    prom = os.path.join(d, "metrics.prom")
+    prompts = serving_prompts(model.config.vocab_size, seed)
+    reset_launch_counts()
+    front = init_serving(model, serving={**SERVING,
+                                         "router": {"replicas": 1}},
+                         telemetry={"enabled": True, "dir": d,
+                                    "tracing": {"enabled": True},
+                                    "metrics_file": prom})
+    handles = [front.submit(p, max_new_tokens=MAX_NEW_TOKENS,
+                            request_id=f"r{i}")
+               for i, p in enumerate(prompts)]
+    front.drain()
+    counts = launch_counts()
+    srv = front.replicas[0]
+    records = list(srv.records)
+    engine = srv.engine
+    front.destroy()
+    engine.destroy()
+    if [h.tokens for h in handles] != single:
+        raise AssertionError("telemetry (b): tokens differ from phase 4's")
+    events = read_jsonl(d)
+    finish = [e["data"] for e in events if e["kind"] == "serving"
+              and e["name"] == "request.finish"]
+    if [(f["ttft_ms"], f["queue_ms"]) for f in finish] != \
+            [(r["ttft_ms"], r["queue_ms"]) for r in records]:
+        raise AssertionError("telemetry (b): request.finish TTFT / queue "
+                             "differ from the records stats() reads")
+    spans = [e for e in events if e["kind"] == "span"]
+    by_req = collections.defaultdict(set)
+    for s in spans:
+        by_req[s["data"].get("trace")].add(s["name"])
+    need = {"request", "serve", "queue", "prefill", "decode"}
+    if len(by_req) != len(prompts) or any(not need <= v
+                                          for v in by_req.values()):
+        raise AssertionError(f"telemetry (b): spans by trace "
+                             f"{dict(by_req)}")
+    with open(prom) as f:
+        fams = parse_exposition(f.read())
+    for name in ("ds_serving_ttft_ms", "ds_serving_requests_total",
+                 "ds_kv_pool_occupancy"):
+        if name not in fams:
+            raise AssertionError(f"telemetry (b): {name} not in the .prom "
+                                 f"file ({sorted(fams)})")
+    ttft = sorted(f["ttft_ms"] for f in finish)
+    log(f"telemetry (b): phase 4's 8 requests behind a one-replica router "
+        f"with telemetry, tracing and metrics_file: tokens equal to phase "
+        f"4's; {len(events)} events; request.finish TTFT / queue wait equal"
+        f" to stats()'s records (TTFT ms {[round(x, 3) for x in ttft]}); "
+        f"request / serve / queue / prefill / decode spans closed for all "
+        f"{len(prompts)} requests; .prom parses ({len(fams)} families); "
+        f"launches {counts} [{card}]")
+    return counts
+
+
 _FLASH = "deepspeed_tpu/ops/flash_attention.py"
 _DECODE = "deepspeed_tpu/ops/decode_attention.py"
 _SPARSE = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -4957,6 +5674,7 @@ def main():
     log(f"phase 3: training in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["zero"] = phase_zero(args.seed, card, reference)
+    ms_per_step = {"ms_per_step": reference["zero_ms"][1]}
     del reference
     log(f"phase 3b: ZeRO stages {ZERO_STAGES} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4986,6 +5704,10 @@ def main():
     t0 = time.perf_counter()
     by_path["fleet"] = phase_fleet(model, args.seed, card, single)
     log(f"phase 11: the serving fleet in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["telemetry_serving"] = telemetry_serving(model, args.seed, card,
+                                                     single)
+    log(f"phase 15b: serving telemetry in {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5008,6 +5730,15 @@ def main():
     t0 = time.perf_counter()
     by_path.update(phase_llama(args.seed, card))
     log(f"phase 12: the Llama family in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["dp_generate"], by_path["group_replicas"] = \
+        phase_data_parallel(args.seed, card)
+    log(f"phase 14: data-parallel inference and tp replicas behind the "
+        f"router in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["telemetry_training"] = telemetry_training(args.seed, card,
+                                                       ms_per_step)
+    log(f"phase 15a: training telemetry in {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": kernel_line(kernel_rows, by_path)}))
     log(card_line())

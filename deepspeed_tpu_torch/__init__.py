@@ -94,10 +94,11 @@ def default_inference_config():
 def init_inference(model, config=None, **kwargs):
     """Build an :class:`~deepspeed_tpu_torch.inference.engine.
     InferenceEngine` (``device=None`` is the card). With
-    ``tensor_parallel={"tp_size": N}`` every one of N ranks of a process
-    group (``init_distributed``) calls it with the same arguments and the
-    whole model, and serves its slice; ``mesh=`` (a ``MeshTopology`` or an
-    axis dict) names the tp mesh instead."""
+    ``tensor_parallel={"tp_size": N}`` every rank of a process group of
+    ``data x N`` ranks (``init_distributed``) calls it with the same
+    arguments and the whole model, serves its slice, and takes its data
+    group's share of each batch; ``mesh=`` (a ``MeshTopology`` or an axis
+    dict) names the mesh instead."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
     return InferenceEngine(model, config=config, **kwargs)
@@ -138,7 +139,19 @@ def init_serving(model, config=None, replicas=None, factory=None,
     A ``serving.gateway`` block puts the whole stack behind the HTTP/SSE
     front door: the result is a started
     :class:`~deepspeed_tpu_torch.serving.gateway.ServingGateway` (read
-    ``.port``) with the block's tenants, quotas and SLO classes."""
+    ``.port``) with the block's tenants, quotas and SLO classes.
+
+    Tensor-parallel replicas: every rank of a ``data x tp`` world passes
+    ``replicas=[engine]``, its own InferenceEngine built with
+    ``tensor_parallel={"tp_size": N}``. Each data group is one replica
+    (``serving/group_replica.py``): on rank 0 (the controller) the
+    result is the router or fleet over one proxy a group, the first
+    ``serving.router.replicas`` groups serving (all groups without a
+    router block) and the rest idle for the fleet's factory; every other
+    rank serves its group's calls and returns None when the controller
+    destroys the front. One-process replicas that this function builds
+    while a process group runs take a rank-local mesh
+    (:func:`~deepspeed_tpu_torch.parallel.topology.rank_local_mesh`)."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.serving.engine import ServingEngine
 
@@ -186,6 +199,17 @@ def init_serving(model, config=None, replicas=None, factory=None,
     def _engine(source, **kw):
         return ServingEngine(source, **kw, **engine_kwargs)
 
+    def _replica(source, **kw):
+        # a one-process replica is this rank's alone, whatever the world
+        import torch.distributed as dist
+
+        if (dist.is_available() and dist.is_initialized()
+                and "mesh" not in engine_kwargs):
+            from deepspeed_tpu_torch.parallel.topology import \
+                rank_local_mesh
+            kw["mesh"] = rank_local_mesh()
+        return _engine(source, **kw)
+
     if router is None and replicas is None:
         engine = _engine(model, config=config)
         if gateway is None:
@@ -196,17 +220,43 @@ def init_serving(model, config=None, replicas=None, factory=None,
                                                     FleetManager,
                                                     ReplicaRouter)
 
+    groups = (isinstance(replicas, (list, tuple)) and len(replicas) == 1
+              and isinstance(replicas[0], InferenceEngine)
+              and replicas[0].mp_world_size > 1)
     built_from_model = False
-    if replicas is None or isinstance(replicas, int):
+    if groups:
+        from deepspeed_tpu_torch.serving.group_replica import (
+            group_replicas)
+        tp_engine = replicas[0]
+        cfg = tp_engine._serving_cfg
+        block = router if router is not None else cfg.router
+
+        def field(name):
+            return (None if block is None else block.get(name)
+                    if isinstance(block, dict) else getattr(block, name,
+                                                            None))
+
+        # a group's reply waits the router's stall timeout (real
+        # seconds) where one is set
+        built = group_replicas(tp_engine, active=field("replicas"),
+                               timeout=field("stall_timeout_secs") or 60.0,
+                               draft_model=draft_model,
+                               **({} if clock is None else {"clock": clock}))
+        if built is None:
+            return None  # a follower rank: its group was stopped
+        engines, group_factory = built
+        if factory is None:
+            factory = group_factory
+    elif replicas is None or isinstance(replicas, int):
         if isinstance(model, InferenceEngine):
             raise ValueError(
                 "one InferenceEngine is one replica — pass the prebuilt "
                 "engines as a list via `replicas` instead of a count")
         built_from_model = True
-        first = _engine(model, config=config)
+        first = _replica(model, config=config)
         count = replicas if isinstance(replicas, int) else (
             first.config.router.replicas if first.config.router else 2)
-        engines = [first] + [_engine(model, config=config)
+        engines = [first] + [_replica(model, config=config)
                              for _ in range(count - 1)]
     else:
         engines = [ServingEngine(r, draft_model=draft_model, **clock_kwargs)
@@ -234,7 +284,7 @@ def init_serving(model, config=None, replicas=None, factory=None,
     front = ReplicaRouter(engines, config=router, migration=migration,
                           **clock_kwargs)
     if fleet is None:
-        if factory is not None:
+        if factory is not None and not groups:
             raise ValueError(
                 "init_serving got a replica `factory` but no "
                 "serving.fleet block — the factory is the fleet "
@@ -243,7 +293,7 @@ def init_serving(model, config=None, replicas=None, factory=None,
     if factory is None and built_from_model:
         # the same build as the first replicas
         factory = CallableReplicaFactory(
-            lambda: _engine(model, config=config))
+            lambda: _replica(model, config=config))
     return _behind_gateway(
         FleetManager(front, factory=factory, config=fleet), gateway)
 

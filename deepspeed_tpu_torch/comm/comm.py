@@ -25,26 +25,34 @@ The gather and scatter collectives use the list forms
 supported torch version has without a deprecation.
 
 ``counts`` tallies each collective launched, by name (``chip_smoke.py``
-holds a ZeRO step's counts to its plan). The comms logger (``configure``,
-``log_summary``) comes with the telemetry slice, the compressed
-collectives (``quantized_all_reduce``, ``onebit_all_reduce``) with the
-compressed-collectives slice; both raise.
+holds a ZeRO step's counts to its plan). The comms logger
+(:data:`comms_logger`, ``configure``, ``log_summary``; the
+``comms_logger`` config section) records each op's size, latency and
+bandwidth when enabled (``@timed_op``; off, a wrapped op costs one
+attribute read). The compressed collectives (``quantized_all_reduce``,
+``onebit_all_reduce``) come with the compressed-collectives slice and
+raise.
 """
 
 import collections
+import contextlib
 import datetime
+import functools
+import inspect
 import os
+import threading
+import time
 from enum import Enum
 from typing import Optional, Sequence, Union
 
 import torch
 
 from deepspeed_tpu_torch.comm.backend import TorchBackend
+from deepspeed_tpu_torch.utils.comms_logging import CommsLogger
 from deepspeed_tpu_torch.utils.logging import logger
 
 Group = Union[None, str, Sequence[str], "torch.distributed.ProcessGroup"]
 
-_TELEMETRY = "the telemetry slice ([8])"
 _COMPRESSED = "the compressed-collectives slice ([9])"
 
 
@@ -67,6 +75,85 @@ counts = collections.Counter()
 
 def reset_counts():
     counts.clear()
+
+
+comms_logger = CommsLogger()
+_in_op = threading.local()
+# {op: {"count", "operand_bytes"}} of the collectives launched while a
+# tally() is open (telemetry's step cost), else None
+_tally = None
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the logged collectives launched inside the block and their
+    operand bytes, by op: ``{op: {"count", "operand_bytes"}}``."""
+    global _tally
+    prev, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def timed_op(func):
+    """Reference ``@timed_op`` (``comm/comm.py:111``): when the comms
+    logger is enabled and profiles this op (``prof_all``, the call's
+    ``prof`` or its ``log_name`` in ``prof_ops``), record its message
+    size, group size and latency. The latency of a CUDA tensor's op is
+    timed with CUDA events (waited on: the logger's one sync); on the
+    CPU with the host clock. An op called inside another logged op is
+    not recorded twice."""
+    sig = inspect.signature(func)
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        if (_tally is None and not comms_logger.enabled) or \
+                getattr(_in_op, "active", False):
+            return func(*args, **kwargs)
+        bound = sig.bind_partial(*args, **kwargs).arguments
+        tensor = bound.get("tensor")
+        if tensor is None:
+            tensor = bound.get("output_tensor")
+        size = (tensor.numel() * tensor.element_size()
+                if isinstance(tensor, torch.Tensor) else 0)
+        if _tally is not None:
+            entry = _tally.setdefault(func.__name__,
+                                      {"count": 0, "operand_bytes": 0})
+            entry["count"] += 1
+            entry["operand_bytes"] += size
+        log_name = bound.get("log_name", func.__name__)
+        if not comms_logger.enabled or not (
+                comms_logger.prof_all or bound.get("prof", False)
+                or log_name in comms_logger.prof_ops):
+            _in_op.active = True
+            try:
+                return func(*args, **kwargs)
+            finally:
+                _in_op.active = False
+        n = _size(_resolve_group(bound.get("group"))) if is_initialized() \
+            else 1
+        cuda = isinstance(tensor, torch.Tensor) and tensor.is_cuda
+        _in_op.active = True
+        try:
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                result = func(*args, **kwargs)
+                end.record()
+                end.synchronize()
+                latency = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                result = func(*args, **kwargs)
+                latency = time.perf_counter() - t0
+        finally:
+            _in_op.active = False
+        comms_logger.append(func.__name__, log_name, latency, size, n)
+        return result
+
+    return wrapper
 
 
 def _dist():
@@ -304,6 +391,7 @@ def get_all_ranks_from_group(group: Group = None):
 
 # ----------------------------------------------------------------------
 # collectives
+@timed_op
 def all_reduce(tensor, op=ReduceOp.SUM, group: Group = None, async_op=False,
                prof=False, log_name="all_reduce", debug=None):
     """Reduce ``tensor`` over the group IN PLACE and return it (the work
@@ -326,6 +414,7 @@ def inference_all_reduce(tensor, op=ReduceOp.SUM, group: Group = None,
     return all_reduce(tensor, op=op, group=group, async_op=async_op)
 
 
+@timed_op
 def all_gather(tensor, group: Group = None, async_op=False, prof=False,
                log_name="all_gather", debug=None, axis=0, tiled=False):
     """Every member's ``tensor`` stacked on a new ``axis``, or with
@@ -345,6 +434,7 @@ def all_gather(tensor, group: Group = None, async_op=False, prof=False,
     return out.movedim(0, axis)
 
 
+@timed_op
 def all_gather_base(output_tensor=None, tensor=None, group: Group = None,
                     **kw):
     """Flat all-gather: the members' ``tensor`` concatenated along dim 0,
@@ -382,6 +472,7 @@ def has_reduce_scatter_base() -> bool:
     return True
 
 
+@timed_op
 def reduce_scatter(tensor, op=ReduceOp.SUM, group: Group = None,
                    async_op=False, prof=False, log_name="reduce_scatter",
                    debug=None, axis=0, tiled=True, output=None):
@@ -413,6 +504,7 @@ def reduce_scatter_base(tensor, group: Group = None, **kw):
     return reduce_scatter(tensor, group=group, tiled=True, **kw)
 
 
+@timed_op
 def all_to_all_single(tensor, group: Group = None, async_op=False,
                       prof=False, log_name="all_to_all_single", debug=None,
                       split_axis=0, concat_axis=0):
@@ -437,6 +529,7 @@ def all_to_all_single(tensor, group: Group = None, async_op=False,
 all_to_all = all_to_all_single
 
 
+@timed_op
 def broadcast(tensor, src: int = 0, group: Group = None, async_op=False,
               prof=False, log_name="broadcast", debug=None):
     """``tensor`` of group member ``src`` on every member, in place."""
@@ -448,6 +541,7 @@ def broadcast(tensor, src: int = 0, group: Group = None, async_op=False,
     return work if async_op else tensor
 
 
+@timed_op
 def reduce(tensor, dst: int = 0, op=ReduceOp.SUM, group: Group = None,
            async_op=False, prof=False, log_name="reduce", debug=None):
     """Reduce onto group member ``dst`` (in place there; other members'
@@ -461,6 +555,7 @@ def reduce(tensor, dst: int = 0, op=ReduceOp.SUM, group: Group = None,
     return tensor
 
 
+@timed_op
 def gather(tensor, gather_list=None, dst: int = 0, group: Group = None,
            **kw):
     """Every member's ``tensor`` stacked on group member ``dst`` (into
@@ -480,6 +575,7 @@ def gather(tensor, gather_list=None, dst: int = 0, group: Group = None,
     return out if out is not None else gather_list
 
 
+@timed_op
 def scatter(tensor, scatter_list=None, src: int = 0, group: Group = None,
             **kw):
     """Group member ``src``'s ``scatter_list[i]`` into member i's
@@ -493,6 +589,7 @@ def scatter(tensor, scatter_list=None, src: int = 0, group: Group = None,
     return tensor
 
 
+@timed_op
 def send(tensor, dst: int, group: Group = None, tag: int = 0):
     """Point-to-point send to group member ``dst``."""
     dist = _dist()
@@ -501,6 +598,7 @@ def send(tensor, dst: int, group: Group = None, tag: int = 0):
     dist.send(tensor.contiguous(), dst=_global(pg, dst), group=pg, tag=tag)
 
 
+@timed_op
 def recv(tensor, src: int, group: Group = None, tag: int = 0):
     """Point-to-point receive from group member ``src`` into ``tensor``."""
     dist = _dist()
@@ -525,6 +623,7 @@ def irecv(tensor, src: int, group: Group = None, tag: int = 0):
     return dist.irecv(tensor, src=_global(pg, src), group=pg, tag=tag)
 
 
+@timed_op
 def ppermute(tensor, perm, group: Group = None, prof=False,
              log_name="ppermute", debug=None):
     """Collective permute (``lax.ppermute``): ``perm`` holds (src, dst)
@@ -551,6 +650,7 @@ def ppermute(tensor, perm, group: Group = None, prof=False,
     return out
 
 
+@timed_op
 def barrier(group: Group = None, async_op=False, device_ids=None):
     dist = _dist()
     counts["barrier"] += 1
@@ -594,12 +694,25 @@ def has_quantized_all_reduce() -> bool:
 
 def configure(deepspeed_config=None, enabled=None, prof_all=None,
               prof_ops=None, verbose=None, debug=None):
-    raise NotImplementedError(
-        f"the comms logger (comm.configure) is not ported yet: it comes "
-        f"with {_TELEMETRY} of the PyTorch port")
+    """Configure comms logging (reference ``comm/comm.py:137``): from a
+    parsed config's ``comms_config`` (the ``comms_logger`` section), then
+    the keyword overrides."""
+    if deepspeed_config is not None:
+        comms_logger.configure(deepspeed_config.comms_config)
+    if enabled is not None:
+        comms_logger.enabled = enabled
+    if prof_all is not None:
+        comms_logger.prof_all = prof_all
+    if prof_ops is not None:
+        comms_logger.prof_ops = prof_ops
+    if verbose is not None:
+        comms_logger.verbose = verbose
+    if debug is not None:
+        comms_logger.debug = debug
 
 
 def log_summary(show_straggler=False):
-    raise NotImplementedError(
-        f"the comms logger (comm.log_summary) is not ported yet: it comes "
-        f"with {_TELEMETRY} of the PyTorch port")
+    """Print (rank 0) and return the per-op table: count, total and mean
+    latency, algorithmic and bus bandwidth, by message size."""
+    return comms_logger.log_all(print_log=True,
+                                show_straggler=show_straggler)

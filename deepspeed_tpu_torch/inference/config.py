@@ -3,9 +3,9 @@
 
 ``dtype`` resolves to a torch dtype. The JAX config's keys that need no
 unported slice are accepted under the same names, aliases and defaults:
-``max_out_tokens``, ``tensor_parallel`` (``tp``, ``mp_size``) and
+``max_out_tokens``, ``tensor_parallel`` (``tp``, ``mp_size``),
 ``injection_policy`` (``injection_dict``, ``injection_policy_tuple``)
-take effect, the rest are inert (the engine logs a note for each one set
+and ``telemetry`` (the training config's section) take effect, the rest are inert (the engine logs a note for each one set
 to another value than its default, :data:`INERT`). Sections the port
 does not implement yet raise :class:`NotImplementedError` naming the
 slice of the port that brings them, instead of being accepted and
@@ -28,7 +28,6 @@ _DTYPE_MAP = {
 # config keys the JAX inference config accepts, and the port's slice that
 # will implement each (ROADMAP.md, Queue 1)
 UNPORTED = {
-    "telemetry": "the telemetry slice",
     "resilience": "the resilience slice",
     "tuning": "the autotuning slice",
     "checkpoint": "the checkpoint slice",
@@ -81,9 +80,9 @@ def resolve_dtype(dtype) -> torch.dtype:
 
 class DeepSpeedTPConfig(DeepSpeedConfigModel):
     """The JAX config's ``tensor_parallel`` section: ``tp_size`` ranks,
-    one process each, on a process group of exactly that many ranks
-    (``mpu`` and ``tp_group`` are accepted as in JAX; the group is the
-    running process group's)."""
+    one process each, a tp group of the running process group (a world
+    of ``data x tp_size`` ranks; ``mpu`` and ``tp_group`` are accepted as
+    in JAX; the groups are the mesh's)."""
 
     enabled: bool = True
     tp_size: int = 1
@@ -104,6 +103,10 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     # serving block (serving/config.ServingConfig): paged KV pool and
     # continuous batching, consumed by ServingEngine; None = no serving
     serving: Optional[Dict] = None
+    # the unified telemetry event stream: the training config's
+    # `telemetry` section (runtime/config.TelemetryConfig), parsed by the
+    # engine's Telemetry manager
+    telemetry: Dict = {}
     max_out_tokens: int = Field(1024, alias="max_tokens")
     tensor_parallel: DeepSpeedTPConfig = Field(DeepSpeedTPConfig(),
                                                alias="tp")
@@ -145,6 +148,12 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
                 raise NotImplementedError(
                     f"inference config key '{key}' is not ported yet: it "
                     f"comes with {UNPORTED[key]} of the PyTorch port")
+        if data.get("telemetry"):
+            # JAX's keys and checks, at parse time (the engine's manager
+            # parses it again)
+            from deepspeed_tpu_torch.runtime.config import TelemetryConfig
+
+            TelemetryConfig(**data["telemetry"])
         if "dtype" in data:
             data["dtype"] = resolve_dtype(data["dtype"])
         if "mp_size" in data and "tensor_parallel" not in data \

@@ -19,22 +19,38 @@ at its first real one (the append kernel's per-row first key). With a
 ``serving`` section, ``bucket_legacy_generate`` left-pads every prompt up
 to the serving bucket set the same way, and strips the pads on return.
 
-Tensor parallelism (``tensor_parallel={"tp_size": N}``): one process a
-tp rank, each calling the engine with the same arguments on a process
-group of exactly ``N`` ranks (``comm.init_distributed``). Each rank holds
-the whole model on the host, keeps its slices by the injection policy
-(``module_inject``, :meth:`GPT2LMHeadModel.tp_specs`) and moves only
-those to its device; every rank returns the same tokens, since the
-row-parallel all-reduce gives each rank the same bits.
+Tensor and data parallelism (``tensor_parallel={"tp_size": N}``): one
+process a rank, each calling the engine with the same arguments on a
+process group of ``data x N`` ranks (``comm.init_distributed``; the mesh
+is :func:`~deepspeed_tpu_torch.parallel.topology.resolve_tp_topology`'s,
+``data = world / N``, as JAX's ``MeshTopology(axis_sizes={"tp": N})``).
+Each rank holds the whole model on the host, keeps its slices by the
+injection policy (``module_inject``, :meth:`GPT2LMHeadModel.tp_specs`)
+and moves only those to its device; the ranks of a tp group return the
+same bits, since the row-parallel all-reduce gives each the same sums.
+``forward``, ``forward_last`` and ``generate`` take the GLOBAL batch on
+every rank: data group ``d`` runs rows ``[d * ceil(B / data), ...)`` and
+the results are all-gathered over ``data``, so every rank returns the
+whole tensor, as the JAX engine returns a global array. Rows that do not
+divide are padded by repeating the batch's last row up to ``ceil(B /
+data)`` a rank and trimmed after the gather (a rank with no real row
+computes a copy and still joins every collective). Keyed sampling keys
+each row on (seed, its global row's absolute position), so its tokens do
+not depend on ``data``; unkeyed sampling draws from each rank's own
+``torch.Generator``, so its draws depend on ``data`` too (they differ
+from the JAX engine's already). A rank-local engine under a running
+group takes an explicit one-rank mesh
+(:func:`~deepspeed_tpu_torch.parallel.topology.rank_local_mesh`).
 
 Every ``forward``, ``forward_last`` and ``generate`` call is timed on the
 host, ending in a synchronize of the device, into the list
-:meth:`InferenceEngine.model_times` drains (the JAX engine also mirrors
-each entry into its telemetry stream, which comes with the telemetry
-slice).
+:meth:`InferenceEngine.model_times` drains (a rank times its own rows,
+not the gather); each entry is mirrored into the telemetry stream as a
+``model_time`` event, and each ``generate`` is a step boundary of the
+engine's ``Telemetry(name="inference")`` (the ``telemetry`` section).
 
-Not in this slice: weight-only int8, telemetry, resilience and
-``load_checkpoint`` (the checkpoint slice).
+Not in this slice: weight-only int8, resilience and ``load_checkpoint``
+(the checkpoint slice).
 """
 
 import time
@@ -49,13 +65,14 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.module_inject.layers import TensorParallel
 from deepspeed_tpu_torch.module_inject.policies import (
     get_tp_policy, shard_params_with_policy)
-from deepspeed_tpu_torch.parallel.topology import (DP_INFERENCE,
+from deepspeed_tpu_torch.parallel.topology import (AXIS_DATA, AXIS_TP,
                                                    MeshTopology,
                                                    resolve_tp_topology)
 from deepspeed_tpu_torch.models.decode_utils import validate_left_padded_mask
 from deepspeed_tpu_torch.ops.sampling import keyed_sample
 from deepspeed_tpu_torch.serving.config import (ServingConfig, bucket_for,
                                                 resolve_buckets)
+from deepspeed_tpu_torch.telemetry.manager import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -114,6 +131,12 @@ def sample_logits(logits, generator, temperature, do_sample: bool,
         probs.shape[:-1])
 
 
+def _run_loop(loop, ids, label):
+    """``generate``'s decode loop, through the signature watch (``ids``
+    and ``label`` name the call)."""
+    return loop()
+
+
 class InferenceEngine:
     """``InferenceEngine(model, config=None, device=None, seed=0,
     mesh=None, **config_kwargs)``: ``device=None`` is the card; ``seed``
@@ -138,18 +161,20 @@ class InferenceEngine:
         self._config = config
         warn_inert_options(config)
         self.device = resolve_device(device)
-        # TP group (reference _create_model_parallel_group)
+        # the data x tp mesh (reference _create_model_parallel_group)
         if mesh is None:
             self.topo = resolve_tp_topology(config.tensor_parallel.tp_size)
         else:
             self.topo = mesh if isinstance(mesh, MeshTopology) \
                 else MeshTopology(axis_sizes=mesh)
+        extra = {a: s for a, s in self.topo.shape.items()
+                 if s > 1 and a not in (AXIS_DATA, AXIS_TP)}
+        if extra:
+            raise ValueError(f"inference runs on a data x tp mesh; "
+                             f"{self.topo.shape} has {extra}")
         self.mp_world_size = self.topo.get_model_parallel_world_size()
-        if self.mp_world_size > 1 and \
-                self.topo.world_size != self.mp_world_size:
-            raise NotImplementedError(
-                f"inference on mesh {self.topo.shape}: every axis but tp "
-                f"is 1 (a data axis beside tp comes with {DP_INFERENCE})")
+        self.dp_world_size = self.topo.axis_size(AXIS_DATA)
+        self.dp_rank = int(getattr(self.topo.coord, AXIS_DATA))
         self.policy = get_tp_policy(config.injection_policy
                                     or config.injection_policy_tuple)
         self.model_config = model.config
@@ -166,8 +191,21 @@ class InferenceEngine:
         self._decode_models = {}
         self._model_times = []
         self.model_profile_enabled = False
+        self.telemetry = Telemetry(config.telemetry, name="inference")
+        self._request_count = 0
+        # the forwards through the signature watch (themselves with
+        # telemetry off), unbound: a bound method kept on the engine
+        # would make a reference cycle that outlives a `del engine`
+        self._forward_fn = self.telemetry.watch_jit(
+            InferenceEngine._logits, "inference.forward")
+        self._forward_last_fn = self.telemetry.watch_jit(
+            InferenceEngine._last_logits, "inference.forward_last")
+        self._generate_fn = self.telemetry.watch_jit(
+            _run_loop, "inference.generate",
+            name_of=lambda loop, ids, label: label)
         log_dist(f"InferenceEngine: device={self.device} "
-                 f"dtype={config.dtype} tp={self.mp_world_size}", ranks=[0])
+                 f"dtype={config.dtype} tp={self.mp_world_size} "
+                 f"data={self.dp_world_size}", ranks=[0])
 
     def _shard(self, model):
         """This rank's tensor-parallel slice of the whole ``model`` (still
@@ -215,32 +253,75 @@ class InferenceEngine:
         ids = torch.as_tensor(input_ids, device=self.device).long()
         return ids[None] if ids.dim() == 1 else ids
 
-    def _timed(self, fn, *args, **kwargs):
+    def _timed(self, name, fn, *args, **kwargs):
         """``fn(*args, **kwargs)``, its host time up to a synchronize of
-        the device appended to the model times."""
+        the device appended to the model times (and the stream)."""
         start = time.perf_counter()
         out = fn(*args, **kwargs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self._model_times.append(time.perf_counter() - start)
+        self._record_model_time(name, time.perf_counter() - start)
         return out
+
+    def _record_model_time(self, name: str, seconds: float):
+        """One forward / generate latency: buffered for
+        :meth:`model_times` and mirrored into the telemetry stream (kind
+        ``model_time``), as in the JAX engine."""
+        self._model_times.append(seconds)
+        self.telemetry.emit("model_time", name, step=self._request_count,
+                            ms=round(1e3 * seconds, 4))
+
+    # ------------------------------------------------------------------
+    # the batch over data (module docstring)
+    def _share(self, batch: int):
+        """This data rank's row indices of a global batch of ``batch``
+        rows, padded to ``ceil(batch / data)`` by repeating the last row;
+        None when ``data`` is 1."""
+        if self.dp_world_size == 1:
+            return None
+        per = -(-batch // self.dp_world_size)
+        rows = torch.arange(self.dp_rank * per, (self.dp_rank + 1) * per)
+        return rows.clamp(max=batch - 1)
+
+    def _gather_rows(self, out, batch: int):
+        """Every data rank's rows of ``out`` concatenated in rank order
+        and trimmed to the ``batch`` real rows."""
+        if self.dp_world_size == 1:
+            return out
+        from deepspeed_tpu_torch import comm
+
+        whole = comm.all_gather(out, group=self.topo.group(AXIS_DATA),
+                                tiled=True)
+        return whole[:batch]
+
+    def _local(self, ids, fn):
+        """``fn`` on this data rank's rows of ``ids``, gathered whole."""
+        rows = self._share(ids.shape[0])
+        if rows is None:
+            return fn(ids)
+        return self._gather_rows(fn(ids[rows.to(ids.device)]),
+                                 ids.shape[0])
 
     @torch.inference_mode()
     def forward(self, input_ids):
         """Full (non-cached) forward: fp32 logits ``[B, T, vocab]``."""
-        return self._timed(lambda: self._logits_of(
-            self.module(self._ids(input_ids))))
+        return self._local(self._ids(input_ids), lambda ids: self._timed(
+            "forward", self._forward_fn, self, ids))
 
     __call__ = forward
+
+    def _logits(self, ids):
+        return self._logits_of(self.module(ids))
+
+    def _last_logits(self, ids):
+        hidden = self.module(ids, return_hidden=True)
+        return self.module.lm_head(hidden[:, -1])
 
     @torch.inference_mode()
     def forward_last(self, input_ids):
         """Last-position logits only: the LM head runs on one position."""
-        def last():
-            hidden = self.module(self._ids(input_ids), return_hidden=True)
-            return self.module.lm_head(hidden[:, -1])
-
-        return self._timed(last)
+        return self._local(self._ids(input_ids), lambda ids: self._timed(
+            "forward_last", self._forward_last_fn, self, ids))
 
     def profile_model_time(self, use_cuda_events=None):
         """The JAX engine's: latencies are always collected (each call
@@ -260,10 +341,12 @@ class InferenceEngine:
         return times
 
     def destroy(self):
-        """Drop the decode-mode modules and the model times (the JAX
-        engine releases its compiled programs and telemetry)."""
+        """Drop the decode-mode modules and the model times and close the
+        telemetry (stopping an open trace window), as the JAX engine
+        releases its compiled programs and telemetry."""
         self._decode_models.clear()
         self._model_times = []
+        self.telemetry.close()
 
     def eval(self):
         return self
@@ -314,24 +397,31 @@ class InferenceEngine:
                 ids, attention_mask, limit, max_new_tokens)
         generator = generator or self.generator
         padded = attention_mask is not None
-        model = self._decode_module(padded)
-        cache = model.new_cache(B)
-
         keyed = bool(do_sample) and seed is not None
         # the first generated token's absolute position: the REAL prompt
         # length, per row under left padding, so pads never shift the key
         # stream (read from the host-validated mask once, before the loop)
         first_pos = (attention_mask.sum(dim=1).cpu().numpy() if padded
                      else np.full(B, ids.shape[1]))
+        # this data rank's rows keep their global row's first position
+        rows = self._share(B)
+        if rows is not None:
+            first_pos = first_pos[rows.numpy()]
+            ids = ids[rows.to(ids.device)]
+            if padded:
+                attention_mask = attention_mask[rows.to(ids.device)]
+        b = ids.shape[0]
+        model = self._decode_module(padded)
+        cache = model.new_cache(b)
 
         def next_token(input_ids, step, mask=None):
             hidden = model(input_ids, cache=cache, return_hidden=True,
                            attention_mask=mask)
             logits = model.lm_head(hidden[:, -1])
             if keyed:
-                return keyed_sample(logits, [seed] * B, first_pos + step,
-                                    [1] * B, [temperature] * B, [top_k] * B,
-                                    [top_p] * B)
+                return keyed_sample(logits, [seed] * b, first_pos + step,
+                                    [1] * b, [temperature] * b, [top_k] * b,
+                                    [top_p] * b)
             return sample_logits(logits, generator, temperature, do_sample,
                                  top_k, top_p)
 
@@ -349,7 +439,19 @@ class InferenceEngine:
             return torch.cat([ids[:, trim:], torch.stack(tokens, dim=1)],
                              dim=1)
 
-        return self._timed(loop)
+        # JAX's program label: one a (prompt, budget, sampler) build
+        label = (f"inference.generate[T={ids.shape[1]},"
+                 f"new={max_new_tokens},"
+                 + (f"keyed=True,padded={padded}]" if keyed else
+                    f"sample={bool(do_sample)},k={int(top_k)},"
+                    f"p={float(top_p)},padded={padded}]"))
+        out = self._gather_rows(self._timed(
+            "generate", self._generate_fn, loop, ids, label), B)
+        # request boundary: memory sample / trace window (the timing's
+        # synchronize above is the fence it piggybacks on)
+        self._request_count += 1
+        self.telemetry.on_step_boundary(self._request_count, samples=int(B))
+        return out
 
     def _bucket_prompt(self, ids, attention_mask, limit, max_new_tokens):
         """Round the prompt length up to the serving bucket set by LEFT

@@ -47,6 +47,7 @@ from deepspeed_tpu_torch.models.decode_utils import cache_attn_mask
 from deepspeed_tpu_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS,
                                                      _stream, softmax_pv)
 from deepspeed_tpu_torch.ops.op_builder import load
+from deepspeed_tpu_torch.telemetry import flops
 
 # pool block 0 is the reserved garbage sink: block tables pad with it,
 # bucketed-prefill pad tokens scatter into it, and the paged kernel never
@@ -511,8 +512,10 @@ def decode_attention_tp(q, k_cache, v_cache, cache_index,
     """Tensor-parallel :func:`decode_attention` (JAX
     ``decode_attention_tp``): q and the append caches hold this rank's
     heads; one launch of kernel 7 on them."""
-    return decode_attention(q, k_cache, v_cache, cache_index,
-                            softmax_scale=softmax_scale, pad=pad)
+    return flops.counted("decode_attention",
+                         lambda: flops.decode_flops(q, k_cache.shape[1]),
+                         decode_attention, q, k_cache, v_cache, cache_index,
+                         softmax_scale=softmax_scale, pad=pad)
 
 
 def decode_attention_paged_tp(q, k_pool, v_pool, block_tables, lengths,
@@ -520,8 +523,11 @@ def decode_attention_paged_tp(q, k_pool, v_pool, block_tables, lengths,
     """Tensor-parallel :func:`decode_attention_paged`: the pools hold this
     rank's heads of every block (a per-rank pool), the block tables and
     lengths are every rank's; one launch of kernel 8."""
-    return decode_attention_paged(q, k_pool, v_pool, block_tables, lengths,
-                                  softmax_scale=softmax_scale)
+    return flops.counted("decode_attention_paged",
+                         lambda: flops.decode_flops(
+                             q, block_tables.shape[1] * k_pool.shape[1]),
+                         decode_attention_paged, q, k_pool, v_pool,
+                         block_tables, lengths, softmax_scale=softmax_scale)
 
 
 def decode_attention_paged_int8_tp(q, k_pool, v_pool, k_scale, v_scale,
@@ -529,9 +535,12 @@ def decode_attention_paged_int8_tp(q, k_pool, v_pool, k_scale, v_scale,
     """Tensor-parallel :func:`decode_attention_paged_int8`: the int8
     pools and their scale side pools hold this rank's heads; one launch
     of kernel 9 (either source)."""
-    return decode_attention_paged_int8(
-        q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
-        softmax_scale=softmax_scale)
+    return flops.counted(
+        "decode_attention_paged_int8",
+        lambda: flops.decode_flops(q, block_tables.shape[1]
+                                   * k_pool.shape[1]),
+        decode_attention_paged_int8, q, k_pool, v_pool, k_scale, v_scale,
+        block_tables, lengths, softmax_scale=softmax_scale)
 
 
 # kernel launches by each wrapper (chip_smoke.py zeroes and reads them);

@@ -49,6 +49,7 @@ from typing import Tuple
 import torch
 
 from deepspeed_tpu_torch.ops.op_builder import load
+from deepspeed_tpu_torch.telemetry import flops
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -391,10 +392,18 @@ class FlashAttentionFunction(torch.autograd.Function):
         do = readable_cotangent(do, do.dtype == torch.bfloat16
                                 and do.device.type == "cuda")
         delta = attention_delta(do, o)
-        dq = flash_attention_backward(q, k, v, do, lse, delta, ctx.causal,
-                                      ctx.scale)
-        dk, dv = flash_attention_backward_dkv(q, k, v, do, lse, delta,
-                                              ctx.causal, ctx.scale)
+        # dQ and dK/dV: two matmuls each, the forward's FLOPs each
+        def fwd():
+            b, h, tq, d = q.shape
+            return flops.attention_flops(b, h, tq, k.shape[2], d,
+                                         ctx.causal)
+
+        dq = flops.counted("flash_bwd_dq", fwd,
+                           flash_attention_backward, q, k, v, do, lse,
+                           delta, ctx.causal, ctx.scale)
+        dk, dv = flops.counted("flash_bwd_dkv", fwd,
+                               flash_attention_backward_dkv, q, k, v, do,
+                               lse, delta, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -15,7 +15,9 @@ one loads the library already in :data:`BUILD_DIR` (listed in
 all at once, and waits for them together.
 
 Sources come only from the repository. A missing ``nvcc`` or a failed
-build raises; nothing falls back to another implementation.
+build raises; nothing falls back to another implementation. Each build,
+and each first load of a library already built, is reported to the
+kernel-build watch (``telemetry/compile_watch.py``) with its seconds.
 """
 
 import ctypes
@@ -24,7 +26,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable, Optional
+
+from deepspeed_tpu_torch.telemetry import compile_watch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -77,6 +82,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
+    start = time.perf_counter()
     procs = {}
     for name, path in todo.items():
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -92,6 +98,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed.append(f"--- {name}.cu (exit {proc.returncode})\n{out}")
             continue
         os.replace(tmp, path)  # atomic: concurrent builders never see half
+        compile_watch.record_build(name, time.perf_counter() - start)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
@@ -104,6 +111,8 @@ def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            if os.path.exists(library_path(name)):
+                compile_watch.record_build(name, 0.0, cache_hit=True)
             lib = ctypes.CDLL(build([name])[name])
             for fn, (argtypes, restype) in (signatures or {}).items():
                 getattr(lib, fn).argtypes = argtypes

@@ -59,6 +59,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.telemetry import flops
 from deepspeed_tpu_torch.ops.flash_attention import (_check_tma, _launch,
                                                      _require_cuda, _stream,
                                                      _strides, _tma_strides,
@@ -400,8 +401,15 @@ class BlockSparseAttentionFunction(torch.autograd.Function):
         do = readable_cotangent(
             do, tensor_cores(do.dtype, _block(q, ctx.lists.layout)))
         delta = attention_delta(do, o)
-        dq = _backward_dq(q, k, v, do, lse, delta, ctx.lists, ctx.scale)
-        dk, dv = _backward_dkv(q, k, v, do, lse, delta, ctx.lists,
+        # dQ and dK/dV: the forward's FLOPs each (telemetry's counter)
+        def fwd():
+            return flops.block_sparse_flops(q.shape, ctx.lists.layout.shape,
+                                            ctx.lists.col_idx.shape[0])
+
+        dq = flops.counted("block_sparse_bwd_dq", fwd, _backward_dq, q, k,
+                           v, do, lse, delta, ctx.lists, ctx.scale)
+        dk, dv = flops.counted("block_sparse_bwd_dkv", fwd, _backward_dkv,
+                               q, k, v, do, lse, delta, ctx.lists,
                                ctx.scale)
         return dq, dk, dv, None, None
 

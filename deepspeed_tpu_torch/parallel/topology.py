@@ -16,7 +16,7 @@ subset that can be active, in the same order on every rank (as
 resolves an axis name or a tuple of axis names to this rank's group.
 
 The port runs the ``data``, ``fsdp`` and ``tp`` axes: training on
-``data x fsdp x tp`` and tensor-parallel serving on ``tp``
+``data x fsdp x tp``, inference and serving on ``data x tp``
 (:func:`resolve_tp_topology`). A ``pipe``, ``expert`` or ``seq`` axis
 above 1 raises :class:`NotImplementedError` naming the slice that brings
 it (:func:`check_ported_axes`).
@@ -59,8 +59,6 @@ UNPORTED_AXES = {
     AXIS_EXPERT: "the MoE slice ([12.6])",
     AXIS_SEQ: "the sequence-parallel slice ([12.7])",
 }
-DP_INFERENCE = ("ROADMAP [7e] (data-parallel inference on a mesh and tp "
-                "replicas under the router)")
 
 
 def normalize_axis_dict(axis_sizes: Dict[str, int]) -> Dict[str, int]:
@@ -498,37 +496,41 @@ def reset_topology():
     _WORLD_TOPOLOGY = None
 
 
+def rank_local_mesh() -> MeshTopology:
+    """A mesh of this rank alone, whatever the running world: no groups,
+    no collective. The one explicit way to ask for a rank-local
+    inference engine while a process group is up
+    (``init_inference(..., mesh=rank_local_mesh())``): the serving
+    fleet's one-process replicas are built so."""
+    return MeshTopology(axis_sizes={AXIS_DATA: 1}, world_size=1, rank=0)
+
+
 def resolve_tp_topology(tp_size: int) -> MeshTopology:
     """The serving engines' mesh (reference ``_create_model_parallel_
-    group``): the job's topology when its tp axis already has ``tp_size``
-    ranks, else a ``{"tp": tp_size}`` mesh, made the job's.
+    group``, JAX ``MeshTopology(axis_sizes={"tp": tp_size})``): the job's
+    topology when its tp axis already has ``tp_size`` ranks, else a
+    ``{"tp": tp_size}`` mesh over the whole world, made the job's. The
+    ranks the tp axis leaves fill ``data`` (``data = world / tp_size``):
+    tp groups are contiguous ranks, data groups strided, the order of the
+    training mesh. A world that ``tp_size`` does not divide raises the
+    JAX mesh's error.
 
-    One process per tp rank: above 1, a process group of exactly
-    ``tp_size`` ranks must run (``comm.init_distributed``), since every
-    rank holds one shard. A larger world would hold data replicas of a
-    server, which the serving fleet brings. A size of 1 needs no group
-    and runs on each rank alone."""
+    One process per rank: above 1, a process group must run
+    (``comm.init_distributed``), since every tp rank holds one shard. At
+    ``tp_size`` 1 with no group the mesh is this rank alone; under a
+    group of W ranks it is ``data = W``, as in JAX (a rank-local engine
+    asks for :func:`rank_local_mesh`)."""
     import torch.distributed as dist
 
     tp_size = int(tp_size)
-    if tp_size > 1:
-        if not (dist.is_available() and dist.is_initialized()):
-            raise RuntimeError(
-                f"tensor_parallel.tp_size {tp_size} needs a process group "
-                f"of {tp_size} ranks, one a shard: call deepspeed_tpu_torch"
-                f".comm.init_distributed() on every rank first")
-        if dist.get_world_size() != tp_size:
-            raise NotImplementedError(
-                f"tensor_parallel.tp_size {tp_size} on a world of "
-                f"{dist.get_world_size()} ranks: inference runs on a world "
-                f"of exactly tp_size ranks; a data axis beside tp comes "
-                f"with {DP_INFERENCE}")
+    if tp_size > 1 and not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"tensor_parallel.tp_size {tp_size} needs a process group "
+            f"of {tp_size} ranks, one a shard: call deepspeed_tpu_torch"
+            f".comm.init_distributed() on every rank first")
     existing = get_topology(create_if_missing=False)
     if existing is not None and existing.axis_size(AXIS_TP) == tp_size:
         return existing
-    if tp_size == 1:
-        # no group needed: this rank serves alone, whatever the world
-        return MeshTopology(axis_sizes={AXIS_TP: 1}, world_size=1, rank=0)
     topo = MeshTopology(axis_sizes={AXIS_TP: tp_size})
     set_topology(topo)
     return topo

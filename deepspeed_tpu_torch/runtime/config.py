@@ -11,9 +11,15 @@ reduction's ``prescale_gradients`` / ``gradient_predivide_factor``,
 ``communication_data_type`` (recorded, as the JAX engine does: gradients
 reduce in fp32), ``disable_allgather`` (accepted and inert, as in JAX),
 ``sparse_gradients`` (recorded), ``zero_allow_untested_optimizer``,
-``gradient_accumulation_steps``, ``steps_per_print`` and the
+``gradient_accumulation_steps``, ``steps_per_print``, the
 ``sparse_attention`` section (handed to the model's
-``with_sparse_attention`` hook by the engine). A key the JAX config
+``with_sparse_attention`` hook by the engine), and the telemetry slice's
+keys: the ``telemetry`` section (:class:`TelemetryConfig`, with its
+``trace``, ``tracing`` and ``flight_recorder`` blocks),
+``wall_clock_breakdown``, ``memory_breakdown``, ``comms_logger``
+(:class:`CommsLoggerConfig`) and the monitor writers ``tensorboard``,
+``wandb`` and ``csv_monitor`` (:class:`MonitorConfig`), with the JAX
+config's keys, defaults, validation and error texts. A key the JAX config
 accepts but this port does not implement yet raises
 :class:`NotImplementedError` naming the slice of the port that brings it,
 instead of being accepted and ignored; a key neither knows raises
@@ -26,7 +32,7 @@ being the running process group's, else ``WORLD_SIZE``.
 
 import json
 import os
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 from pydantic import Field, model_validator
 
@@ -58,18 +64,13 @@ UNPORTED = {
     "eigenvalue": _TRAINING_FEATURES,
     "flops_profiler": _TRAINING_FEATURES,
     "amp": _TRAINING_FEATURES, "data_types": _TRAINING_FEATURES,
-    "wall_clock_breakdown": "the telemetry slice",
-    "memory_breakdown": "the telemetry slice",
-    "telemetry": "the telemetry slice", "comms_logger": "the telemetry slice",
-    "tensorboard": "the telemetry slice", "wandb": "the telemetry slice",
-    "csv_monitor": "the telemetry slice",
     "resilience": "the resilience slice",
     "checkpoint": "the checkpoint slice", "nebula": "the checkpoint slice",
     "elasticity": "the checkpoint slice", "aot": "the checkpoint slice",
     "dataloader_drop_last": "the checkpoint slice",
     "tuning": "the autotuning slice", "autotuning": "the autotuning slice",
     "aio": "the offload slice",
-    "dump_state": "the telemetry slice",
+    "dump_state": "the resilience slice",
 }
 SUPPORTED = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
@@ -78,7 +79,168 @@ SUPPORTED = frozenset({
     C.FUSED_STEP, C.STEPS_PER_PRINT, C.SPARSE_ATTENTION, C.MESH,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
     C.COMMUNICATION_DATA_TYPE, C.DISABLE_ALLGATHER, C.SPARSE_GRADIENTS,
-    C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.TENSOR_PARALLEL})
+    C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.TENSOR_PARALLEL,
+    C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN, C.TELEMETRY,
+    C.COMMS_LOGGER, C.TENSORBOARD, C.WANDB, C.CSV_MONITOR})
+
+
+class CommsLoggerConfig(DeepSpeedConfigModel):
+    """Reference ``deepspeed/comm/config.py``."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = Field(default_factory=list)
+
+
+class TensorBoardConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+class WandbConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed"
+
+
+class CSVConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+class MonitorConfig(DeepSpeedConfigModel):
+    """Reference ``deepspeed/monitor/config.py`` (flattened sections)."""
+
+    tensorboard: TensorBoardConfig = Field(default_factory=TensorBoardConfig)
+    wandb: WandbConfig = Field(default_factory=WandbConfig)
+    csv_monitor: CSVConfig = Field(default_factory=CSVConfig)
+
+    @property
+    def enabled(self):
+        return (self.tensorboard.enabled or self.wandb.enabled
+                or self.csv_monitor.enabled)
+
+
+class TelemetryTraceConfig(DeepSpeedConfigModel):
+    """``telemetry.trace``: a ``torch.profiler`` trace (CUDA activity)
+    for exactly ``num_steps`` steps starting once ``start_step`` steps
+    have completed (``num_steps == 0`` disables the window); the Chrome
+    trace lands under ``dir``."""
+
+    start_step: int = 0
+    num_steps: int = 0
+    dir: str = "./telemetry/trace"
+
+    @model_validator(mode="after")
+    def _check(self):
+        if self.start_step < 0 or self.num_steps < 0:
+            raise ValueError("telemetry.trace.start_step/num_steps must be "
+                             ">= 0")
+        return self
+
+
+class TelemetryTracingConfig(DeepSpeedConfigModel):
+    """``telemetry.tracing``: span-based causal tracing
+    (``telemetry/tracing.py``) — serving request traces and training
+    step-phase traces as ``span`` events, plus a per-step exposed-comm
+    fraction. The rates keep the JAX names: on the card ``ici_gbps`` /
+    ``axis_gbps`` price NVLink or the network a mesh axis rides, and
+    ``peak_tflops`` is the card's dense peak (0 = the device default)."""
+
+    enabled: bool = False
+    exposed_comm: bool = True
+    ici_gbps: float = 90.0
+    peak_tflops: float = 0.0
+    axis_gbps: Dict[str, float] = Field(default_factory=dict)
+
+    @model_validator(mode="after")
+    def _check(self):
+        if self.ici_gbps < 0 or self.peak_tflops < 0:
+            raise ValueError("telemetry.tracing.ici_gbps/peak_tflops must "
+                             "be >= 0")
+        for axis, rate in self.axis_gbps.items():
+            if rate <= 0:
+                raise ValueError(
+                    f"telemetry.tracing.axis_gbps[{axis!r}] must be > 0")
+        return self
+
+
+class TelemetryFlightRecorderConfig(DeepSpeedConfigModel):
+    """``telemetry.flight_recorder``: JAX's keys and checks; enabling it
+    raises, since the recorder comes with the resilience slice."""
+
+    enabled: bool = False
+    events: int = 512
+    snapshots: int = 64
+    dump_dir: Optional[str] = None
+    max_dumps: int = 4
+    on_sigterm: bool = True
+
+    @model_validator(mode="after")
+    def _check(self):
+        if self.events <= 0 or self.snapshots < 0 or self.max_dumps < 1:
+            raise ValueError(
+                "telemetry.flight_recorder needs events > 0, "
+                "snapshots >= 0 and max_dumps >= 1")
+        if self.enabled:
+            raise NotImplementedError(
+                "telemetry.flight_recorder is not ported yet: it comes "
+                "with the resilience slice of the PyTorch port")
+        return self
+
+
+class TelemetryConfig(DeepSpeedConfigModel):
+    """``telemetry`` section: the unified observability event stream
+    (``deepspeed_tpu_torch/telemetry/``), JAX's keys and defaults. Its
+    collectors on the card: kernel-build and call-signature watches
+    (``compile_watchdog``), the once-a-signature step cost
+    (``hlo_cost``: FLOPs by ``FlopCounterMode``, collective bytes from
+    the comm plan), ``torch.cuda`` memory samples every
+    ``sample_every`` boundaries (``memory``) and ``torch.profiler``
+    trace windows (``trace``). Events land in a rank-0 JSON-lines sink
+    at ``<dir>/telemetry.jsonl``; render it with ``python
+    tools/telemetry_report.py <path>``."""
+
+    enabled: bool = False
+    dir: str = "./telemetry"
+    jsonl: bool = True
+    rotate_bytes: int = 0
+    rotate_keep: int = 4
+    compile_watchdog: bool = True
+    hlo_cost: bool = True
+    memory: bool = True
+    sample_every: int = 1
+    warmup_steps: int = 1
+    recompile_warn_after: int = 1
+    metrics_port: Optional[int] = None
+    metrics_host: str = "127.0.0.1"
+    metrics_file: Optional[str] = None
+    trace: TelemetryTraceConfig = Field(default_factory=TelemetryTraceConfig)
+    tracing: TelemetryTracingConfig = Field(
+        default_factory=TelemetryTracingConfig)
+    flight_recorder: TelemetryFlightRecorderConfig = Field(
+        default_factory=TelemetryFlightRecorderConfig)
+
+    @model_validator(mode="after")
+    def _check(self):
+        if self.sample_every <= 0:
+            raise ValueError("telemetry.sample_every must be positive")
+        if self.warmup_steps < 0 or self.recompile_warn_after < 1:
+            raise ValueError("telemetry.warmup_steps must be >= 0 and "
+                             "recompile_warn_after >= 1")
+        if self.rotate_bytes < 0 or self.rotate_keep < 1:
+            raise ValueError("telemetry.rotate_bytes must be >= 0 and "
+                             "rotate_keep >= 1")
+        if self.metrics_port is not None and not (
+                0 <= self.metrics_port <= 65535):
+            raise ValueError("telemetry.metrics_port must be a valid "
+                             "port (0 binds an ephemeral one) or absent")
+        return self
 
 
 class MeshConfig(DeepSpeedConfigModel):
@@ -247,6 +409,16 @@ class DeepSpeedConfig:
             d.get(C.ZERO_ALLOW_UNTESTED_OPTIMIZER, False))
         # tp policy selection (the tp degree is mesh.tp), as in JAX
         self.tensor_parallel_config = d.get(C.TENSOR_PARALLEL, {})
+        # the telemetry slice
+        self.comms_config = CommsLoggerConfig(**d.get(C.COMMS_LOGGER, {}))
+        self.monitor_config = MonitorConfig(
+            tensorboard=d.get(C.TENSORBOARD, {}), wandb=d.get(C.WANDB, {}),
+            csv_monitor=d.get(C.CSV_MONITOR, {}))
+        self.telemetry_config = TelemetryConfig(**d.get(C.TELEMETRY, {}))
+        self.wall_clock_breakdown = d.get(C.WALL_CLOCK_BREAKDOWN,
+                                          C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.memory_breakdown = d.get(C.MEMORY_BREAKDOWN,
+                                      C.MEMORY_BREAKDOWN_DEFAULT)
 
         if world_size is None:
             non_data = (self.mesh.tp * self.mesh.pipe * self.mesh.seq

@@ -33,3 +33,13 @@ COMMUNICATION_DATA_TYPE = "communication_data_type"
 DISABLE_ALLGATHER = "disable_allgather"
 SPARSE_GRADIENTS = "sparse_gradients"
 ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
+
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+TELEMETRY = "telemetry"
+COMMS_LOGGER = "comms_logger"
+TENSORBOARD = "tensorboard"
+WANDB = "wandb"
+CSV_MONITOR = "csv_monitor"

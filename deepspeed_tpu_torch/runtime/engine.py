@@ -75,9 +75,23 @@ accumulation factor only), ``get_batch_info``, ``allreduce_gradients``
 ``spec_layout``, ``describe_topology`` and the config getters of the
 ported keys. Getters of unported slices' keys raise naming the slice.
 
-Offload, the 1-bit optimizers, compression, MoQ, curriculum, PLD,
-telemetry hooks and the flops profiler are config keys that raise at
-parse time (``runtime/config.py``), naming their slice.
+Telemetry (JAX's sites): the ``telemetry`` section's
+``Telemetry(name="engine")`` watches the step callables' signatures
+(``engine.micro_step`` / ``engine.fused_step`` / ``engine.apply_step``,
+with a once-a-signature ``step_cost``), brackets each step's ``data``,
+``fwd_bwd`` and ``optimizer`` phases in a step trace (host dispatch
+times: telemetry adds no synchronize and reads no device value), and
+takes ``on_step_boundary`` at each optimizer step; ``wall_clock_breakdown``
+times forward / backward / step with synchronized timers and reports
+their means every ``steps_per_print`` through ``telemetry.wallclock``,
+``memory_breakdown`` logs ``see_memory_usage`` there, the monitor
+writers (``tensorboard``, ``wandb``, ``csv_monitor``) get the
+``Train/Samples/*`` series, and ``comms_logger`` configures the comm
+facade's logger. ``destroy`` closes the telemetry.
+
+Offload, the 1-bit optimizers, compression, MoQ, curriculum, PLD and the
+flops profiler are config keys that raise at parse time
+(``runtime/config.py``), naming their slice.
 """
 
 import os
@@ -109,7 +123,14 @@ from deepspeed_tpu_torch.runtime.zero.partition import (BATCH_AXES,
                                                         spec_entries)
 from deepspeed_tpu_torch.runtime.zero.reduce import GradScale
 from deepspeed_tpu_torch.runtime.zero.stage import ZeroPartition
+from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
+from deepspeed_tpu_torch.telemetry.manager import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
+                                             FORWARD_GLOBAL_TIMER,
+                                             STEP_GLOBAL_TIMER,
+                                             SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 
 class DeepSpeedEngine:
@@ -238,6 +259,27 @@ class DeepSpeedEngine:
         self._last_overflow = None
         self.training_dataloader = None
         self.module_train = True
+
+        # --- the telemetry slice (JAX engine's sites) ---
+        self.wall_clock_breakdown_ = bool(self._config.wall_clock_breakdown)
+        self.memory_breakdown_ = bool(self._config.memory_breakdown)
+        self.timers = SynchronizedWallClockTimer()
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_batch_size(),
+            steps_per_output=self.steps_per_print())
+        self.monitor = MonitorMaster(self._config.monitor_config)
+        self.telemetry = Telemetry(self._config.telemetry_config,
+                                   monitor=self.monitor, name="engine")
+        dist.configure(deepspeed_config=self._config)
+        # the step callables, unbound (a bound method kept on the engine
+        # would make a reference cycle that outlives a `del engine`)
+        self._fwd_bwd = self.telemetry.watch_jit(
+            DeepSpeedEngine._fwd_bwd_step, "engine.fused_step"
+            if self._fused_step else "engine.micro_step",
+            cost_fn=self._comm_plan)
+        self._apply_step = self.telemetry.watch_jit(
+            DeepSpeedEngine._apply_math, "engine.apply_step",
+            cost_fn=self._comm_plan)
         log_dist(f"DeepSpeedEngine configured: device={self.device} "
                  f"zero_stage={self.zero_optimization_stage()} "
                  f"mesh={self.topology} "
@@ -431,6 +473,22 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Loss of one micro-batch; its gradients are computed too (and,
         with ``fused_step``, applied). Returns the detached loss tensor."""
+        if self.wall_clock_breakdown_:
+            self.timers(FORWARD_GLOBAL_TIMER).start()
+            self.tput_timer.start()
+        with self.telemetry.annotation("ds.fwd_bwd"), \
+                self.telemetry.step_trace.phase("fwd_bwd"):
+            self._last_loss = self._fwd_bwd(self, batch)
+        if self.wall_clock_breakdown_:
+            self.timers(FORWARD_GLOBAL_TIMER).stop()
+        return self._last_loss
+
+    __call__ = forward
+
+    def _fwd_bwd_step(self, batch):
+        """The micro-step: loss, backward, the ZeRO stage's reduction, the
+        mean over the global micro-batch, and with ``fused_step`` the
+        optimizer update."""
         loss = self._local_loss(batch)
         gas = 1 if self._fused_step else self.gradient_accumulation_steps()
         (loss * (self._loss_scale() / gas)).backward()
@@ -441,15 +499,36 @@ class DeepSpeedEngine:
         loss = self._batch_mean(loss)
         if self._fused_step:
             self._last_overflow, self._last_grad_norm = self._apply_math()
-        self._last_loss = loss
-        return self._last_loss
+        return loss
 
-    __call__ = forward
+    def _comm_plan(self):
+        """The collectives one optimizer step's plan launches, by op (the
+        ZeRO stage's plus the model's tensor-parallel pairs); {} with no
+        stage."""
+        if self._zero is None:
+            return {}
+        plan = dict(self._zero.comm_plan(
+            self.gradient_accumulation_steps(),
+            recompute=bool(getattr(getattr(self.module, "config", None),
+                                   "remat", False)),
+            lamb=isinstance(self.optimizer, FusedLamb)))
+        model_plan = getattr(self.module, "comm_plan", None)
+        if self.tp is not None and model_plan is not None:
+            mb = self.train_micro_batch_size_per_gpu()
+            seq = getattr(getattr(self.module, "config", None),
+                          "n_positions", None)
+            if seq:
+                for k, v in model_plan(mb, seq).items():
+                    plan[k] = plan.get(k, 0) + v
+        return plan
 
     def backward(self, loss=None, allreduce_gradients=True,
                  release_loss=False):
         """Gradient accounting boundary: the gradients were produced with
         the loss in :meth:`forward`."""
+        if self.wall_clock_breakdown_:
+            self.timers(BACKWARD_GLOBAL_TIMER).start()
+            self.timers(BACKWARD_GLOBAL_TIMER).stop()
         return loss
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -461,15 +540,29 @@ class DeepSpeedEngine:
         :meth:`forward` already with ``fused_step``)."""
         if self._last_loss is None:
             raise RuntimeError("step() called before any forward()")
-        if self.is_gradient_accumulation_boundary():
-            if not self._fused_step:
-                self._last_overflow, self._last_grad_norm = \
-                    self._apply_math()
+        at_boundary = self.is_gradient_accumulation_boundary()
+        if at_boundary:
+            if self.wall_clock_breakdown_:
+                self.timers(STEP_GLOBAL_TIMER).start()
+            with self.telemetry.annotation("ds.optimizer_step"), \
+                    self.telemetry.step_trace.phase("optimizer"):
+                if not self._fused_step:
+                    self._last_overflow, self._last_grad_norm = \
+                        self._apply_step(self)
             self.global_steps += 1
             self.global_samples += self.train_batch_size()
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step()
+            if self.wall_clock_breakdown_:
+                self.timers(STEP_GLOBAL_TIMER).stop()
+            # telemetry step boundary: step / memory events and the trace
+            # window, at the fences the step already has
+            self.telemetry.on_step_boundary(
+                self.global_steps, samples=self.global_samples,
+                micro_steps=self.micro_steps + 1)
             self._report_progress()
+        if self.wall_clock_breakdown_:
+            self.tput_timer.stop(global_step=at_boundary)
         self.micro_steps += 1
 
     @torch.no_grad()
@@ -484,19 +577,41 @@ class DeepSpeedEngine:
         loss (one host sync, after the loop)."""
         losses = []
         for _ in range(self.gradient_accumulation_steps()):
-            loss = self.forward(batch if batch is not None
-                                else next(data_iter))
+            if batch is not None:
+                b = batch
+            else:
+                with self.telemetry.step_trace.phase("data"):
+                    b = next(data_iter)
+            loss = self.forward(b)
             self.backward(loss)
             self.step()
             losses.append(loss)
         return float(torch.stack(losses).mean())
 
     def _report_progress(self):
+        if (self.wall_clock_breakdown_
+                and self.global_steps % self.steps_per_print() == 0):
+            # the breakdown's means route through the telemetry stream
+            self.telemetry.wallclock(
+                self.timers.get_mean(
+                    [FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                     STEP_GLOBAL_TIMER], reset=True),
+                step=self.global_steps)
         if self.global_steps % self.steps_per_print() == 0:
             log_dist(f"step={self.global_steps}, "
                      f"skipped={self.get_skipped_steps()}, "
                      f"lr={self.get_lr()}, "
                      f"loss={float(self._last_loss):.6f}", ranks=[0])
+            if self.memory_breakdown_:
+                from deepspeed_tpu_torch.utils.memory import see_memory_usage
+
+                see_memory_usage(f"step={self.global_steps}", force=True)
+        if self.monitor.enabled:
+            self.monitor.write_events([
+                ("Train/Samples/train_loss", float(self._last_loss),
+                 self.global_samples),
+                ("Train/Samples/lr", (self.get_lr() or [0.0])[0],
+                 self.global_samples)])
 
     # ------------------------------------------------------------------
     # the JAX engine's remaining surface
@@ -548,6 +663,7 @@ class DeepSpeedEngine:
                 hook.remove()
         self._zero = None
         self._opt_state = None
+        self.telemetry.close()
 
     def describe_topology(self, include_tensors: bool = True,
                           include_data: bool = True) -> dict:
@@ -726,6 +842,12 @@ class DeepSpeedEngine:
     def get_lr(self):
         return [self._lr()]
 
+    def wall_clock_breakdown(self):
+        return self.wall_clock_breakdown_
+
+    def memory_breakdown(self):
+        return self._config.memory_breakdown
+
     def get_global_grad_norm(self) -> Optional[float]:
         """Global (pre-clip) gradient norm of the last optimizer step."""
         norm = self._last_grad_norm
@@ -800,6 +922,7 @@ class DeepSpeedEngine:
 # getters of the JAX engine whose keys belong to unported slices: each
 # raises naming its slice (``runtime/config.py`` refuses the keys too)
 _UNPORTED_GETTERS = {
+    "the resilience slice": ("dump_state",),
     "the offload slice": (
         "zero_cpu_offload", "zero_offload_param", "zero_offload_optimizer",
         "swap_tensor_config", "aio_config"),

@@ -68,11 +68,31 @@ scale pool) and splices the request into a free slot, where it resumes
 decoding with no prefill; ``migrate_out`` detaches the source copy. The
 chaos seams ``serving.spec_commit``, ``serving.migration.export`` and
 ``serving.migration.commit`` (``runtime/resilience/chaos.py``) fire as
-in the JAX engine. Telemetry, span tracing and the resilience watchdog
-come with the telemetry slice.
+in the JAX engine.
+
+Telemetry is the wrapped inference engine's (its ``telemetry`` section,
+as in JAX): the ``serving`` events ``request.queued``,
+``request.finish`` / ``request.shed`` (:meth:`Request.record`),
+``step.gauges`` and ``request.migrated_in`` / ``_out``; the request
+spans ``serve`` / ``queue`` (the scheduler's), ``prefill``,
+``prefill_chunk``, ``cow``, ``draft``, ``verify``, ``spec_commit`` and
+``decode``; the registry's serving histograms, counters and gauges; a
+step boundary a decode step; and the signature watch on the prefill,
+chunk, decode and verify forwards. Spans time host dispatch and read the
+engine's clock; none adds a sync. The resilience watchdog comes with the
+resilience slice.
+
+On a ``data x tp`` mesh (the engine's), ``tp`` splits the pools (each
+rank holds ``1 / tp`` of the pool bytes) and ``data`` replicates the
+server, as JAX's serving engine replicates its slots over ``data``:
+every data group runs the same server on the same submits and emits the
+same tokens. More cards buy throughput through the fleet
+(``serving/router.py``, ``serving/group_replica.py``), not through
+``data``.
 """
 
 import collections
+import contextlib
 import time
 from typing import List, Optional
 
@@ -92,6 +112,7 @@ from deepspeed_tpu_torch.serving.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.serving.request import FINISHED, Request
 from deepspeed_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
 from deepspeed_tpu_torch.serving.spec_decode import build_proposer
+from deepspeed_tpu_torch.telemetry.tracing import end_span, to_ns
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -146,9 +167,27 @@ class ServingEngine:
                                       self.blocks_per_seq)
         self.prefix = (PrefixCache(self.block_mgr)
                        if self.config.prefix_cache else None)
+        self.telemetry = self.engine.telemetry
+        # span tracer (inert unless telemetry.tracing is on)
+        self._tracer = self.telemetry.tracer
+        self._metrics = self.telemetry.metrics
         self.sched = ContinuousBatchingScheduler(
             self.config, self.block_mgr, self.max_len, self.buckets,
-            clock=self.clock, prefix_cache=self.prefix)
+            clock=self.clock, prefix_cache=self.prefix,
+            tracer=self._tracer)
+        # the forwards, through the signature watch (the function itself
+        # with telemetry off, unbound: a bound method kept here would
+        # make a reference cycle), named as JAX names their programs
+        suffix = {"prefill": lambda ids: f"T={ids.shape[1]}",
+                  "chunk": lambda ids: f"T={ids.shape[1]}",
+                  "decode": lambda ids: f"slots={ids.shape[0]}",
+                  "verify": lambda ids: (f"slots={ids.shape[0]},"
+                                         f"k={ids.shape[1] - 1}")}
+        self._forward = {kind: self.telemetry.watch_jit(
+            ServingEngine._model_forward, f"serving.{kind}",
+            name_of=lambda srv, ids, paging, kind=kind, fn=fn:
+                f"serving.{kind}[{fn(ids)}]")
+            for kind, fn in suffix.items()}
         n = self.config.decode_slots
         self._tables = np.zeros((n, self.blocks_per_seq), np.int32)
         self._last_tokens = np.zeros((n,), np.int64)
@@ -187,6 +226,8 @@ class ServingEngine:
         self._spec_steps = 0
         self._window_draft_tokens = 0
         self._window_accepted_tokens = 0
+        self._window_prompt_tokens = 0
+        self._window_hit_tokens = 0
         # bounded retention: stats() percentiles cover the recent window
         self.records = collections.deque(maxlen=4096)
         log_dist(
@@ -233,6 +274,31 @@ class ServingEngine:
     def _on_device(self, array, dtype=torch.int32):
         return torch.as_tensor(array, dtype=dtype, device=self.device)
 
+    def _model_forward(self, ids, paging):
+        """The paged model's hidden states for ``ids`` (every forward of
+        this engine: prefill, chunk, decode, verify)."""
+        return self.model(ids, cache=self.cache, paging=paging,
+                          return_hidden=True)
+
+    def _req_span(self, req: Request, name: str, **attrs):
+        """Span bracket in ``req``'s trace (nullcontext when tracing is
+        off or the request carries no context)."""
+        if not self._tracer.enabled or req.trace is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(name, req.trace["trace"],
+                                 parent=req.trace.get("serve_id"), **attrs)
+
+    def _step_boundary(self, active: int):
+        """A decode step's boundary: the manager's step, and the
+        ``step.gauges`` event and registry gauges (one slot scan, only
+        with telemetry on)."""
+        self.telemetry.on_step_boundary(self._step_count, samples=active)
+        if self.telemetry.enabled:
+            g = self.gauges()
+            self.telemetry.emit("serving", "step.gauges",
+                                step=self._step_count, **g)
+            self._metrics_step_gauges(g)
+
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 0, **kwargs) -> Request:
         """Admit one request (non-blocking). Returns the Request; its
@@ -241,8 +307,13 @@ class ServingEngine:
         prompt = [int(t) for t in np.asarray(prompt).ravel()]
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       **kwargs)
-        if not self.sched.submit(req):
-            self.records.append(req.record())
+        if self.sched.submit(req):
+            self.telemetry.emit("serving", "request.queued",
+                                step=self._step_count,
+                                request_id=req.request_id,
+                                prompt_len=req.prompt_len)
+        else:
+            self._record(req, shed=True)
         return req
 
     @torch.inference_mode()
@@ -257,7 +328,7 @@ class ServingEngine:
                 self._finish(req, "deadline", now, done)
         admitted, shed = self.sched.admit(now)
         for req in shed:
-            self.records.append(req.record())
+            self._record(req, shed=True)
         for slot, req, table in admitted:
             self._begin(slot, req, table, done)
         self._prefill_chunks(done)
@@ -282,7 +353,9 @@ class ServingEngine:
             # appended to, so the request's own fresh block receives a
             # device copy of its rows before anything else runs; the
             # source unpins once the copy is queued (stream order)
-            self._cow_copy(*req.cow)
+            with self._req_span(req, "cow", src=req.cow[0],
+                                dst=req.cow[1]):
+                self._cow_copy(*req.cow)
             self.block_mgr.cow_done(req.request_id)
         if not self.chunk_tokens and req.cached_len == 0:
             self._prefill(slot, req, table, done)
@@ -301,13 +374,14 @@ class ServingEngine:
                   "lengths": self._on_device([0]),
                   "num_valid": self._on_device([req.prompt_len]),
                   "prefill": True}
-        hidden = self.model(self._on_device(ids, torch.long),
-                            cache=self.cache, paging=paging,
-                            return_hidden=True)
-        # the request's next token depends on its LAST REAL position
-        # (right padding: index prompt_len - 1)
-        logits = self.model.lm_head(hidden[:, req.prompt_len - 1])
-        tok = self._first_token(logits, req)
+        with self._req_span(req, "prefill", bucket=T,
+                            prompt_len=req.prompt_len):
+            hidden = self._forward["prefill"](
+                self, self._on_device(ids, torch.long), paging)
+            # the request's next token depends on its LAST REAL position
+            # (right padding: index prompt_len - 1)
+            logits = self.model.lm_head(hidden[:, req.prompt_len - 1])
+            tok = self._first_token(logits, req)
         req.prefill_chunks = 1
         self._slot_live(slot, req, table, tok, done)
 
@@ -365,15 +439,16 @@ class ServingEngine:
                   "lengths": self._on_device([pos]),
                   "num_valid": self._on_device([step_len]),
                   "prefill": False}
-        hidden = self.model(self._on_device(ids, torch.long),
-                            cache=self.cache, paging=paging,
-                            return_hidden=True)
-        if not last:
-            return None
-        logits = self.model.lm_head(hidden[:, step_len - 1])
-        # the final chunk ends the prompt: pos + step_len = prompt_len,
-        # the position the whole-prompt prefill draws at too
-        return self._first_token(logits, req)
+        with self._req_span(req, "prefill_chunk", pos=pos, tokens=step_len,
+                            bucket=T):
+            hidden = self._forward["chunk"](
+                self, self._on_device(ids, torch.long), paging)
+            if not last:
+                return None
+            logits = self.model.lm_head(hidden[:, step_len - 1])
+            # the final chunk ends the prompt: pos + step_len =
+            # prompt_len, the position the whole-prompt prefill draws at
+            return self._first_token(logits, req)
 
     def _slot_live(self, slot: int, req: Request, table: np.ndarray,
                    tok: int, done: List[Request]):
@@ -412,10 +487,9 @@ class ServingEngine:
                   "lengths": self._on_device(self._lengths),
                   "num_valid": self._on_device(np.ones((n,), np.int32)),
                   "prefill": False}
-        hidden = self.model(self._on_device(self._last_tokens[:, None],
-                                            torch.long),
-                            cache=self.cache, paging=paging,
-                            return_hidden=True)
+        hidden = self._forward["decode"](
+            self, self._on_device(self._last_tokens[:, None], torch.long),
+            paging)
         logits = self.model.lm_head(hidden[:, -1])
         if self._keyed:
             # this step emits the token at absolute position lengths + 1
@@ -430,6 +504,7 @@ class ServingEngine:
         toks = toks.cpu().numpy()
         now = self.clock()
         self._step_count += 1
+        self._step_boundary(len(active))
         for slot, req in active:
             tok = int(toks[slot])
             req.length += 1
@@ -463,8 +538,11 @@ class ServingEngine:
             budget = self.sched.speculative_budget(req, k)
             props = []
             if budget > 0:
-                props = [int(t) for t in
-                         self._proposer.propose(req, budget)][:budget]
+                with self._req_span(req, "draft",
+                                    proposer=self._proposer.name,
+                                    budget=budget):
+                    props = [int(t) for t in
+                             self._proposer.propose(req, budget)][:budget]
             proposals[slot] = props
             if props:
                 tokens[slot, 1:1 + len(props)] = props
@@ -482,9 +560,9 @@ class ServingEngine:
                   "lengths": self._on_device(self._lengths),
                   "num_valid": self._on_device(num_valid),
                   "prefill": False}
-        hidden = self.model(self._on_device(tokens, torch.long),
-                            cache=self.cache, paging=paging,
-                            return_hidden=True)
+        t0 = self.clock()
+        hidden = self._forward["verify"](
+            self, self._on_device(tokens, torch.long), paging)
         logits = self.model.lm_head(hidden)                 # [N, k+1, V]
         # the one host sync per step: verified tokens drive commit/finish
         toks = self._sample(logits.reshape(n * (k + 1), -1)).reshape(
@@ -497,6 +575,7 @@ class ServingEngine:
         raise_if("serving.spec_commit")
         self._step_count += 1
         self._spec_steps += 1
+        self._step_boundary(len(active))
         for slot, req in active:
             props = proposals[slot]
             accepted = 0
@@ -509,8 +588,16 @@ class ServingEngine:
             self._window_draft_tokens += len(props)
             req.accepted_tokens += accepted
             self._window_accepted_tokens += accepted
-            finished, reason = self._spec_commit(slot, req, toks[slot],
-                                                 accepted)
+            if self._tracer.enabled and req.trace is not None:
+                # per-request view of the SHARED batched verify forward
+                self._tracer.record_span(
+                    "verify", req.trace["trace"], to_ns(t0), to_ns(now),
+                    parent=req.trace.get("serve_id"),
+                    proposed=len(props), accepted=accepted,
+                    request_id=req.request_id)
+            with self._req_span(req, "spec_commit", accepted=accepted):
+                finished, reason = self._spec_commit(slot, req, toks[slot],
+                                                     accepted)
             if finished:
                 self._finish(req, reason, now, done)
 
@@ -543,10 +630,89 @@ class ServingEngine:
 
     def _finish(self, req: Request, reason: str, now: float,
                 done: List[Request]):
+        if (self._tracer.enabled and req.trace is not None
+                and req.first_token_ts):
+            # one decode segment: first generated token -> finish
+            self._tracer.record_span(
+                "decode", req.trace["trace"], to_ns(req.first_token_ts),
+                to_ns(now), parent=req.trace.get("serve_id"),
+                tokens=len(req.tokens), request_id=req.request_id)
         self.sched.finish(req, reason, now)
         self._clear_slot(req.slot)
-        self.records.append(req.record())
+        self._record(req, shed=False)
         done.append(req)
+
+    def _record(self, req: Request, shed: bool):
+        """One terminal request: its record kept for :meth:`stats`, the
+        ``request.finish`` / ``request.shed`` event, the registry feed,
+        and the close of its ``serve`` span."""
+        rec = req.record()
+        self.records.append(rec)
+        self.telemetry.emit(
+            "serving", "request.shed" if shed else "request.finish",
+            step=self._step_count, **rec)
+        self._metrics_record(req, rec, shed)
+        if self._tracer.enabled and req.trace is not None:
+            end_span(req.trace.pop("serve", None),
+                     end_ns=to_ns(req.finish_ts or req.submit_ts),
+                     state=req.state, reason=req.finish_reason,
+                     tokens=len(req.tokens))
+
+    def _metrics_record(self, req: Request, rec: dict, shed: bool):
+        """Per-terminal-request registry feed (JAX's): latency
+        histograms, outcome / token counters, prefix-cache and
+        speculation window gauges; a no-op call a line when metrics are
+        off."""
+        m = self._metrics
+        m.counter("ds_serving_requests_total", ("outcome",)).labels(
+            outcome="shed" if shed else "finished").inc()
+        if rec.get("ttft_ms") is not None:
+            m.histogram("ds_serving_ttft_ms").observe(rec["ttft_ms"])
+        if rec.get("queue_ms") is not None:
+            m.histogram("ds_serving_queue_ms").observe(rec["queue_ms"])
+        if shed:
+            return
+        m.counter("ds_serving_tokens_total").inc(rec.get("new_tokens") or 0)
+        if req.tokens:
+            m.histogram("ds_serving_decode_ms").observe(
+                1e3 * max(req.finish_ts - req.first_token_ts, 0.0))
+        if self.prefix is not None:
+            self._window_prompt_tokens += rec.get("prompt_len") or 0
+            self._window_hit_tokens += rec.get("prefix_hit_tokens") or 0
+            if self._window_prompt_tokens:
+                m.gauge("ds_prefix_cache_hit_rate").set(round(
+                    self._window_hit_tokens
+                    / self._window_prompt_tokens, 4))
+        if self._proposer is not None:
+            drafts = rec.get("draft_tokens") or 0
+            acc = rec.get("accepted_tokens") or 0
+            if drafts:
+                m.counter("ds_spec_draft_tokens_total").inc(drafts)
+                m.counter("ds_spec_accepted_tokens_total").inc(acc)
+            if self._window_draft_tokens:
+                m.gauge("ds_spec_acceptance_rate").set(round(
+                    self._window_accepted_tokens
+                    / self._window_draft_tokens, 4))
+
+    def _metrics_step_gauges(self, g: dict):
+        """Per-decode-step pool / queue gauges from the same ``gauges()``
+        payload the ``step.gauges`` event carries."""
+        m = self._metrics
+        m.gauge("ds_serving_queue_depth").set(g.get("queue_depth", 0))
+        m.gauge("ds_serving_slots_busy").set(g.get("slots_busy", 0))
+        m.gauge("ds_serving_slots_total").set(g.get("slots_total", 0))
+        bm = self.block_mgr
+        usable = max(1, bm.num_blocks - 1)   # garbage block excluded
+        used = bm.num_allocated
+        tier = m.gauge("ds_kv_pool_blocks", ("tier",))
+        tier.labels(tier="free").set(bm.num_free)
+        tier.labels(tier="cached").set(bm.num_cached)
+        tier.labels(tier="used").set(used)
+        m.gauge("ds_kv_pool_occupancy").set(round(used / usable, 4))
+        committed = int(g.get("committed_tokens", 0))
+        capacity = used * self.config.block_size
+        m.gauge("ds_kv_pool_fragmentation").set(
+            round(1.0 - committed / capacity, 4) if capacity else 0.0)
 
     def _clear_slot(self, slot: int):
         """Reset a released slot's host rows: an idle slot computes into
@@ -572,7 +738,7 @@ class ServingEngine:
         if req is None:
             return False
         self._clear_slot(req.slot)
-        self.records.append(req.record())
+        self._record(req, shed=True)
         return True
 
     # ------------------------------------------------------------------
@@ -750,6 +916,11 @@ class ServingEngine:
         self._last_tokens[slot] = int(export["last_token"])
         if self._keyed:
             self._set_samp_slot(slot, req)
+        self.telemetry.emit("serving", "request.migrated_in",
+                            step=self._step_count, request_id=rid,
+                            blocks=int(export["blocks"]),
+                            wire_bytes=int(export["wire_bytes"]),
+                            length=req.length)
         return req
 
     def migrate_out(self, request_id: str) -> bool:
@@ -757,10 +928,17 @@ class ServingEngine:
         slot, blocks and token budget WITHOUT a shed record — the request
         is still live, on another replica. Call only after the target
         committed its import."""
-        req = self.sched.migrate_out(request_id, self.clock())
+        now = self.clock()
+        req = self.sched.migrate_out(request_id, now)
         if req is None:
             return False
         self._clear_slot(req.slot)
+        if self._tracer.enabled and req.trace is not None:
+            end_span(req.trace.pop("serve", None), end_ns=to_ns(now),
+                     state="migrated", tokens=len(req.tokens))
+        self.telemetry.emit("serving", "request.migrated_out",
+                            step=self._step_count, request_id=request_id,
+                            tokens=len(req.tokens))
         return True
 
     def gauges(self) -> dict:
@@ -807,6 +985,8 @@ class ServingEngine:
         self._spec_steps = 0
         self._window_draft_tokens = 0
         self._window_accepted_tokens = 0
+        self._window_prompt_tokens = 0
+        self._window_hit_tokens = 0
         self.sched.reset_stats()
 
     def stats(self) -> dict:

@@ -38,8 +38,12 @@ tier — is a ``router`` telemetry event through the ``telemetry=`` object
 the caller passes.
 
 One process steps its replicas in turn: on one card two replicas do
-not double the decode rate. Replicas under tensor parallelism (one
-process a rank) are not routed: :class:`ReplicaRouter` refuses them.
+not double the decode rate. A replica under tensor parallelism is one
+process a rank: it joins the router through its group's proxy
+(``serving/group_replica.py``: the router's rank drives the group's
+ranks, which run each call in lockstep); a bare tp engine handed to the
+router is refused (stepping one rank's shard alone would hang its
+group's collectives).
 """
 
 import dataclasses
@@ -49,7 +53,6 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Set
 
-from deepspeed_tpu_torch.parallel.topology import DP_INFERENCE
 from deepspeed_tpu_torch.serving import request as rq
 from deepspeed_tpu_torch.serving.autoscaler import (SCALE_DOWN, SCALE_UP,
                                               Autoscaler, Decision)
@@ -65,14 +68,17 @@ _ids = itertools.count()
 
 
 def _one_process(replica):
-    """Refuse a tensor-parallel replica: one process steps every replica
-    here, and a tp replica is one process a rank."""
+    """Refuse a bare tensor-parallel engine: the router steps its
+    replicas from one rank, and a tp engine is one process a rank, so
+    stepping this rank's shard alone would hang its group."""
     tp = getattr(getattr(replica, "engine", None), "mp_world_size", 1)
     if tp > 1:
-        raise NotImplementedError(
-            f"a replica at tensor_parallel.tp_size {tp} behind the router: "
-            f"the router steps its replicas in one process, a tp replica "
-            f"is one process a rank; it comes with {DP_INFERENCE}")
+        raise ValueError(
+            f"a bare ServingEngine at tensor_parallel.tp_size {tp} behind "
+            f"the router: the router steps its replicas from one rank and "
+            f"a tp engine is one process a rank; wrap the group in a "
+            f"GroupReplica proxy (deepspeed_tpu_torch.serving."
+            f"group_replica, init_serving(replicas=...) builds them)")
     return replica
 
 
@@ -605,6 +611,10 @@ class ReplicaRouter:
             # in-flight work: drain-in-place defers to liveness, or
             # drain() would spin on requests that can never finish
             self._failover_replica(idx, f"drain:{reason}")
+        release = getattr(self.replicas[idx], "release", None)
+        if h.state == DEAD and release is not None:
+            # a rank-group replica's ranks go idle (group_replica.py)
+            release()
 
     def _failover_replica(self, idx: int, reason: str):
         """Reroute everything in flight on a tripped/dead replica. With

@@ -2,12 +2,21 @@
 ``deepspeed_tpu/telemetry/events.py``).
 
 One event is one JSON-serializable dict: ``{"ts", "kind", "name",
-"step", "rank", "data"}``. The serving fleet emits the ``router``,
-``fleet`` and ``gateway`` families through whatever ``telemetry=``
-object its caller passes (``emit(kind, name, step=..., **data)``); the
-telemetry manager, its JSONL sink and the flight recorder come with the
-telemetry slice.
+"step", "rank", "data"}`` (:func:`make_event`). The engines emit through
+their :class:`~deepspeed_tpu_torch.telemetry.manager.Telemetry`, the
+serving fleet through whatever ``telemetry=`` object its caller passes
+(``emit(kind, name, step=..., **data)``); the JSONL sink writes
+:func:`dumps` lines that :func:`load_all_events` (and the repo's
+``tools/telemetry_report.py``) read back, rotated segments included.
+Everything in ``data`` is JSON-safe (:func:`json_safe`): a 0-d tensor
+is never read (``.item()`` would sync the device), only its repr is
+kept. The flight recorder comes with the resilience slice.
 """
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
 
 KINDS = ("compile", "step_cost", "memory", "trace_window", "step",
          "wallclock", "comm", "fault", "serving", "model_time", "topology",
@@ -58,3 +67,73 @@ SPANS = (
 # the span event envelope's reserved ``data`` keys — everything else in
 # a span's data is a user attribute
 SPAN_META = ("trace", "span", "parent", "start_ns", "end_ns")
+
+
+def json_safe(value: Any):
+    """Coerce ``value`` to something ``json.dumps`` accepts: numpy
+    scalars via ``.item()``, sets/tuples to lists, everything else to its
+    repr. A torch tensor is never read (that would sync the device)."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    if isinstance(value, dict):
+        return {str(k): json_safe(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple, set, frozenset)):
+        return [json_safe(v) for v in value]
+    if type(value).__module__ == "numpy" and getattr(value, "shape",
+                                                      None) == ():
+        return value.item()
+    return repr(value)
+
+
+def make_event(kind: str, name: str, step: Optional[int], rank: int,
+               data: Dict[str, Any]) -> Dict[str, Any]:
+    return {
+        "ts": round(time.time(), 6),
+        "kind": kind,
+        "name": name,
+        "step": None if step is None else int(step),
+        "rank": int(rank),
+        "data": json_safe(data or {}),
+    }
+
+
+def dumps(event: Dict[str, Any]) -> str:
+    return json.dumps(event, separators=(",", ":"), sort_keys=False)
+
+
+def load_events(path: str):
+    """Parse a JSONL sink file back into event dicts; malformed lines (a
+    truncated tail from a crash) are skipped, not end-of-file."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+    return out
+
+
+def segment_paths(path: str):
+    """Every on-disk segment of a (possibly rotated) JSONL sink, oldest
+    first: ``telemetry.jsonl.K`` .. ``.1`` then the live file."""
+    numbered = []
+    k = 1
+    while os.path.exists(f"{path}.{k}"):
+        numbered.append(f"{path}.{k}")
+        k += 1
+    out = list(reversed(numbered))
+    if os.path.exists(path):
+        out.append(path)
+    return out
+
+
+def load_all_events(path: str):
+    """A rotated JSONL sink's segments as one chronological event list."""
+    out = []
+    for p in segment_paths(path):
+        out.extend(load_events(p))
+    return out

@@ -1,5 +1,5 @@
 """Span-based causal tracing over the telemetry event stream (copy of
-``deepspeed_tpu/telemetry/tracing.py``, its serving half).
+``deepspeed_tpu/telemetry/tracing.py``).
 
 Every span carries a ``trace`` id shared by causally-related work, its
 own ``span`` id, an optional ``parent`` span id, and monotonic
@@ -20,15 +20,17 @@ survivor instead of starting a new one.
 - Span *names* are literals from :data:`telemetry.events.SPANS`; *ids*
   are process-local counters — cheap, deterministic under fake clocks.
 
-Host-only (no torch), so the serving policy tier loads it anywhere. The
-training engines' per-step phase traces (the JAX package's
-``StepTrace``) come with the telemetry slice.
+Two trace shapes ride the stream: serving request traces (above) and
+training step traces (:class:`StepTrace`: one trace per optimizer step
+with ``data`` / ``fwd_bwd`` / ``optimizer`` children and the exposed-comm
+attribute). Host-only (no torch), so the serving policy tier loads it
+anywhere.
 """
 
 import contextlib
 import itertools
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from deepspeed_tpu_torch.telemetry.events import SPANS
 
@@ -160,6 +162,74 @@ def span_id(handle: Optional[SpanHandle]) -> Optional[str]:
 # shared inert instance for components built without telemetry
 NULL_TRACER = Tracer(emit=None, enabled=False)
 
+_NULL_CTX = contextlib.nullcontext()
+
+
+class StepTrace:
+    """Per-optimizer-step phase accounting for the training engines.
+
+    The engine brackets host-observable phases (``data`` fetch, the
+    ``fwd_bwd`` dispatch, the ``optimizer`` apply) with :meth:`phase`;
+    at the step boundary the telemetry manager calls :meth:`flush`,
+    which emits one ``step`` root span covering first-phase-start ->
+    boundary plus one child span per recorded phase, all under a fresh
+    per-step trace id. With tracing off, ``phase`` is one attribute read
+    returning a shared nullcontext — no clock reads, no allocation.
+
+    Phase durations are HOST-side dispatch walltimes: under CUDA's async
+    launches a phase that merely enqueues device work reads as cheap
+    unless a fence the step already has (the fp16 overflow read, a
+    collective's host staging) serializes it. That is by design — adding
+    ``torch.cuda.synchronize()`` to make the numbers "device-true" would
+    break the no-added-host-syncs contract; the device-true comm/compute
+    split is the exposed-comm attribute's job.
+    """
+
+    def __init__(self, tracer: Tracer, rank: int = 0):
+        self.tracer = tracer
+        self.enabled = tracer.enabled
+        self.rank = rank
+        self._phases: List[tuple] = []
+
+    @contextlib.contextmanager
+    def _phase_cm(self, name: str, attrs: Dict):
+        t0 = monotonic_ns()
+        try:
+            yield
+        finally:
+            self._phases.append((name, t0, monotonic_ns(), attrs))
+
+    def phase(self, name: str, **attrs):
+        """Bracket one host-side phase of the current step."""
+        if not self.enabled:
+            return _NULL_CTX
+        return self._phase_cm(name, attrs)
+
+    def mark(self, name: str, start_ns: int, end_ns: int, **attrs) -> None:
+        """Record an already-timed phase (callers that can't hold a
+        context manager open across their control flow)."""
+        if self.enabled:
+            self._phases.append((name, int(start_ns), int(end_ns), attrs))
+
+    def flush(self, step: int, **step_attrs) -> Optional[str]:
+        """Emit the step's root span + phase children and reset. No-op
+        (returns None) when nothing was recorded — engines that never
+        bracket phases (the serving decode loop) emit no empty steps."""
+        if not self.enabled or not self._phases:
+            self._phases = []
+            return None
+        phases, self._phases = self._phases, []
+        trace = self.tracer.new_trace(hint=f"step{step}-r{self.rank}")
+        start = min(t0 for _, t0, _, _ in phases)
+        root = self.tracer.record_span(
+            "step", trace, start, monotonic_ns(), step=int(step),
+            **step_attrs)
+        for name, t0, t1, attrs in phases:
+            self.tracer.record_span(name, trace, t0, t1, parent=root,
+                                    **attrs)
+        return trace
+
+
 def trace_ctx(trace: str, parent: Optional[str] = None,
               **attrs) -> Dict:
     """The cross-component trace context: what the router hands each
@@ -168,5 +238,5 @@ def trace_ctx(trace: str, parent: Optional[str] = None,
     return {"trace": trace, "parent": parent, **attrs}
 
 
-__all__ = ["SPANS", "Tracer", "SpanHandle", "NULL_TRACER",
+__all__ = ["SPANS", "Tracer", "StepTrace", "SpanHandle", "NULL_TRACER",
            "end_span", "span_id", "to_ns", "monotonic_ns", "trace_ctx"]

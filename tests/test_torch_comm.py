@@ -167,11 +167,22 @@ def test_groups_need_a_process_group():
 
 
 def test_later_slices_raise_and_no_group_answers():
+    """The comms logger is ported: configure / log_summary work (a
+    non-list prof_ops fails the config as JAX's does); the compressed
+    collectives still raise; no group answers the world of one."""
+    import pydantic
+    import deepspeed_tpu.runtime.config as jax_config
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+
     port_topo.reset_topology()
-    with pytest.raises(NotImplementedError, match=r"telemetry slice \(\[8\]"):
-        comm.configure(enabled=True)
-    with pytest.raises(NotImplementedError, match=r"telemetry slice \(\[8\]"):
-        comm.log_summary()
+    comm.configure(enabled=True, prof_ops=["all_reduce"], prof_all=False)
+    try:
+        assert comm.log_summary() == {}
+    finally:
+        comm.configure(enabled=False, prof_ops=[], prof_all=True)
+    for make in (DeepSpeedConfig, jax_config.DeepSpeedConfig):
+        with pytest.raises(pydantic.ValidationError, match="prof_ops"):
+            make({"train_batch_size": 1, "comms_logger": {"prof_ops": 5}})
     with pytest.raises(NotImplementedError, match=r"compressed-collectives"):
         comm.quantized_all_reduce(np.zeros(4))
     with pytest.raises(NotImplementedError, match=r"compressed-collectives"):

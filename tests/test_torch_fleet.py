@@ -589,13 +589,15 @@ def test_router_decides_like_jax(name):
 
 
 def test_tensor_parallel_replica_is_refused():
+    """A bare tp engine on one rank is refused, pointing at the group
+    proxy (serving/group_replica.py) that routes tp replicas."""
     class TpReplica:
         engine = types.SimpleNamespace(mp_world_size=2)
 
-    with pytest.raises(NotImplementedError, match=r"\[7e\]"):
+    with pytest.raises(ValueError, match="GroupReplica"):
         router.ReplicaRouter([TpReplica()])
     rt = router.ReplicaRouter([PKGS["port"].fakes.FakeReplica()])
-    with pytest.raises(NotImplementedError, match=r"\[7e\]"):
+    with pytest.raises(ValueError, match="GroupReplica"):
         rt.add_replica(TpReplica())
 
 

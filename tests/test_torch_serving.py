@@ -186,6 +186,14 @@ def test_unported_knob_raises_through_init_serving():
     ("dtype", "int8"),
 ])
 def test_unported_inference_keys_raise(key, value):
+    if key == "telemetry":  # ported: accepted; its resilience half raises
+        assert DeepSpeedInferenceConfig(telemetry=value).telemetry == value
+        for bad in ({"telemetry": {"flight_recorder": {"enabled": True}}},
+                    {"resilience": {"enabled": True}}):
+            with pytest.raises(NotImplementedError,
+                               match="the resilience slice"):
+                DeepSpeedInferenceConfig(**bad)
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         DeepSpeedInferenceConfig(**{key: value})
 

@@ -26,7 +26,9 @@ carried across by ``params_from_jax``.
   forward plus the vocabulary's pair; at 3 heads over 2 ranks attention
   stays whole while the MLP splits, with the tokens of the port's tp 1
   and of the JAX engine at tp 2.
-- (g) a world of 4 at tp 2 raises naming [7e]; tp 2 without a process
+- (g) a world of 4 at tp 3 raises the JAX mesh's error (tp 2 there is
+  ``data=2 x tp=2``: ``tests/test_torch_dp_inference.py``); an explicit
+  one-rank mesh serves alone in a world of 4; tp 2 without a process
   group raises.
 - The fused-QKV split and merge round trip, and sharding then merging a
   whole state dict.
@@ -123,7 +125,11 @@ def ranks(tmp_path_factory, weights, wide3):
     one spawn a world size for the whole run."""
     def get(world):
         if world not in _RANKS:
-            args = {"weights": weights, "wide3": wide3, "layers": _layers()}
+            from tests.test_torch_llama import weights as llama_weights
+
+            # the tiny GQA Llama of tests/test_torch_dp_inference.py
+            args = {"weights": weights, "wide3": wide3, "layers": _layers(),
+                    "llama": {"kv": 2, "weights": llama_weights(2)}}
             _RANKS[world] = torch_ranks.cached(
                 tmp_path_factory, f"tensor-parallel-{world}",
                 lambda d: torch_ranks.run_ranks(torch_ranks.tensor_parallel,
@@ -416,13 +422,21 @@ def test_heads_that_do_not_divide_match_jax_tp2(ranks, jax_tp):
 
 
 def test_tp2_on_a_world_of_4_names_the_fleet(ranks):
+    """tp 2 on a world of 4 now runs as data=2 x tp=2; the refusal that
+    stands is a world tp does not divide, with the JAX mesh's text."""
+    from deepspeed_tpu.parallel.topology import MeshTopology
+
+    with pytest.raises(ValueError) as jax_err:
+        MeshTopology(axis_sizes={"tp": 3}, devices=jax.devices()[:4])
     for res in ranks(4):
-        assert "[7e]" in res["tp2_on_world4"]
+        assert res["tp2_on_world4"] == str(jax_err.value)
+        assert res["dp_tp2"]["shape"]["data"] == 2
 
 
 def test_tp1_serves_alone_in_a_larger_world(ranks, weights):
-    """tp 1 under a running group of 4 ranks: each rank serves the whole
-    model alone, with the tokens of a group-less engine."""
+    """An explicit one-rank mesh under a running group of 4 ranks: each
+    rank serves the whole model alone, with the tokens of a group-less
+    engine."""
     port_topo.reset_topology()
     model = GPT2LMHeadModel(GPT2Config.tiny(dtype=torch.float32),
                             device="meta")

@@ -380,5 +380,14 @@ def test_unported_config_keys_raise(config, slice_name):
     if slice_name == "multi-GPU":  # tensor-parallel training is ported
         assert DeepSpeedConfig({"train_batch_size": 1, **config}).mesh.tp == 2
         return
+    if slice_name == "telemetry":  # ported; its resilience half raises
+        assert DeepSpeedConfig({"train_batch_size": 1, **config}) \
+            .telemetry_config.enabled
+        for bad in ({"telemetry": {"flight_recorder": {"enabled": True}}},
+                    {"dump_state": True}, {"resilience": {}}):
+            with pytest.raises(NotImplementedError,
+                               match="the resilience slice"):
+                DeepSpeedConfig({"train_batch_size": 1, **bad})
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         DeepSpeedConfig({"train_batch_size": 1, **config})
