@@ -298,13 +298,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernels 1-3 in the window's Chrome trace; the same engine with
    telemetry off: its launches a step the same, its step ms printed
    beside phase 3's.
+16. "checkpoint_resume" and "handoff" (after phase 3b): checkpoints and
+   resilience on GPT-2 125M at bench.py's keys, in a temporary directory
+   removed at the end (a tag holds ~1.5 GB; at most 3 live at once):
+   (a) engine A takes 3 steps, saves with integrity on (save and load
+   seconds, bytes, the manifest's sha256 ms printed), takes 3 more; a
+   fresh engine B loads ``latest`` and takes the same 3 steps: its losses
+   A's bit for bit, kernels 1-3 12 times a step (the
+   ``checkpoint_resume`` window); the key's advance over 10,000 micro
+   steps timed; (b) a save at ZeRO 3 on an NCCL world of one loads at
+   ZeRO 0: the Adam step and whole slots as loaded bit-equal to the
+   saved ones, the next 3 losses within ZERO_LOSS_ATOL of the ZeRO 3
+   run's, the parameters after them within 2 lr a step; (c) the sentinel's rollback after a batch poisoned by
+   ``chaos.nan_batches`` restores the saved weights bit for bit, the next
+   loss is finite, the fault events are in the telemetry sink; (d) a
+   corrupted newest tag falls back to the previous verified one, naming
+   the file, and an explicit load of it raises; (e) the hang watchdog
+   (abort off, 1 s) fires on a stall inside a step and the flight
+   recorder's dump holds the event tail; ``dump_state`` and the
+   resilience summary keys are JAX's; (f) ``init_inference(checkpoint=
+   <A's tag dir>)`` generates 32 greedy tokens equal to those of an
+   engine on A's weights at the save (the ``handoff`` window: kernels 1
+   and 7).
 
-Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 are the
-main paths (6, 7 and 8 in two legs each, 3b one window a stage, 10 one an
-engine and 13 one a leg, summed; 9's, 10's, 13's and 14's launch counts
-are rank 0's, zeroed in the rank before each window; 11 one window over
-its five parts; 12 one window each of its ``llama_*`` paths; 14 one
-window a leg; 15 one window a leg, (a) the telemetry-on engine's):
+Phases 3, 3b, 4, 5, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 are
+the main paths (6, 7 and 8 in two legs each, 3b one window a stage, 10
+one an engine and 13 one a leg, summed; 9's, 10's, 13's and 14's launch
+counts are rank 0's, zeroed in the rank before each window; 11 one window
+over its five parts; 12 one window each of its ``llama_*`` paths; 14 one
+window a leg; 15 one window a leg, (a) the telemetry-on engine's; 16 one
+window for B's steps and one for the handoff's generate):
 each sets every launch count to 0 just before it runs and reads the counts
 just after, before its comparison runs.
 
@@ -2442,6 +2465,357 @@ def phase_zero(seed, card, reference):
     finally:
         comm.destroy_process_group()
     return dict(total)
+
+
+# phase 16: checkpoints and resilience on phase 3's workload
+CKPT_STEPS = 3
+CKPT_NEW = 32
+WD_TIMEOUT = 1.0
+# micro steps of a long run, over which the key's advance at a save is
+# timed
+RNG_SPLITS = 10_000
+WD_STALL = 2.5
+RESILIENCE_SUMMARY_KEYS = ["enabled", "faults", "rollbacks",
+                           "sentinel_trips", "watchdog_fired"]
+
+
+def ckpt_model(seed):
+    """Phase 3's GPT-2 125M whose loss is scaled by the batch's float
+    ``loss_weight`` (1.0; a data leaf ``chaos.nan_batches`` can poison)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2ForTraining
+
+    class WeightedGPT2(GPT2ForTraining):
+        def forward(self, batch):
+            return super().forward(batch) * batch["loss_weight"].mean()
+
+    return WeightedGPT2(GPT2Config.gpt2_125m(remat=True,
+                                             remat_policy="dots"), seed=seed)
+
+
+def ckpt_engine(seed, **extra):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.tools.profile_training import BENCH_CONFIG
+
+    return deepspeed_tpu_torch.initialize(
+        model=ckpt_model(seed), config={**BENCH_CONFIG, **extra})[0]
+
+
+def ckpt_batches(engine, seed, n):
+    import torch
+
+    from deepspeed_tpu_torch.tools.profile_training import bench_batch
+
+    return [{**bench_batch(engine.module.config.vocab_size, seed + 10 + i,
+                           engine.device),
+             "loss_weight": torch.ones(1, device=engine.device)}
+            for i in range(n)]
+
+
+def tag_bytes(tag_dir):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(tag_dir) for f in fs)
+
+
+def timed_save(engine, save_dir, tag):
+    """``save_checkpoint`` timed; the manifest's sha256 (inside the
+    commit) timed apart. Returns ``(seconds, hash seconds, bytes)``."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.resilience import integrity
+
+    hashed = []
+    real = integrity.build_manifest
+
+    def build_manifest(tag_dir):
+        t = time.perf_counter()
+        out = real(tag_dir)
+        hashed.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(integrity, "build_manifest", build_manifest):
+        engine.save_checkpoint(save_dir, tag=tag)
+    secs = time.perf_counter() - t0
+    return secs, sum(hashed), tag_bytes(os.path.join(save_dir, tag))
+
+
+ADAM_SLOTS = ("exp_avg", "exp_avg_sq")
+
+
+def whole_adam_state(engine):
+    """The engine's Adam ``step`` and whole slots, copied to the host."""
+    opt = engine._opt_state
+    return {"step": int(opt.step),
+            **{k: {n: v.clone() for n, v in
+                   engine._whole_slots(getattr(opt, k)).items()}
+               for k in ADAM_SLOTS}}
+
+
+def ckpt_steps(engine, batches):
+    import torch
+
+    out = []
+    for b in batches:
+        loss = engine(b)
+        engine.backward(loss)
+        engine.step()
+        out.append(loss)
+    torch.cuda.synchronize()
+    return [float(x) for x in out]
+
+
+def phase_checkpoint(seed, card):
+    """Phase 16 (module docstring); returns the ``checkpoint_resume`` and
+    ``handoff`` launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.runtime.engine import advance_key
+    from deepspeed_tpu_torch.runtime.resilience import chaos
+    from deepspeed_tpu_torch.runtime.resilience.integrity import \
+        CheckpointCorruptionError
+    from deepspeed_tpu_torch.telemetry import flightrec
+    from deepspeed_tpu_torch.tools.profile_training import BENCH_CONFIG
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt")
+    integrity_on = {"enabled": True, "sentinel": {"enabled": False},
+                    "watchdog": {"enabled": False}}
+    try:
+        # (a) resume
+        save_dir = os.path.join(root, "resume")
+        a = ckpt_engine(seed, resilience=integrity_on)
+        n_layer = a.module.config.n_layer
+        batches = ckpt_batches(a, seed, 2 * CKPT_STEPS)
+        first = ckpt_steps(a, batches[:CKPT_STEPS])
+        save_s, hash_s, nbytes = timed_save(a, save_dir, "a3")
+        saved = {k: v.clone() for k, v in a.module_state_dict().items()}
+        want = ckpt_steps(a, batches[CKPT_STEPS:])
+        del a
+        torch.cuda.empty_cache()
+        b = ckpt_engine(seed + 1, resilience=integrity_on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tag, _ = b.load_checkpoint(save_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if tag != "a3" or b.global_steps != CKPT_STEPS:
+            raise AssertionError(f"checkpoint: loaded {tag!r} at step "
+                                 f"{b.global_steps}")
+        reset_launch_counts()
+        got = ckpt_steps(b, batches[CKPT_STEPS:])
+        resume_counts = launch_counts()
+        check_per_step("checkpoint resume", resume_counts, CKPT_STEPS,
+                       {"flash_fwd": n_layer, "flash_bwd_dq": n_layer,
+                        "flash_bwd_dkv": n_layer})
+        if got != want:
+            raise AssertionError(f"checkpoint resume: losses {got} are not "
+                                 f"bit-equal to the uninterrupted run's "
+                                 f"{want}")
+        t0 = time.perf_counter()
+        advance_key(np.zeros(2, np.uint32), RNG_SPLITS)
+        rng_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"checkpoint (a) resume: GPT-2 125M, bench keys; steps 1-3 "
+            f"losses {[round(x, 4) for x in first]}; save of step 3 "
+            f"{save_s:.3f} s for {nbytes} bytes ({nbytes / save_s / 1e9:.3f}"
+            f" GB/s; the manifest's sha256 {1e3 * hash_s:.1f} ms of it), "
+            f"load {load_s:.3f} s (verify included); the key's advance "
+            f"over {RNG_SPLITS} micro steps (paid at a save) {rng_ms:.1f} "
+            f"ms; steps 4-6 resumed {got} bit-equal to uninterrupted "
+            f"{want}; launches per "
+            f"step flash_fwd {resume_counts['flash_fwd'] / CKPT_STEPS}, "
+            f"flash_bwd_dq {resume_counts['flash_bwd_dq'] / CKPT_STEPS}, "
+            f"flash_bwd_dkv {resume_counts['flash_bwd_dkv'] / CKPT_STEPS} "
+            f"[{card}]")
+
+        # (d) fallback: B saves step 6; its bytes are corrupted
+        timed_save(b, save_dir, "a6")
+        bad = chaos.corrupt_checkpoint(os.path.join(save_dir, "a6"))
+        tag, _ = b.load_checkpoint(save_dir)
+        fault = b.resilience.fault_tail[-1]
+        if (tag != "a3" or fault["name"] != "ckpt.fallback"
+                or os.path.basename(bad) not in fault["error"]):
+            raise AssertionError(f"checkpoint fallback: loaded {tag!r}, "
+                                 f"last fault {fault}")
+        try:
+            b.load_checkpoint(save_dir, tag="a6")
+        except CheckpointCorruptionError as e:
+            explicit = str(e)
+        else:
+            raise AssertionError("checkpoint fallback: the explicit corrupt "
+                                 "tag loaded")
+        log(f"checkpoint (d) fallback: {os.path.basename(bad)} of a6 "
+            f"corrupted; latest resumed a3 (fault {fault['name']}: "
+            f"{fault['error'][:120]}...); explicit a6 raised: "
+            f"{explicit[:120]}...")
+        del b
+        torch.cuda.empty_cache()
+
+        # (f) the handoff: A's tag dir served directly
+        model = GPT2LMHeadModel(GPT2Config.gpt2_125m(), device="meta")
+        model.load_state_dict({k[len("model."):]: v
+                               for k, v in saved.items()}, assign=True)
+        ref_engine = deepspeed_tpu_torch.init_inference(model)
+        ids = generate_ids(ref_engine, seed)
+        ref = ref_engine.generate(ids, max_new_tokens=CKPT_NEW)
+        del model, saved, ref_engine
+        served = deepspeed_tpu_torch.init_inference(
+            GPT2LMHeadModel(GPT2Config.gpt2_125m(), device="meta"),
+            checkpoint=os.path.join(save_dir, "a3"))
+        reset_launch_counts()
+        out = served.generate(ids, max_new_tokens=CKPT_NEW)
+        torch.cuda.synchronize()
+        handoff_counts = launch_counts()
+        if not torch.equal(out, ref):
+            raise AssertionError("checkpoint handoff: tokens differ from "
+                                 "an engine on A's weights")
+        want_k = {"flash_fwd": n_layer,
+                  "decode_append": n_layer * (CKPT_NEW - 1)}
+        for name, n in want_k.items():
+            if handoff_counts[name] != n:
+                raise AssertionError(f"checkpoint handoff: {name} launched "
+                                     f"{handoff_counts[name]} times, not "
+                                     f"{n}")
+        log(f"checkpoint (f) handoff: init_inference(checkpoint=<a3>) "
+            f"greedy {CKPT_NEW} tokens x {ids.shape[0]} rows equal to "
+            f"A's weights' run; launches flash_fwd "
+            f"{handoff_counts['flash_fwd']}, decode_append "
+            f"{handoff_counts['decode_append']} [{card}]")
+        del served, out, ref
+        shutil.rmtree(save_dir)
+        torch.cuda.empty_cache()
+
+        # (b) ZeRO 3 -> ZeRO 0: 2 steps and a save, then CKPT_STEPS more
+        # on each side; the Adam state as loaded against the saved one
+        zero_dir = os.path.join(root, "zero")
+        store = os.path.join(root, "store")
+        comm.init_distributed(init_method=f"file://{store}", rank=0,
+                              world_size=1, verbose=False)
+        try:
+            z3 = ckpt_engine(seed, zero_optimization={"stage": 3})
+            zb = ckpt_batches(z3, seed, 2 + CKPT_STEPS)
+            ckpt_steps(z3, zb[:2])
+            z3.save_checkpoint(zero_dir)
+            saved_adam = whole_adam_state(z3)
+            want = ckpt_steps(z3, zb[2:])
+            want_params = {k: v.cpu() for k, v in
+                           z3.module_state_dict().items()}
+            del z3
+        finally:
+            comm.destroy_process_group()
+        torch.cuda.empty_cache()
+        z0 = ckpt_engine(seed + 1)
+        z0.load_checkpoint(zero_dir)
+        loaded_adam = whole_adam_state(z0)
+        same_adam = loaded_adam["step"] == saved_adam["step"] and all(
+            torch.equal(loaded_adam[k][n], v) for k in ADAM_SLOTS
+            for n, v in saved_adam[k].items())
+        got = ckpt_steps(z0, zb[2:])
+        loss_err = max(abs(x - y) for x, y in zip(got, want))
+        got_params = z0.module_state_dict()
+        param_err = max((got_params[k].cpu() - v).abs().max().item()
+                        for k, v in want_params.items())
+        lr = BENCH_CONFIG["optimizer"]["params"]["lr"]
+        if (not same_adam or loss_err > ZERO_LOSS_ATOL
+                or param_err > 2 * lr * CKPT_STEPS):
+            raise AssertionError(
+                f"checkpoint ZeRO 3 -> 0: Adam state as loaded equal to the "
+                f"saved {same_adam}; losses {got} vs {want}; parameters' "
+                f"max |diff| {param_err} (limit {2 * lr * CKPT_STEPS})")
+        log(f"checkpoint (b) ZeRO 3 (NCCL, world 1) -> ZeRO 0: Adam step "
+            f"{loaded_adam['step']} and slots as loaded bit-equal to the "
+            f"saved; steps 3-{2 + CKPT_STEPS} losses {got} vs {want} (max "
+            f"|diff| {loss_err:.3g}, limit {ZERO_LOSS_ATOL}); parameters "
+            f"after them max |diff| {param_err:.3g} (limit 2 lr steps = "
+            f"{2 * lr * CKPT_STEPS:.3g}) [{card}]")
+        del z0, saved_adam, loaded_adam, want_params, got_params
+        shutil.rmtree(zero_dir)
+        torch.cuda.empty_cache()
+
+        # (c) rollback
+        tel_dir = os.path.join(root, "telemetry")
+        r = ckpt_engine(seed, resilience={
+            "enabled": True, "watchdog": {"enabled": False},
+            "sentinel": {"policy": "rollback", "sync_lag": 0}},
+            telemetry={"enabled": True, "dir": tel_dir,
+                       "compile_watchdog": False, "hlo_cost": False})
+        rb = ckpt_batches(r, seed, 4)
+        ckpt_steps(r, rb[:2])
+        r.save_checkpoint(os.path.join(root, "rollback"))
+        saved = {k: v.clone() for k, v in r.module_state_dict().items()}
+        poisoned = list(chaos.nan_batches(rb[2:3], at=0))[0]
+        bad_loss = ckpt_steps(r, [poisoned])[0]
+        restored = r.module_state_dict()
+        same = all(torch.equal(restored[k], v) for k, v in saved.items())
+        after = ckpt_steps(r, rb[3:])[0]
+        r.telemetry.flush()
+        faults = [e["name"] for e in read_jsonl(tel_dir)
+                  if e["kind"] == "fault"]
+        if not (np.isnan(bad_loss) and same and np.isfinite(after)
+                and r.global_steps == 3
+                and faults[-2:] == ["sentinel.trip", "sentinel.rollback"]):
+            raise AssertionError(f"checkpoint rollback: poisoned loss "
+                                 f"{bad_loss}, weights restored {same}, next "
+                                 f"loss {after}, step {r.global_steps}, "
+                                 f"faults {faults}")
+        log(f"checkpoint (c) rollback: poisoned step loss {bad_loss}; the "
+            f"weights equal the saved bytes; next loss {after}; faults in "
+            f"the sink {faults}")
+        r.destroy()
+        del r, saved, restored
+        shutil.rmtree(os.path.join(root, "rollback"))
+        torch.cuda.empty_cache()
+
+        # (e) the watchdog and the flight recorder
+        dump_dir = os.path.join(root, "dumps")
+        w = ckpt_engine(seed, dump_state=True, resilience={
+            "enabled": True, "sentinel": {"enabled": False},
+            "watchdog": {"timeout_secs": WD_TIMEOUT, "abort": False,
+                         "dump_dir": dump_dir}},
+            telemetry={"enabled": True, "dir": tel_dir + "-w",
+                       "compile_watchdog": False, "hlo_cost": False,
+                       "flight_recorder": {"enabled": True,
+                                           "dump_dir": dump_dir,
+                                           "on_sigterm": False}})
+        wb = ckpt_batches(w, seed, 2)
+        ckpt_steps(w, wb[:1])
+        forward = w.module.forward
+
+        def stalled(batch):
+            chaos.simulate_stall(WD_STALL)
+            return forward(batch)
+
+        w.module.forward = stalled
+        ckpt_steps(w, wb[1:])
+        del w.module.forward
+        dumps = flightrec.find_dumps(dump_dir)
+        texts = [f for f in os.listdir(dump_dir)
+                 if f.startswith("watchdog_dump_")]
+        tail = flightrec.load_dump(dumps[0])["events"] if dumps else []
+        summary = w.resilience.summary()
+        if not (w.resilience.watchdog.fired and texts and tail
+                and tail[-1]["name"] == "watchdog.hang"
+                and w.dump_state() is True
+                and sorted(summary) == RESILIENCE_SUMMARY_KEYS):
+            raise AssertionError(f"checkpoint watchdog: fired "
+                                 f"{w.resilience.watchdog.fired}, dumps "
+                                 f"{dumps} {texts}, tail {tail[-3:]}")
+        log(f"checkpoint (e) watchdog: {WD_STALL} s stall inside a step "
+            f"fired it at {WD_TIMEOUT} s (abort off): {texts[0]}, flight "
+            f"recorder dump of {len(tail)} events ending "
+            f"{[e['name'] for e in tail[-3:]]}; dump_state() "
+            f"{w.dump_state()}, summary keys {sorted(summary)}")
+        w.destroy()
+        del w
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return resume_counts, handoff_counts
 
 
 # phase 8: BERT-large MLM with the sparse_attention section. 3 warm-up and
@@ -5677,6 +6051,11 @@ def main():
     ms_per_step = {"ms_per_step": reference["zero_ms"][1]}
     del reference
     log(f"phase 3b: ZeRO stages {ZERO_STAGES} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["checkpoint_resume"], by_path["handoff"] = phase_checkpoint(
+        args.seed, card)
+    log(f"phase 16: checkpoints and resilience in "
         f"{time.perf_counter() - t0:.1f} s")
 
     model = GPT2LMHeadModel(GPT2Config.gpt2_125m(), seed=args.seed)

@@ -50,20 +50,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``with_tensor_parallel`` hook: ``GPT2ForTraining``).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
-    the dataloader is None. ``training_data`` comes with the checkpoint
-    slice (the data-loader cursor); every parameter of ``model`` is
+    with ``training_data`` the dataloader is the engine's
+    ``deepspeed_io(training_data)`` (a ``DeepSpeedDataLoader`` of global
+    micro-batches with JAX's sample order and cursor, ``collate_fn``
+    assembling samples), else None. Every parameter of ``model`` is
     trained, so ``model_parameters`` is not taken."""
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
-    for name, value, where in (
-            ("training_data", training_data, "the checkpoint slice"),
-            ("collate_fn", collate_fn, "the checkpoint slice"),
-            ("model_parameters", model_parameters,
-             "no slice: the engine trains every parameter of the model")):
-        if value is not None:
-            raise NotImplementedError(
-                f"initialize({name}=...) is not supported by the PyTorch "
-                f"port: {where}")
+    if model_parameters is not None:
+        raise NotImplementedError(
+            "initialize(model_parameters=...) is not supported by the "
+            "PyTorch port: no slice: the engine trains every parameter of "
+            "the model")
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -71,8 +69,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine = DeepSpeedEngine(model=model, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, config=config,
                              device=device, mesh=mesh,
-                             dist_init_required=dist_init_required)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             dist_init_required=dist_init_required,
+                             training_data=training_data,
+                             collate_fn=collate_fn)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
 
 
 def init_distributed(dist_backend="xla", **kwargs):

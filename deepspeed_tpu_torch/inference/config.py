@@ -5,14 +5,16 @@
 unported slice are accepted under the same names, aliases and defaults:
 ``max_out_tokens``, ``tensor_parallel`` (``tp``, ``mp_size``),
 ``injection_policy`` (``injection_dict``, ``injection_policy_tuple``)
-and ``telemetry`` (the training config's section) take effect, the rest are inert (the engine logs a note for each one set
-to another value than its default, :data:`INERT`). Sections the port
+``telemetry`` and ``resilience`` (the training config's sections),
+``checkpoint`` (with ``base_dir``) and ``save_mp_checkpoint_path`` take
+effect, the rest are inert (the engine logs a note for each one set to
+another value than its default, :data:`INERT`). Sections the port
 does not implement yet raise :class:`NotImplementedError` naming the
 slice of the port that brings them, instead of being accepted and
 ignored.
 """
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from pydantic import Field
@@ -28,10 +30,7 @@ _DTYPE_MAP = {
 # config keys the JAX inference config accepts, and the port's slice that
 # will implement each (ROADMAP.md, Queue 1)
 UNPORTED = {
-    "resilience": "the resilience slice",
     "tuning": "the autotuning slice",
-    "checkpoint": "the checkpoint slice",
-    "save_mp_checkpoint_path": "the checkpoint slice",
     "quant": "the weight-only int8 slice",
     "zero": "the ZeRO-Inference slice",
     "moe": "the MoE slice",
@@ -107,6 +106,18 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     # `telemetry` section (runtime/config.TelemetryConfig), parsed by the
     # engine's Telemetry manager
     telemetry: Dict = {}
+    # the fault-tolerance layer (the training config's `resilience`
+    # section, runtime/config.ResilienceConfig): the serving engines arm
+    # its hang watchdog on request progress
+    resilience: Dict = {}
+    # a checkpoint DIRECTORY to serve (a training save_checkpoint layout
+    # of either package, or a save_mp_checkpoint_path output), joined
+    # onto base_dir when relative; save_mp_checkpoint_path writes the
+    # dtype-converted weights there once at construction
+    checkpoint: Optional[Union[str, Dict]] = None
+    base_dir: str = ""
+    save_mp_checkpoint_path: Optional[str] = None
+    checkpoint_config: Optional[Dict] = Field(None, alias="ckpt_config")
     max_out_tokens: int = Field(1024, alias="max_tokens")
     tensor_parallel: DeepSpeedTPConfig = Field(DeepSpeedTPConfig(),
                                                alias="tp")
@@ -154,6 +165,10 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
             from deepspeed_tpu_torch.runtime.config import TelemetryConfig
 
             TelemetryConfig(**data["telemetry"])
+        if data.get("resilience"):
+            from deepspeed_tpu_torch.runtime.config import ResilienceConfig
+
+            ResilienceConfig(**data["resilience"])
         if "dtype" in data:
             data["dtype"] = resolve_dtype(data["dtype"])
         if "mp_size" in data and "tensor_parallel" not in data \

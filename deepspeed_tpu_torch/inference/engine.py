@@ -47,10 +47,22 @@ host, ending in a synchronize of the device, into the list
 :meth:`InferenceEngine.model_times` drains (a rank times its own rows,
 not the gather); each entry is mirrored into the telemetry stream as a
 ``model_time`` event, and each ``generate`` is a step boundary of the
-engine's ``Telemetry(name="inference")`` (the ``telemetry`` section).
+engine's ``Telemetry(name="inference")`` (the ``telemetry`` section)
+and of its ``Resilience(name="inference", serving=True)`` (the
+``resilience`` section: the hang watchdog's stall timer runs while a
+request is in flight).
 
-Not in this slice: weight-only int8, resilience and ``load_checkpoint``
-(the checkpoint slice).
+Checkpoints (JAX's ``resolve_checkpoint_params`` / ``load_module_params``
+/ ``save_mp_checkpoint``): ``checkpoint=`` names a checkpoint directory
+of either package — a training ``save_checkpoint`` directory (its
+``latest`` tag), one tag directory, or a ``save_mp_checkpoint_path``
+output — whose module file replaces the model's weights before the
+engine slices and casts them (build the model on ``meta`` to skip its
+init); ``save_mp_checkpoint_path`` writes the dtype-converted whole
+weights in the same layout, and ``load_checkpoint`` swaps the served
+weights in place.
+
+Not in this slice: weight-only int8.
 """
 
 import time
@@ -72,6 +84,7 @@ from deepspeed_tpu_torch.models.decode_utils import validate_left_padded_mask
 from deepspeed_tpu_torch.ops.sampling import keyed_sample
 from deepspeed_tpu_torch.serving.config import (ServingConfig, bucket_for,
                                                 resolve_buckets)
+from deepspeed_tpu_torch.runtime.resilience.manager import Resilience
 from deepspeed_tpu_torch.telemetry.manager import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -84,6 +97,92 @@ def warn_inert_options(config):
     for name, why in config.inert_notes():
         log_dist(f"inference config '{name}' has no effect on this "
                  f"backend: {why}", ranks=[0])
+
+
+def resolve_checkpoint_params(checkpoint, base_dir=""):
+    """The JAX-layout param tree for an engine's ``checkpoint=`` (a
+    checkpoint directory, joined onto ``base_dir`` when relative);
+    anything else fails loudly, as in the JAX engine."""
+    import os
+
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
+
+    if base_dir and isinstance(checkpoint, str) \
+            and not os.path.isabs(checkpoint):
+        checkpoint = os.path.join(base_dir, checkpoint)
+    if isinstance(checkpoint, str) and os.path.isdir(checkpoint):
+        return load_module_params(checkpoint)
+    raise DeepSpeedConfigError(
+        f"checkpoint= resolved to {checkpoint!r}, which is not a "
+        "checkpoint DIRECTORY (training save_checkpoint layout or a "
+        "save_mp_checkpoint_path output); for HF model names / "
+        "sharded-index dirs use deepspeed_tpu_torch.inference.auto."
+        "from_pretrained")
+
+
+def load_module_params(load_dir, tag=None):
+    """The module file's param tree (nested dicts of numpy arrays, bf16
+    leaves as fp32) from a checkpoint directory: ``<load_dir>/<tag>``
+    with the tag from ``latest`` (``global_step0`` without one), or
+    ``load_dir`` itself when it is a tag directory."""
+    import os
+
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine \
+        import ArrayCheckpointEngine, read_latest, unflatten_by_paths
+
+    if tag is None and os.path.exists(os.path.join(load_dir, "module.npz")):
+        path = os.path.join(load_dir, "module")
+    else:
+        if tag is None:
+            tag = read_latest(load_dir) or "global_step0"
+        path = os.path.join(load_dir, str(tag), "module")
+    state = ArrayCheckpointEngine().load(path)
+    state = {k: (v.float().numpy() if isinstance(v, torch.Tensor) else v)
+             for k, v in state.items()}
+    return unflatten_by_paths(state, "params/")
+
+
+def save_mp_checkpoint(path, model, dtype):
+    """``save_mp_checkpoint_path``: rank 0 writes the whole model's
+    weights cast to ``dtype`` as ``<path>/inference/module`` (the JAX
+    layout; bf16 leaves carry the ``#dtype`` marker) and ``latest``;
+    every rank waits for it."""
+    import os
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine \
+        import ArrayCheckpointEngine, atomic_write_text
+
+    if comm.get_rank() == 0:
+        tag = "inference"
+        sd = {k: (v.to(dtype) if v.is_floating_point() else v)
+              for k, v in model.state_dict().items()}
+        ArrayCheckpointEngine().save({"params": jax_tree_of(model, sd)},
+                                     os.path.join(path, tag, "module"))
+        atomic_write_text(os.path.join(path, "latest"), tag)
+        log_dist(f"saved inference (mp) checkpoint to {path}", ranks=[0])
+    if comm.get_world_size() > 1:
+        comm.barrier()
+
+
+def jax_tree_of(model, state_dict):
+    """The JAX model's flax tree of an inference model's whole state
+    dict (GPT-2 or Llama)."""
+    from deepspeed_tpu_torch.utils import params as P
+
+    if hasattr(model.config, "n_layer"):
+        return P.params_to_jax(state_dict, model.config)
+    return P.llama_params_to_jax(state_dict, model.config)
+
+
+def state_dict_from_jax(model, tree):
+    """An inference model's whole state dict from the JAX model's flax
+    tree (GPT-2 or Llama)."""
+    from deepspeed_tpu_torch.utils import params as P
+
+    if hasattr(model.config, "n_layer"):
+        return P.params_from_jax(tree, model.config)
+    return P.llama_params_from_jax(tree, model.config)
 
 
 def model_window(model_config) -> int:
@@ -178,6 +277,16 @@ class InferenceEngine:
         self.policy = get_tp_policy(config.injection_policy
                                     or config.injection_policy_tuple)
         self.model_config = model.config
+        if config.checkpoint is not None:
+            # the checkpoint's weights replace the model's, whole, before
+            # the engine slices and casts them
+            model.load_state_dict(state_dict_from_jax(
+                model, resolve_checkpoint_params(config.checkpoint,
+                                                 config.base_dir)),
+                assign=True)
+        if config.save_mp_checkpoint_path:
+            save_mp_checkpoint(config.save_mp_checkpoint_path, model,
+                               config.dtype)
         model = self._shard(model)
         # reference _convert_to_dtype: weights cast once, moved to the
         # device, frozen (inference only: the kernels have no backward)
@@ -192,6 +301,12 @@ class InferenceEngine:
         self._model_times = []
         self.model_profile_enabled = False
         self.telemetry = Telemetry(config.telemetry, name="inference")
+        # the hang watchdog covers serving too: a wedged collective in a
+        # generate step stalls request progress as a training stall
+        # stops step boundaries
+        self.resilience = Resilience(config.resilience,
+                                     telemetry=self.telemetry,
+                                     name="inference", serving=True)
         self._request_count = 0
         # the forwards through the signature watch (themselves with
         # telemetry off), unbound: a bound method kept on the engine
@@ -340,12 +455,29 @@ class InferenceEngine:
         times, self._model_times = self._model_times, []
         return times
 
+    def load_checkpoint(self, load_dir, tag=None):
+        """Serve the module weights of a checkpoint directory (JAX's
+        ``load_checkpoint``): whole tensors, sliced for this rank and
+        cast, copied into the served weights in place."""
+        sd = state_dict_from_jax(self.module,
+                                 load_module_params(load_dir, tag))
+        if self.mp_world_size > 1:
+            sd, _ = shard_params_with_policy(
+                sd, self.policy, self.topo.get_tensor_parallel_rank(),
+                self.mp_world_size, specs=self.param_shardings)
+        with torch.no_grad():
+            for name, t in self.module.state_dict().items():
+                if name in sd:
+                    t.copy_(sd[name])
+        self._decode_models.clear()
+
     def destroy(self):
         """Drop the decode-mode modules and the model times and close the
-        telemetry (stopping an open trace window), as the JAX engine
-        releases its compiled programs and telemetry."""
+        resilience manager and the telemetry (stopping an open trace
+        window), as the JAX engine releases its compiled programs."""
         self._decode_models.clear()
         self._model_times = []
+        self.resilience.close()
         self.telemetry.close()
 
     def eval(self):
@@ -355,11 +487,30 @@ class InferenceEngine:
         return self
 
     # ------------------------------------------------------------------
-    @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 0.0, eos_token_id: int = -1,
                  attention_mask=None, generator=None, seed=None):
+        """:meth:`_generate` inside the resilience bracket: the hang
+        watchdog's stall timer runs only while a request is in flight,
+        and a raising request clears its bracket."""
+        self.resilience.serving_request_begin()
+        try:
+            return self._generate(
+                input_ids, max_new_tokens=max_new_tokens,
+                do_sample=do_sample, temperature=temperature, top_k=top_k,
+                top_p=top_p, eos_token_id=eos_token_id,
+                attention_mask=attention_mask, generator=generator,
+                seed=seed)
+        except BaseException:
+            self.resilience.serving_request_abandon()
+            raise
+
+    @torch.inference_mode()
+    def _generate(self, input_ids, max_new_tokens: Optional[int] = None,
+                  do_sample: bool = False, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 0.0, eos_token_id: int = -1,
+                  attention_mask=None, generator=None, seed=None):
         """Autoregressive generation (timed into :meth:`model_times`). Returns ``[batch, prompt_len +
         max_new_tokens]`` token ids on the engine's device (prompt
         included, HF-style); after ``eos_token_id`` a row repeats it
@@ -451,6 +602,7 @@ class InferenceEngine:
         # synchronize above is the fence it piggybacks on)
         self._request_count += 1
         self.telemetry.on_step_boundary(self._request_count, samples=int(B))
+        self.resilience.serving_heartbeat(self._request_count)
         return out
 
     def _bucket_prompt(self, ids, attention_mask, limit, max_new_tokens):

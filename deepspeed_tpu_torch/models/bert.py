@@ -85,6 +85,10 @@ class BertConfig:
     remat_policy: str = "full"
     cpu_checkpointing: bool = False
     partition_activations: bool = False
+    # the JAX tree's layer layout in checkpoints (stacked under
+    # bert/encoder/layers/layer, else one layer_<i> each): the port's
+    # encoder loops over its layers either way
+    scan_layers: bool = True
     # ds-config "sparse_attention" section (mode/block/...): the encoder
     # attends through the block-sparse layout zoo instead of densely.
     # Accepts a dict; stored as a sorted item tuple so the frozen config

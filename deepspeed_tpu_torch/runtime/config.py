@@ -18,7 +18,12 @@ keys: the ``telemetry`` section (:class:`TelemetryConfig`, with its
 ``trace``, ``tracing`` and ``flight_recorder`` blocks),
 ``wall_clock_breakdown``, ``memory_breakdown``, ``comms_logger``
 (:class:`CommsLoggerConfig`) and the monitor writers ``tensorboard``,
-``wandb`` and ``csv_monitor`` (:class:`MonitorConfig`), with the JAX
+``wandb`` and ``csv_monitor`` (:class:`MonitorConfig`), and the
+checkpoint and resilience slice's keys: ``checkpoint``
+(:class:`CheckpointConfig`), ``nebula`` (:class:`NebulaConfig`),
+``resilience`` (:class:`ResilienceConfig`), ``dump_state``,
+``dataloader_drop_last`` and ``elasticity`` (a dict whose ``enabled``
+writes the topology manifest into every checkpoint), with the JAX
 config's keys, defaults, validation and error texts. A key the JAX config
 accepts but this port does not implement yet raises
 :class:`NotImplementedError` naming the slice of the port that brings it,
@@ -64,14 +69,12 @@ UNPORTED = {
     "eigenvalue": _TRAINING_FEATURES,
     "flops_profiler": _TRAINING_FEATURES,
     "amp": _TRAINING_FEATURES, "data_types": _TRAINING_FEATURES,
-    "resilience": "the resilience slice",
-    "checkpoint": "the checkpoint slice", "nebula": "the checkpoint slice",
-    "elasticity": "the checkpoint slice", "aot": "the checkpoint slice",
-    "dataloader_drop_last": "the checkpoint slice",
+    "aot": "the checkpoint slice's aot decision ([10])",
     "tuning": "the autotuning slice", "autotuning": "the autotuning slice",
     "aio": "the offload slice",
-    "dump_state": "the resilience slice",
 }
+# per-rank sharded and async checkpoints (ROADMAP [10b])
+SHARDED_CHECKPOINTS = "the sharded-checkpoint slice ([10b])"
 SUPPORTED = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     C.GRADIENT_ACCUMULATION_STEPS, C.OPTIMIZER, C.SCHEDULER,
@@ -81,7 +84,9 @@ SUPPORTED = frozenset({
     C.COMMUNICATION_DATA_TYPE, C.DISABLE_ALLGATHER, C.SPARSE_GRADIENTS,
     C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.TENSOR_PARALLEL,
     C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN, C.TELEMETRY,
-    C.COMMS_LOGGER, C.TENSORBOARD, C.WANDB, C.CSV_MONITOR})
+    C.COMMS_LOGGER, C.TENSORBOARD, C.WANDB, C.CSV_MONITOR, C.CHECKPOINT,
+    C.NEBULA, C.RESILIENCE, C.DUMP_STATE, C.DATALOADER_DROP_LAST,
+    C.ELASTICITY})
 
 
 class CommsLoggerConfig(DeepSpeedConfigModel):
@@ -171,8 +176,12 @@ class TelemetryTracingConfig(DeepSpeedConfigModel):
 
 
 class TelemetryFlightRecorderConfig(DeepSpeedConfigModel):
-    """``telemetry.flight_recorder``: JAX's keys and checks; enabling it
-    raises, since the recorder comes with the resilience slice."""
+    """``telemetry.flight_recorder``: a bounded in-memory ring of recent
+    telemetry events (spans included) + metric-registry snapshots,
+    continuously armed while telemetry is on and dumped atomically to
+    ``<dump_dir>/flightrec-<ts>/`` on fault events, breaker trips,
+    SIGTERM, or an explicit call (``telemetry/flightrec.py``). Off by
+    default; it changes host-side bookkeeping only."""
 
     enabled: bool = False
     events: int = 512
@@ -187,10 +196,6 @@ class TelemetryFlightRecorderConfig(DeepSpeedConfigModel):
             raise ValueError(
                 "telemetry.flight_recorder needs events > 0, "
                 "snapshots >= 0 and max_dumps >= 1")
-        if self.enabled:
-            raise NotImplementedError(
-                "telemetry.flight_recorder is not ported yet: it comes "
-                "with the resilience slice of the PyTorch port")
         return self
 
 
@@ -241,6 +246,171 @@ class TelemetryConfig(DeepSpeedConfigModel):
             raise ValueError("telemetry.metrics_port must be a valid "
                              "port (0 binds an ephemeral one) or absent")
         return self
+
+
+class CheckpointConfig(DeepSpeedConfigModel):
+    """``checkpoint`` section (JAX's ``CheckpointConfig``): tag
+    validation across ranks; ``sharded`` and ``async_save`` (JAX's orbax
+    tiers) raise naming ROADMAP item [10b]."""
+
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: dict = Field(default_factory=dict)
+    async_save: bool = False
+    sharded: bool = False
+
+    @model_validator(mode="after")
+    def _check_tag_validation(self):
+        normalized = self.tag_validation.capitalize()
+        if normalized not in C.CHECKPOINT_TAG_VALIDATION_MODES:
+            raise ValueError(
+                f"checkpoint.tag_validation must be one of "
+                f"{C.CHECKPOINT_TAG_VALIDATION_MODES}, "
+                f"got {self.tag_validation!r}")
+        if normalized != self.tag_validation:
+            object.__setattr__(self, "tag_validation", normalized)
+        for key in ("sharded", "async_save"):
+            if getattr(self, key):
+                raise NotImplementedError(
+                    f"checkpoint.{key} is not ported yet: it comes with "
+                    f"{SHARDED_CHECKPOINTS} of the PyTorch port")
+        return self
+
+
+class NebulaConfig(DeepSpeedConfigModel):
+    """``nebula`` section: service-style tiered checkpointing — fast-tier
+    commits + periodic durable mirror with version retention. Served by
+    ``TieredCheckpointEngine``."""
+
+    enabled: bool = False
+    persistent_storage_path: Optional[str] = None
+    persistent_time_interval: float = 100.0
+    num_of_version_in_retention: int = 2
+    enable_nebula_load: bool = True
+    load_path: Optional[str] = None
+
+
+class ResilienceCheckpointConfig(DeepSpeedConfigModel):
+    """``resilience.checkpoint``: integrity manifests + fallback chain +
+    IO retry + retention (``runtime/resilience/integrity.py``).
+
+    - ``integrity``: write a per-file sha256 manifest as the ``commit()``
+      step and record the tag verified-good.
+    - ``verify_on_load``: re-check the manifest before any bytes
+      deserialize; a mismatch raises ``CheckpointCorruptionError`` and
+      (on a ``latest`` resume) falls back down the verified-good chain.
+    - ``fallback``: enable the resume fallback chain
+      (``latest`` → previous verified-good tags, newest first).
+    - ``retries`` / ``retry_backoff_secs``: transient save/load IO errors
+      retry with exponential backoff (``backoff * 2**attempt``).
+    - ``keep_last_n``: retention over *verified* tags; ``0`` keeps all.
+      The newest verified-good tag and the ``preempt`` tag are never
+      deleted.
+    - ``rollback_dir``: pins where ``sentinel.policy: rollback`` restores
+      from (default: the last ``save_checkpoint`` directory).
+    """
+
+    integrity: bool = True
+    verify_on_load: bool = True
+    fallback: bool = True
+    retries: int = 3
+    retry_backoff_secs: float = 0.2
+    keep_last_n: int = 0
+    rollback_dir: Optional[str] = None
+
+    @model_validator(mode="after")
+    def _check(self):
+        if self.retries < 0 or self.retry_backoff_secs < 0:
+            raise ValueError("resilience.checkpoint.retries and "
+                             "retry_backoff_secs must be >= 0")
+        if self.keep_last_n < 0:
+            raise ValueError("resilience.checkpoint.keep_last_n must be "
+                             ">= 0 (0 keeps everything)")
+        return self
+
+
+class ResilienceSentinelConfig(DeepSpeedConfigModel):
+    """``resilience.sentinel``: NaN/Inf + loss-spike detection at every
+    optimizer boundary (``runtime/resilience/sentinel.py``).
+
+    - ``policy``: ``warn`` (log + fault event) | ``skip`` (run the
+      fp16-style grads NaN/Inf check in the step: a bad step is skipped
+      exactly like an fp16 overflow) | ``abort`` (raise out of
+      ``engine.step()``) | ``rollback`` (restore the last verified-good
+      checkpoint in place).
+    - ``loss_spike_factor``: trip when loss > factor x the trailing
+      window's median (``0`` disables spike detection; nonfinite always
+      trips).
+    - ``loss_window`` / ``min_history``: trailing window size and the
+      minimum samples before spike detection arms.
+    - ``sync_lag``: boundaries to hold each loss before the host reads it
+      (``0`` checks immediately at the cost of run-ahead).
+    - ``max_rollbacks``: rollbacks tolerated before escalating to abort
+      (``0`` = unlimited).
+    """
+
+    enabled: bool = True
+    policy: str = "warn"
+    loss_spike_factor: float = 0.0
+    loss_window: int = 32
+    min_history: int = 4
+    sync_lag: int = 1
+    max_rollbacks: int = 3
+
+    @model_validator(mode="after")
+    def _check(self):
+        if self.policy not in ("warn", "skip", "abort", "rollback"):
+            raise ValueError(
+                "resilience.sentinel.policy must be one of warn/skip/"
+                f"abort/rollback, got {self.policy!r}")
+        if self.loss_window <= 0 or self.min_history < 1:
+            raise ValueError("resilience.sentinel.loss_window must be > 0 "
+                             "and min_history >= 1")
+        if self.sync_lag < 0 or self.loss_spike_factor < 0 \
+                or self.max_rollbacks < 0:
+            raise ValueError("resilience.sentinel.sync_lag, "
+                             "loss_spike_factor and max_rollbacks must be "
+                             ">= 0")
+        return self
+
+
+class ResilienceWatchdogConfig(DeepSpeedConfigModel):
+    """``resilience.watchdog``: background stall detector
+    (``runtime/resilience/watchdog.py``). Arms at the first completed
+    optimizer step; on ``timeout_secs`` without step progress it dumps
+    every Python thread's stack + the telemetry event tail to
+    ``dump_dir`` and (``abort``) SIGTERMs then hard-exits with
+    ``exit_code`` so the supervisor restarts the job."""
+
+    enabled: bool = True
+    timeout_secs: float = 600.0
+    poll_secs: float = 0.0  # 0 = auto (timeout/4, capped at 10s)
+    dump_dir: str = "./resilience"
+    abort: bool = True
+    exit_code: int = 43
+
+    @model_validator(mode="after")
+    def _check(self):
+        if self.timeout_secs <= 0 or self.poll_secs < 0:
+            raise ValueError("resilience.watchdog.timeout_secs must be > 0 "
+                             "and poll_secs >= 0")
+        return self
+
+
+class ResilienceConfig(DeepSpeedConfigModel):
+    """``resilience`` section: the fault-tolerance layer
+    (``deepspeed_tpu_torch/runtime/resilience/``). Off by default; with
+    the block absent or disabled an engine dispatches the same ops as
+    without it."""
+
+    enabled: bool = False
+    checkpoint: ResilienceCheckpointConfig = Field(
+        default_factory=ResilienceCheckpointConfig)
+    sentinel: ResilienceSentinelConfig = Field(
+        default_factory=ResilienceSentinelConfig)
+    watchdog: ResilienceWatchdogConfig = Field(
+        default_factory=ResilienceWatchdogConfig)
 
 
 class MeshConfig(DeepSpeedConfigModel):
@@ -419,6 +589,22 @@ class DeepSpeedConfig:
                                           C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.memory_breakdown = d.get(C.MEMORY_BREAKDOWN,
                                       C.MEMORY_BREAKDOWN_DEFAULT)
+        # the checkpoint and resilience slice
+        self.checkpoint_config = CheckpointConfig(**d.get(C.CHECKPOINT, {}))
+        self.nebula_config = NebulaConfig(**d.get(C.NEBULA, {}))
+        self.resilience_config = ResilienceConfig(**d.get(C.RESILIENCE,
+                                                          {}))
+        self.dump_state = d.get(C.DUMP_STATE, C.DUMP_STATE_DEFAULT)
+        self.dataloader_drop_last = d.get(C.DATALOADER_DROP_LAST,
+                                          C.DATALOADER_DROP_LAST_DEFAULT)
+        self.elasticity_config = d.get(C.ELASTICITY, {})
+        self.checkpoint_tag_validation_enabled = \
+            self.checkpoint_config.tag_validation != "Ignore"
+        self.checkpoint_tag_validation_fail = \
+            self.checkpoint_config.tag_validation == "Fail"
+        self.load_universal_checkpoint = self.checkpoint_config.load_universal
+        self.use_node_local_storage = \
+            self.checkpoint_config.use_node_local_storage
 
         if world_size is None:
             non_data = (self.mesh.tp * self.mesh.pipe * self.mesh.seq

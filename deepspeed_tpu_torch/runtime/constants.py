@@ -43,3 +43,20 @@ COMMS_LOGGER = "comms_logger"
 TENSORBOARD = "tensorboard"
 WANDB = "wandb"
 CSV_MONITOR = "csv_monitor"
+
+# the checkpoint and resilience slice
+CHECKPOINT = "checkpoint"
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal"
+LOAD_UNIVERSAL_CHECKPOINT_DEFAULT = False
+USE_NODE_LOCAL_STORAGE_CHECKPOINT = "use_node_local_storage"
+USE_NODE_LOCAL_STORAGE_CHECKPOINT_DEFAULT = False
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+NEBULA = "nebula"
+RESILIENCE = "resilience"
+DUMP_STATE = "dump_state"
+DUMP_STATE_DEFAULT = False
+DATALOADER_DROP_LAST = "dataloader_drop_last"
+DATALOADER_DROP_LAST_DEFAULT = False
+ELASTICITY = "elasticity"

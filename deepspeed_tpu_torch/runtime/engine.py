@@ -89,6 +89,31 @@ writers (``tensorboard``, ``wandb``, ``csv_monitor``) get the
 ``Train/Samples/*`` series, and ``comms_logger`` configures the comm
 facade's logger. ``destroy`` closes the telemetry.
 
+Checkpoints (JAX's ``save_checkpoint`` / ``load_checkpoint``, with its
+arguments and return values): ``<save_dir>/<tag>/`` holds ``module``,
+``optimizer`` and ``engine`` as npz + json (``ArrayCheckpointEngine``),
+in the JAX package's layout for the same config — the flax tree of the
+model (``utils/params.py:training_params_to_jax``: stacked layers, Dense
+kernels ``[in, out]``), Adam's ``opt_state/{step, exp_avg, exp_avg_sq}``
+under the same paths, the loss-scale counters, ``global_step``,
+``skipped_steps`` and ``rng``, and the engine's counters, lr scheduler
+and ``client_state`` — so a checkpoint crosses between the packages both
+ways. Rank 0 writes the whole tensors (ZeRO's split masters and slots,
+and tp slices, are gathered first); ``latest`` is written atomically
+after the commit. A load lays the whole tensors out for this engine's
+stage, data world and tp degree, whatever the saving run's were. The
+port runs no dropout, so it uses no random key: ``rng`` is carried and
+advanced as JAX's micro step splits it (one ``split(key, 4)[0]`` a
+micro step, computed when a checkpoint is written), so the saved key is
+JAX's. The ``resilience`` section (``runtime/resilience``) adds
+integrity manifests with a fallback chain, the step sentinel (its
+``skip`` policy turns the overflow check on in :meth:`_apply_math`) and
+the hang watchdog, at JAX's sites; ``elasticity.enabled`` writes the
+topology manifest (:meth:`describe_topology`, with the data-pipeline
+cursor and the key) into each tag. ``deepspeed_io`` builds the
+``DeepSpeedDataLoader`` of global micro-batches (``initialize(
+training_data=)``).
+
 Offload, the 1-bit optimizers, compression, MoQ, curriculum, PLD and the
 flops profiler are config keys that raise at parse time
 (``runtime/config.py``), naming their slice.
@@ -106,26 +131,36 @@ from deepspeed_tpu_torch.module_inject.layers import TensorParallel
 from deepspeed_tpu_torch.module_inject.policies import (
     gather_params_with_policy, shard_params_with_policy)
 from deepspeed_tpu_torch.ops.optimizer import FusedLamb, build_basic_optimizer
+from deepspeed_tpu_torch.ops.sampling import threefry_2x32
 from deepspeed_tpu_torch.parallel import topology as topo_mod
 from deepspeed_tpu_torch.parallel.topology import (AXIS_TP, MeshTopology,
                                                    normalize_axis_dict)
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+    ArrayCheckpointEngine, TieredCheckpointEngine, atomic_write_text,
+    flatten_tree, read_latest, unflatten_by_paths)
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 DeepSpeedConfigError)
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (create_loss_scaler,
                                                           has_inf_or_nan,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       get_lr_schedule_fn)
+from deepspeed_tpu_torch.runtime.resilience.manager import Resilience
 from deepspeed_tpu_torch.runtime.utils import global_norm
 from deepspeed_tpu_torch.runtime.zero.partition import (BATCH_AXES,
                                                         SpecLayout,
                                                         spec_entries)
-from deepspeed_tpu_torch.runtime.zero.reduce import GradScale
+from deepspeed_tpu_torch.runtime.zero.reduce import (GradScale,
+                                                     all_gather_flat)
 from deepspeed_tpu_torch.runtime.zero.stage import ZeroPartition
 from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.telemetry.manager import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.params import (model_family,
+                                              training_params_from_jax,
+                                              training_params_to_jax)
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
                                              FORWARD_GLOBAL_TIMER,
                                              STEP_GLOBAL_TIMER,
@@ -136,7 +171,8 @@ from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
 class DeepSpeedEngine:
     def __init__(self, model=None, optimizer=None, lr_scheduler=None,
                  config=None, device=None, mesh=None,
-                 dist_init_required=None):
+                 dist_init_required=None, training_data=None,
+                 collate_fn=None):
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize requires a "
                              "model")
@@ -257,8 +293,15 @@ class DeepSpeedEngine:
         self._last_loss = None
         self._last_grad_norm = None
         self._last_overflow = None
-        self.training_dataloader = None
         self.module_train = True
+        # JAX's TrainState.rng (PRNGKey(0)), carried: advanced lazily by
+        # one split a micro step since `_rng_micro` (_current_rng)
+        self._rng = np.zeros(2, np.uint32)
+        self._rng_micro = 0
+        self.collate_fn = collate_fn
+        self._elastic_loader = None
+        self.training_dataloader = (self.deepspeed_io(training_data)
+                                    if training_data is not None else None)
 
         # --- the telemetry slice (JAX engine's sites) ---
         self.wall_clock_breakdown_ = bool(self._config.wall_clock_breakdown)
@@ -271,6 +314,18 @@ class DeepSpeedEngine:
         self.telemetry = Telemetry(self._config.telemetry_config,
                                    monitor=self.monitor, name="engine")
         dist.configure(deepspeed_config=self._config)
+
+        # --- checkpoints and resilience (JAX's sites) ---
+        self.checkpoint_engine = ArrayCheckpointEngine()
+        if self._config.nebula_config.enabled:
+            self.checkpoint_engine = TieredCheckpointEngine(
+                self._config.nebula_config, inner=self.checkpoint_engine)
+        self.resilience = Resilience(self._config.resilience_config,
+                                     telemetry=self.telemetry, name="engine")
+        # policy "skip" runs the fp16-style overflow check in the step
+        self._sentinel_skip = self.resilience.sentinel_in_graph
+        self.checkpoint_engine = self.resilience.wrap_checkpoint_engine(
+            self.checkpoint_engine)
         # the step callables, unbound (a bound method kept on the engine
         # would make a reference cycle that outlives a `del engine`)
         self._fwd_bwd = self.telemetry.watch_jit(
@@ -442,13 +497,15 @@ class DeepSpeedEngine:
                      for p in self._params]
         if self.fp16_enabled_:
             torch._foreach_mul_(grads, 1.0 / self._loss_scale())
-        overflow = has_inf_or_nan(grads) if self.fp16_enabled_ else None
+        overflow = (has_inf_or_nan(grads)
+                    if self.fp16_enabled_ or self._sentinel_skip else None)
         if zero is not None:
             # one all-reduce: the split slots' squares and the flag
             grad_norm, overflow = zero.norm_and_overflow(grads, overflow)
         else:
             grad_norm = global_norm(grads)
-        # the one host sync of the step, and only under fp16
+        # the one host sync of the step, and only under fp16 (or the
+        # sentinel's skip policy)
         overflow = bool(overflow) if overflow is not None else False
         clip = self._config.gradient_clipping
         if clip and clip > 0:
@@ -564,6 +621,13 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown_:
             self.tput_timer.stop(global_step=at_boundary)
         self.micro_steps += 1
+        if at_boundary:
+            # resilience boundary, after every counter has settled:
+            # watchdog heartbeat + the sentinel's (lagged) loss check; a
+            # trip applies the policy (abort raises, rollback restores the
+            # last verified-good checkpoint in place)
+            self.resilience.on_step_boundary(self, self.global_steps,
+                                             loss=self._last_loss)
 
     @torch.no_grad()
     def eval_batch(self, batch):
@@ -663,22 +727,27 @@ class DeepSpeedEngine:
                 hook.remove()
         self._zero = None
         self._opt_state = None
+        self.resilience.close()
         self.telemetry.close()
 
     def describe_topology(self, include_tensors: bool = True,
                           include_data: bool = True) -> dict:
-        """The engine's topology manifest (the JAX engine's keys): the
-        mesh and world, the ZeRO stage, the batch geometry and the
-        counters; ``format`` "consolidated" and no data-pipeline cursor
-        or RNG (the checkpoint slice brings them); with
-        ``include_tensors``, each parameter's whole shape, dtype and spec
-        (``params/<name>``, the port's dim order) and its optimizer
-        state's layout (``opt_state/<name>``, every slot of it alike)."""
-        del include_data
+        """The engine's topology manifest (JAX's keys): the mesh and
+        world, the ZeRO stage, the batch geometry, the counters, the
+        data-pipeline cursor (``include_data``) and the carried key
+        ``rng``; with ``include_tensors``, each tensor of the checkpoint
+        file under JAX's names (``params/<flax path>``,
+        ``opt_state/.step``, ``opt_state/.exp_avg/<flax path>``, ...)
+        with its whole shape and dtype (``spec`` empty: the port's
+        splits are its own). Written into every tag when
+        ``elasticity.enabled``; the current side of the diff at load."""
+        from deepspeed_tpu_torch.runtime.resilience.topology import (
+            TOPOLOGY_MANIFEST_VERSION)
+
         layout = self.spec_layout
         mesh = layout.mesh
         manifest = {
-            "version": 1,
+            "version": TOPOLOGY_MANIFEST_VERSION,
             "mesh": {"axes": {a: int(n) for a, n in mesh.axis_sizes.items()},
                      "world_size": int(mesh.world_size),
                      "process_count": int(mesh.world_size)},
@@ -694,23 +763,448 @@ class DeepSpeedEngine:
                          "micro_steps": int(self.micro_steps),
                          "global_samples": int(self.global_samples)},
             "format": "consolidated",
-            "data_pipeline": None,
+            "data_pipeline": (self._data_pipeline_state()
+                              if include_data else None),
+            "rng": [int(x) for x in self._current_rng()],
         }
         if include_tensors:
-            planned = {e.name: e for e in (self._zero.entries
-                                           if self._zero is not None
-                                           else [])}
-            tensors = {}
-            for name, p in self.module.named_parameters():
-                e = planned.get(name)
-                shape = [int(d) for d in (e.pplan.shape if e else p.shape)]
-                for prefix, plan in (("params/", e and e.pplan),
-                                     ("opt_state/", e and e.oplan)):
-                    tensors[prefix + name] = {
-                        "shape": shape, "dtype": "float32",
-                        "spec": spec_entries(plan.spec) if plan else []}
-            manifest["tensors"] = tensors
+            manifest["tensors"] = self._tensor_manifest()
         return manifest
+
+    def _tensor_manifest(self) -> dict:
+        """``{name: {"shape", "dtype", "spec"}}`` of each tensor the
+        checkpoint file holds, named and shaped as JAX names them, from
+        whole shapes alone (no collective); each spec is the ZeRO / tp
+        plan's (``[]`` replicated) laid out as the file lays its tensor."""
+        meta = self._whole_meta()
+        names = list(meta)
+        planned = {e.name: e for e in (self._zero.entries
+                                       if self._zero is not None else [])}
+        # which parameter each file leaf holds: the file tree of
+        # one-element tensors holding each parameter's index
+        marks = flatten_tree(self._to_file_tree(
+            {n: torch.full((1,) * meta[n].ndim, float(i))
+             for i, n in enumerate(names)}))
+        shapes = flatten_tree(self._to_file_tree(meta))
+        slots = [k for k in ("exp_avg", "exp_avg_sq")
+                 if getattr(self._opt_state, k, None) is not None]
+        tensors = {}
+        for path, mark in marks.items():
+            name = names[int(mark.reshape(-1)[0])]
+            e = planned.get(name)
+            shape = [int(d) for d in shapes[path].shape]
+            kernel = path.rsplit("/", 1)[-1] == "kernel"
+            stacked = mark.ndim > meta[name].ndim
+            for prefix, plan in [("params/", e and e.pplan)] + [
+                    (f"opt_state/.{k}/", e and e.oplan) for k in slots]:
+                tensors[prefix + path] = {
+                    "shape": shape, "dtype": "float32",
+                    "spec": _file_spec(spec_entries(plan.spec) if plan
+                                       else [], meta[name].ndim, kernel,
+                                       stacked)}
+        tensors["opt_state/.step"] = {"shape": [], "dtype": "int32",
+                                      "spec": []}
+        return dict(sorted(tensors.items()))
+
+    def _whole_meta(self) -> dict:
+        """``{name: meta tensor}`` of the whole model's trained
+        parameters (a family model is rebuilt on ``meta``; another model
+        keeps its own shapes, whole under ZeRO)."""
+        model = self.module
+        if model_family(model) is not None:
+            whole = type(model)(model.config, device="meta")
+            return {n: p for n, p in whole.named_parameters()
+                    if p.requires_grad}
+        planned = {e.name: e for e in (self._zero.entries
+                                       if self._zero is not None else [])}
+        return {n: torch.empty(planned[n].pplan.shape if n in planned
+                               else p.shape, device="meta")
+                for n, p in model.named_parameters() if p.requires_grad}
+
+    def _to_file_tree(self, named: dict):
+        """The file's tree of ``named`` whole tensors: JAX's flax tree
+        for a model family the JAX package has, the names themselves
+        otherwise."""
+        tree = training_params_to_jax(self.module, named)
+        return dict(named) if tree is None else tree
+
+    def _from_file_tree(self, tree) -> dict:
+        """Whole tensors ``{name: tensor}`` from the file's tree."""
+        if model_family(self.module) is not None:
+            return training_params_from_jax(self.module, tree)
+        return {k: torch.as_tensor(np.asarray(v))
+                for k, v in flatten_tree(tree).items()}
+
+    # ------------------------------------------------------------------
+    # data loading (JAX's deepspeed_io / attach_data_loader)
+    def deepspeed_io(self, dataset, batch_size=None, route=None,
+                     pin_memory=True, data_sampler=None, collate_fn=None,
+                     num_local_io_workers=None):
+        """A loader of *global* micro-batches (micro_batch x dp_world
+        samples a step), JAX's ``deepspeed_io``: the same sample order,
+        cursor and ``dataloader_drop_last``."""
+        dp = (self.topology.get_data_parallel_world_size()
+              if self.topology is not None else 1)
+        bs = batch_size or self.train_micro_batch_size_per_gpu() * dp
+        return DeepSpeedDataLoader(
+            dataset, batch_size=bs,
+            collate_fn=collate_fn or self.collate_fn,
+            data_sampler=data_sampler,
+            dataloader_drop_last=self._config.dataloader_drop_last)
+
+    def attach_data_loader(self, loader):
+        """Attach the data pipeline whose cursor travels with checkpoints
+        (the topology manifest records ``loader.state_dict()``)."""
+        self._elastic_loader = loader
+
+    def _data_pipeline_state(self):
+        loader = self._elastic_loader or self.training_dataloader
+        state_fn = getattr(loader, "state_dict", None)
+        if state_fn is None:
+            return None
+        try:
+            return state_fn()
+        except Exception as e:  # a cursor is advisory; the save is not
+            logger.warning(f"data pipeline state_dict failed ({e}); the "
+                           "topology manifest carries no loader cursor")
+            return None
+
+    # ------------------------------------------------------------------
+    # checkpoints (JAX engine :2305-2680)
+    def _current_rng(self) -> np.ndarray:
+        """JAX's TrainState.rng after this run's micro steps: one split a
+        micro step since the key was last set (:func:`advance_key`)."""
+        n = self.micro_steps - self._rng_micro
+        if n > 0:
+            self._rng = advance_key(self._rng, n)
+            self._rng_micro = self.micro_steps
+        return self._rng
+
+    def _named_masters(self):
+        """``[(name, master, ZeRO entry or None)]`` in the optimizer's
+        order (its slots follow it)."""
+        if self._zero is not None:
+            return [(e.name, e.master, e) for e in self._zero.entries]
+        return [(n, p, None) for n, p in self.module.named_parameters()
+                if p.requires_grad]
+
+    def _whole_slots(self, slots) -> dict:
+        """``{name: whole slot}`` of one optimizer slot list: split ZeRO
+        shards all-gathered, tp slices gathered (every rank must call)."""
+        out = {}
+        for (name, _, e), t in zip(self._named_masters(), slots):
+            if e is not None and e.oplan.sharded:
+                t = all_gather_flat([t], [e.oplan])[0]
+            out[name] = t.detach()
+        return {k: v.cpu() for k, v in self._whole(out).items()}
+
+    def _load_slots(self, whole: dict, slots):
+        """Copy whole slot values into this rank's slot tensors (its tp
+        slice, then its ZeRO shard); no collective."""
+        if self.tp is not None:
+            specs = self.module.param_specs()
+            whole, _ = shard_params_with_policy(
+                whole, None, self.tp.rank, self.tp.size,
+                specs={k: specs.get(k) for k in whole})
+        for (name, _, e), t in zip(self._named_masters(), slots):
+            v = torch.as_tensor(whole[name]).to(t.device, t.dtype)
+            t.copy_(e.oplan.local(v) if e is not None else v)
+
+    def _checkpoint_tag_validation(self, tag):
+        """All ranks must agree on the tag (JAX ``:2437``)."""
+        if not self._config.checkpoint_tag_validation_enabled \
+                or dist.get_world_size() <= 1:
+            return
+        import hashlib
+
+        h = int(hashlib.sha1(str(tag).encode()).hexdigest()[:8], 16)
+        agreed = dist.all_reduce(
+            torch.tensor([h, -h], dtype=torch.int64, device=self.device),
+            op=dist.ReduceOp.MAX)
+        if not (int(agreed[0]) == h and int(agreed[1]) == -h):
+            msg = f"checkpoint tag {tag!r} differs across processes"
+            if self._config.checkpoint_tag_validation_fail:
+                raise RuntimeError(msg)
+            logger.warning(msg)
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Write ``<save_dir>/<tag>`` (default ``global_step<N>``) in
+        JAX's layout (module docstring); every rank must call. Returns
+        True."""
+        # judge any sentinel-pending lagged losses now: an unchecked NaN
+        # boundary must not become a verified-good checkpoint
+        self.resilience.drain_sentinel()
+        with self.resilience.watchdog_suspended():
+            tracer = self.telemetry.tracer
+            with tracer.span("ckpt_io", tracer.new_trace(hint="ckpt"),
+                             action="save", tag=str(tag),
+                             step=self.global_steps):
+                return self._save_checkpoint_impl(save_dir, tag,
+                                                  client_state, save_latest)
+
+    def _save_checkpoint_impl(self, save_dir, tag, client_state,
+                              save_latest):
+        tag = tag or f"global_step{self.global_steps}"
+        self._checkpoint_tag_validation(tag)
+        ckpt_dir = os.path.join(save_dir, str(tag))
+        self.checkpoint_engine.create(tag)
+        engine_state = {
+            "micro_steps": self.micro_steps,
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler else None),
+            "client_state": client_state or {},
+        }
+        # the whole tensors (collectives under ZeRO / tp: every rank)
+        params = self.module_state_dict()
+        opt = self._opt_state
+        slots = {k: (self._whole_slots(getattr(opt, k))
+                     if getattr(opt, k, None) is not None else None)
+                 for k in ("exp_avg", "exp_avg_sq")}
+        scaler = self._loss_scaler
+        if dist.get_rank() == 0:
+            module_state = {"params": self._to_file_tree(params)}
+            optim_state = {
+                "opt_state": {
+                    "step": np.asarray(opt.step, np.int32),
+                    **{k: (self._to_file_tree(v) if v is not None
+                           else None) for k, v in slots.items()}},
+                "host_optimizer": None,
+                "loss_scale": np.asarray(scaler.loss_scale, np.float32),
+                "good_steps": np.asarray(scaler.good_steps, np.int32),
+                "hysteresis": np.asarray(scaler.hysteresis, np.int32),
+                "global_step": np.asarray(self._applied_steps, np.int32),
+                "skipped_steps": np.asarray(self.skipped_steps, np.int32),
+                "rng": self._current_rng().copy(),
+            }
+            self.checkpoint_engine.save(module_state,
+                                        os.path.join(ckpt_dir, "module"))
+            self.checkpoint_engine.save(optim_state,
+                                        os.path.join(ckpt_dir, "optimizer"))
+            self.checkpoint_engine.save(engine_state,
+                                        os.path.join(ckpt_dir, "engine"))
+            if self.elasticity_enabled():
+                # written before commit: hashed into the integrity
+                # manifest and published with the tag
+                from deepspeed_tpu_torch.runtime.resilience.topology import (
+                    write_topology_manifest)
+
+                write_topology_manifest(self.checkpoint_engine, ckpt_dir,
+                                        self.describe_topology())
+        self.checkpoint_engine.commit(tag)
+        # "latest" moves only after the commit published the tag, and
+        # the pointer write itself is atomic
+        if dist.get_rank() == 0 and save_latest:
+            atomic_write_text(os.path.join(save_dir, "latest"), str(tag))
+        if dist.is_initialized():
+            dist.barrier()
+        self.resilience.note_save_dir(save_dir)
+        log_dist(f"saved checkpoint {tag} to {save_dir}", ranks=[0])
+        return True
+
+    @staticmethod
+    def _missing_tag_error(load_dir, tag, explicit):
+        from deepspeed_tpu_torch.runtime.resilience.integrity import (
+            missing_tag_error)
+
+        via = (f"explicit tag {tag!r}" if explicit
+               else f"'latest' points at {tag!r}")
+        return missing_tag_error(load_dir, tag, via)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False, custom_load_fn=None):
+        """Restore from ``load_dir``; returns ``(tag, client_state)``, or
+        ``(None, {})`` when there is no ``latest``. ``tag=None`` resumes
+        from ``latest`` and — with resilience integrity on — walks the
+        verified-good fallback chain when the pointed-at checkpoint is
+        corrupt or missing. An explicit ``tag`` never falls back: a
+        missing or corrupt explicit tag raises, naming the tags present.
+        Every rank must call."""
+        with self.resilience.watchdog_suspended():
+            tracer = self.telemetry.tracer
+            with tracer.span("ckpt_io", tracer.new_trace(hint="ckpt"),
+                             action="load", tag=str(tag),
+                             step=self.global_steps):
+                return self._load_checkpoint_resolved(
+                    load_dir, tag, load_module_strict=load_module_strict,
+                    load_optimizer_states=load_optimizer_states,
+                    load_lr_scheduler_states=load_lr_scheduler_states,
+                    load_module_only=load_module_only)
+
+    def _load_checkpoint_resolved(self, load_dir, tag, *,
+                                  load_module_strict=True,
+                                  load_optimizer_states=True,
+                                  load_lr_scheduler_states=True,
+                                  load_module_only=False):
+        from deepspeed_tpu_torch.runtime.resilience.integrity import (
+            CheckpointCorruptionError, read_verified)
+
+        explicit = tag is not None
+        if tag is None:
+            tag = read_latest(load_dir)
+            if tag is None:
+                logger.warning(f"no 'latest' file at {load_dir}; nothing "
+                               "loaded")
+                return None, {}
+        candidates = [str(tag)]
+        if (not explicit and self.resilience.enabled
+                and self._config.resilience_config.checkpoint.fallback):
+            # previous verified-good tags, newest first
+            candidates += [t for t in reversed(read_verified(load_dir))
+                           if t not in candidates]
+        multiproc = dist.get_world_size() > 1
+        last_err = None
+        for i, t in enumerate(candidates):
+            ckpt_dir = os.path.join(load_dir, t)
+            err = None
+            if not multiproc or dist.get_rank() == 0:
+                # verify before any bytes deserialize, so a corrupt
+                # candidate never leaves the engine half-restored
+                if not os.path.isdir(ckpt_dir):
+                    err = self._missing_tag_error(load_dir, t, explicit)
+                elif hasattr(self.checkpoint_engine, "verify"):
+                    try:
+                        self.checkpoint_engine.verify(ckpt_dir)
+                    except CheckpointCorruptionError as e:
+                        err = e
+            if multiproc:
+                # every rank agrees on the candidate before loading
+                flag = torch.tensor([0 if err is None else 1],
+                                    dtype=torch.int32, device=self.device)
+                rejected = bool(dist.broadcast(flag, src=0)[0])
+                if rejected and err is None:
+                    err = CheckpointCorruptionError(
+                        f"checkpoint {t!r} rejected by rank 0 "
+                        "(verification failed there)")
+            if err is not None:
+                err.agreed_rejection = True
+                last_err = err
+                if i + 1 < len(candidates):
+                    logger.warning(
+                        f"[resilience] checkpoint {t!r} unusable ({err}); "
+                        f"falling back to {candidates[i + 1]!r}")
+                    continue
+                raise err
+            try:
+                result = self._load_checkpoint_tag(
+                    ckpt_dir, t, load_module_strict=load_module_strict,
+                    load_optimizer_states=load_optimizer_states,
+                    load_lr_scheduler_states=load_lr_scheduler_states,
+                    load_module_only=load_module_only)
+            except (CheckpointCorruptionError, OSError) as e:
+                last_err = e
+                if multiproc or i + 1 >= len(candidates):
+                    raise
+                logger.warning(
+                    f"[resilience] checkpoint {t!r} failed mid-load ({e}); "
+                    f"falling back to {candidates[i + 1]!r}")
+                continue
+            if i > 0:
+                self.resilience.emit_fault(
+                    "ckpt.fallback", from_tag=candidates[0], to_tag=t,
+                    error=str(last_err)[:300])
+                logger.warning(
+                    f"[resilience] FALLBACK RESTORE: resumed from "
+                    f"verified-good {t!r} instead of {candidates[0]!r}")
+            return result
+        raise last_err  # unreachable: the loop raised or returned
+
+    def _validate_topology_for_load(self, manifest, ckpt_dir, *,
+                                    params_only: bool):
+        """Saved-vs-current topology diff, raising a structured
+        :class:`TopologyShiftError` when resharding is impossible."""
+        from deepspeed_tpu_torch.runtime.resilience.topology import (
+            validate_reshard)
+
+        saved, current = manifest, self.describe_topology(include_data=False)
+        if params_only:
+            saved = dict(manifest)
+            saved["tensors"] = {
+                k: v for k, v in (manifest.get("tensors") or {}).items()
+                if k.startswith("params/")}
+            current["tensors"] = {
+                k: v for k, v in (current.get("tensors") or {}).items()
+                if k.startswith("params/")}
+        return validate_reshard(saved, current, ckpt_dir)
+
+    def _load_checkpoint_tag(self, ckpt_dir, tag, *, load_module_strict=True,
+                             load_optimizer_states=True,
+                             load_lr_scheduler_states=True,
+                             load_module_only=False):
+        from deepspeed_tpu_torch.runtime.resilience.topology import (
+            read_topology_manifest, topology_shifted)
+
+        manifest = read_topology_manifest(ckpt_dir)
+        diff = None
+        if manifest is not None:
+            diff = self._validate_topology_for_load(
+                manifest, ckpt_dir,
+                params_only=load_module_only or not load_optimizer_states)
+        flat = self.checkpoint_engine.load(os.path.join(ckpt_dir, "module"))
+        whole = self._from_file_tree(unflatten_by_paths(flat, "params/"))
+        self.load_module_state_dict(whole, strict=load_module_strict)
+        self.zero_grad()
+        client_state = {}
+        if not load_module_only:
+            if load_optimizer_states:
+                self._load_optimizer_file(ckpt_dir)
+            engine_state = self.checkpoint_engine.load(
+                os.path.join(ckpt_dir, "engine"))
+            client_state = self._restore_engine_aux(
+                engine_state, load_lr_scheduler_states)
+        if manifest is not None:
+            saved_mesh = manifest.get("mesh", {})
+            self.telemetry.emit(
+                "topology", "restore", step=self.global_steps,
+                data={"tag": str(tag), "saved_mesh": saved_mesh.get("axes"),
+                      "saved_world": saved_mesh.get("world_size"),
+                      "current_mesh": dict(self.spec_layout.mesh.axis_sizes),
+                      "current_world": int(self.spec_layout.mesh.world_size),
+                      "resharded": bool(diff and topology_shifted(diff)),
+                      "zero_stage_saved": manifest.get("zero_stage"),
+                      "zero_stage_current":
+                          int(self.zero_optimization_stage())})
+        log_dist(f"loaded checkpoint {tag} from {ckpt_dir}", ranks=[0])
+        return tag, client_state
+
+    def _load_optimizer_file(self, ckpt_dir):
+        """The optimizer file into the slots (whole, laid out for this
+        engine), the loss-scale counters, the step counters and the key."""
+        flat = self.checkpoint_engine.load(
+            os.path.join(ckpt_dir, "optimizer"))
+        tree = unflatten_by_paths(flat, "opt_state/")
+        opt = self._opt_state
+        for k in ("exp_avg", "exp_avg_sq"):
+            slots = getattr(opt, k, None)
+            if slots is not None:
+                self._load_slots(self._from_file_tree(tree[k]), slots)
+        self._opt_state = opt._replace(step=int(flat["opt_state/step"]))
+        self._loss_scaler = self._loss_scaler._replace(
+            loss_scale=float(flat["loss_scale"]),
+            good_steps=int(flat["good_steps"]),
+            hysteresis=int(flat["hysteresis"]))
+        self._applied_steps = int(flat["global_step"])
+        self.skipped_steps = int(flat["skipped_steps"])
+        self._rng = np.asarray(flat["rng"], np.uint32).reshape(2).copy()
+
+    def _restore_engine_aux(self, engine_state: dict,
+                            load_lr_scheduler_states: bool) -> dict:
+        """Counters, lr scheduler and client_state."""
+        self.micro_steps = int(engine_state.get("micro_steps", 0))
+        self.global_steps = int(engine_state.get("global_steps", 0))
+        self.global_samples = int(engine_state.get("global_samples", 0))
+        self._rng_micro = self.micro_steps
+        if load_lr_scheduler_states and self.lr_scheduler is not None:
+            lbi = engine_state.get("lr_scheduler/last_batch_iteration")
+            if lbi is not None:
+                self.lr_scheduler.load_state_dict(
+                    {"last_batch_iteration": int(lbi)})
+        return {k[len("client_state/"):]: v for k, v in engine_state.items()
+                if k.startswith("client_state/")}
 
     # ------------------------------------------------------------------
     # accessors (reference engine surface)
@@ -848,6 +1342,18 @@ class DeepSpeedEngine:
     def memory_breakdown(self):
         return self._config.memory_breakdown
 
+    def dump_state(self):
+        return self._config.dump_state
+
+    def elasticity_enabled(self):
+        return bool(self._config.elasticity_config.get("enabled", False))
+
+    def use_node_local_storage(self):
+        return self._config.use_node_local_storage
+
+    def load_universal_checkpoint(self):
+        return self._config.load_universal_checkpoint
+
     def get_global_grad_norm(self) -> Optional[float]:
         """Global (pre-clip) gradient norm of the last optimizer step."""
         norm = self._last_grad_norm
@@ -922,7 +1428,6 @@ class DeepSpeedEngine:
 # getters of the JAX engine whose keys belong to unported slices: each
 # raises naming its slice (``runtime/config.py`` refuses the keys too)
 _UNPORTED_GETTERS = {
-    "the resilience slice": ("dump_state",),
     "the offload slice": (
         "zero_cpu_offload", "zero_offload_param", "zero_offload_optimizer",
         "swap_tensor_config", "aio_config"),
@@ -951,3 +1456,23 @@ def _unported_getter(name, where):
 for _where, _names in _UNPORTED_GETTERS.items():
     for _name in _names:
         setattr(DeepSpeedEngine, _name, _unported_getter(_name, _where))
+
+
+def advance_key(key, n: int) -> np.ndarray:
+    """``key`` (uint32[2]) after ``n`` of JAX's ``split(key, 4)[0]``: each
+    is threefry2x32 of the counter (0, 0), here on Python ints (tens of
+    microseconds a split, no tensor ops)."""
+    k1, k2 = (int(x) for x in key)
+    for _ in range(n):
+        k1, k2 = threefry_2x32(k1, k2, 0, 0)
+    return np.array([k1, k2], np.uint32)
+
+
+def _file_spec(spec: list, ndim: int, kernel: bool, stacked: bool) -> list:
+    """A parameter's spec entries (the port's dim order) in the file's
+    layout: reversed for a flax Dense ``kernel``, a leading unsharded
+    layer dim when stacked; ``[]`` (replicated) stays ``[]``."""
+    if not spec:
+        return []
+    spec = list(spec) + [None] * (ndim - len(spec))
+    return [None] * stacked + (spec[::-1] if kernel else spec)

@@ -1,15 +1,24 @@
-"""Deterministic fault injectors for the serving fleet (the serving half
-of ``deepspeed_tpu/runtime/resilience/chaos.py``).
+"""Deterministic fault injectors for the resilience test harness
+(counterpart of ``deepspeed_tpu/runtime/resilience/chaos.py``).
 
-Production code never fails on purpose; proving the failover and
-migration paths therefore needs seams where faults can be injected
+Production code never fails on purpose; proving the degradation paths
+(checkpoint retry, fallback-to-last-good, sentinel trip, watchdog dump,
+failover, migration) therefore needs seams where faults can be injected
 *deterministically*. This module is that seam:
 
 - :func:`io_errors` — arm transient failures at a named injection point
-  (the serving engine calls :func:`raise_if` at ``serving.spec_commit``,
-  ``serving.migration.export`` and ``serving.migration.commit``, the
-  migrator at ``serving.migration.transfer``); "fail the Nth call, M
-  times" is exact.
+  (the resilient checkpoint engine calls :func:`raise_if` at
+  ``ckpt.save``, ``ckpt.load`` and ``ckpt.commit``; the serving engine at
+  ``serving.spec_commit``, ``serving.migration.export`` and
+  ``serving.migration.commit``, the migrator at
+  ``serving.migration.transfer``); "fail the Nth call, M times" is exact.
+- :func:`corrupt_checkpoint` / :func:`truncate_file` — flip bytes in (or
+  cut) a committed checkpoint file: the failures integrity verification
+  exists to catch.
+- :func:`nan_batches` / :func:`poison_batch` — NaN-poison one batch's
+  float leaf (the first step of a NaN storm, as the gradients see it).
+- :func:`send_sigterm` / :func:`preempt_at_step` — a real SIGTERM to this
+  process, now or at a chosen step (a preemption notice).
 - :class:`ChaosReplica` — replica-level faults for the multi-replica
   serving router: crash at decode step N (:class:`ReplicaCrashed`),
   transient flaky step/submit, stall, slow decode, a crash between
@@ -20,14 +29,18 @@ migration paths therefore needs seams where faults can be injected
 - :func:`simulate_stall` — block the calling thread (a hung step, as the
   host observes it).
 
-The checkpoint and batch faults and the preemption helpers come with the
-resilience slice. All injectors are process-local and OFF by default;
+All injectors are process-local and OFF by default;
 :func:`raise_if` costs one module-level ``if`` when nothing is armed.
 """
 
+import os
+import signal
 import threading
 import time
-from typing import Dict
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
 
 _LOCK = threading.Lock()
 _FAULTS: Dict[str, "_IOFault"] = {}
@@ -60,7 +73,8 @@ def io_errors(point: str, at_call: int = 1, times: int = 1,
     with its ``at_call``-th call (1-indexed). Returns a context manager /
     handle; the fault also disarms process-wide via :func:`clear`.
 
-    Known points: ``"serving.spec_commit"``,
+    Known points: ``"ckpt.save"``, ``"ckpt.load"``, ``"ckpt.commit"``,
+    ``"serving.spec_commit"``,
     ``"serving.migration.export"``, ``"serving.migration.transfer"``,
     ``"serving.migration.commit"``.
     """
@@ -296,6 +310,126 @@ class FlakyFactory:
 
 
 # ----------------------------------------------------------------------
+# post-commit corruption (bitrot / partial upload)
+def corrupt_checkpoint(tag_dir: str, filename: Optional[str] = None,
+                       offset: int = 0, nbytes: int = 8) -> str:
+    """Flip ``nbytes`` bytes of one payload file inside a committed
+    checkpoint tag directory (the largest file when ``filename`` is not
+    given — the array payload, where silent corruption hurts most).
+    Returns the path corrupted."""
+    if filename is not None:
+        target = os.path.join(tag_dir, filename)
+    else:
+        candidates = []
+        for base, _, files in os.walk(tag_dir):
+            for fn in files:
+                if fn.startswith("."):
+                    continue  # never the integrity manifest itself
+                p = os.path.join(base, fn)
+                candidates.append((os.path.getsize(p), p))
+        if not candidates:
+            raise FileNotFoundError(f"no files to corrupt under {tag_dir}")
+        target = max(candidates)[1]
+    size = os.path.getsize(target)
+    if size == 0:
+        raise ValueError(f"cannot corrupt empty file {target}")
+    offset = min(max(0, offset), max(0, size - nbytes))
+    with open(target, "r+b") as f:
+        f.seek(offset)
+        chunk = f.read(nbytes)
+        f.seek(offset)
+        f.write(bytes((b ^ 0xFF) for b in chunk))
+        f.flush()
+        os.fsync(f.fileno())
+    return target
+
+
+def truncate_file(path: str, keep_bytes: int = 0):
+    """Simulate a crash mid-write: keep only the first ``keep_bytes``."""
+    with open(path, "r+b") as f:
+        f.truncate(int(keep_bytes))
+
+
+# ----------------------------------------------------------------------
+# NaN gradients at step K
+def _leaves(tree):
+    """Leaves of a batch in the JAX package's flatten order (dict keys
+    sorted, sequences in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        new = {k: _rebuild(tree[k], it) for k in sorted(tree)}
+        return {k: new[k] for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(v, it) for v in tree)
+    return next(it)
+
+
+def _is_float(leaf) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.is_floating_point()
+    return np.asarray(leaf).dtype.kind == "f"
+
+
+def nan_batches(batches: Iterable, at: int, leaf_index: int = 0):
+    """Yield from ``batches``, replacing the ``at``-th batch's (0-indexed)
+    ``leaf_index``-th float leaf with NaNs (a tensor stays a tensor, an
+    array an array). Gradients of that micro-step are NaN — exactly what
+    the step sentinel must catch."""
+    for i, batch in enumerate(batches):
+        if i == at:
+            poisoned, float_seen = [], 0
+            for leaf in _leaves(batch):
+                if _is_float(leaf):
+                    if float_seen == leaf_index:
+                        leaf = (torch.full_like(leaf, float("nan"))
+                                if isinstance(leaf, torch.Tensor)
+                                else np.full_like(np.asarray(leaf), np.nan))
+                    float_seen += 1
+                poisoned.append(leaf)
+            batch = _rebuild(batch, iter(poisoned))
+        yield batch
+
+
+def poison_batch(batch, leaf_index: int = 0):
+    """NaN-poison one batch directly (the single-batch form of
+    :func:`nan_batches`)."""
+    return next(nan_batches([batch], at=0, leaf_index=leaf_index))
+
+
+# ----------------------------------------------------------------------
+# preemption + stall
+def send_sigterm():
+    """Deliver a real SIGTERM to this process (a preemption notice)."""
+    os.kill(os.getpid(), signal.SIGTERM)
+
+
+def preempt_at_step(at_step: int, deliver=send_sigterm):
+    """Arm a deterministic preemption: returns a ``tick()`` to call once
+    per optimizer step; the ``at_step``-th call (1-indexed) delivers the
+    preemption notice (default: a real SIGTERM; pass another callable for
+    signal-free tests). ``tick`` returns True on the call that fired;
+    ``tick.state`` exposes ``{"calls", "fired"}``."""
+    state = {"calls": 0, "fired": False}
+
+    def tick() -> bool:
+        state["calls"] += 1
+        if state["calls"] == int(at_step) and not state["fired"]:
+            state["fired"] = True
+            deliver()
+            return True
+        return False
+
+    tick.state = state
+    return tick
+
+
 def simulate_stall(seconds: float):
     """Block the calling thread (a hung collective, as the host observes
     it): step-boundary progress stops while the watchdog keeps polling."""

@@ -79,8 +79,11 @@ spans ``serve`` / ``queue`` (the scheduler's), ``prefill``,
 ``decode``; the registry's serving histograms, counters and gauges; a
 step boundary a decode step; and the signature watch on the prefill,
 chunk, decode and verify forwards. Spans time host dispatch and read the
-engine's clock; none adds a sync. The resilience watchdog comes with the
-resilience slice.
+engine's clock; none adds a sync. The inference engine's resilience
+manager brackets each admitted request for the hang watchdog (begun at
+admission or migration in, progress each decode or verify step, a
+heartbeat at each finish, abandoned at a shed, cancel or migration
+out), at JAX's sites.
 
 On a ``data x tp`` mesh (the engine's), ``tp`` splits the pools (each
 rank holds ``1 / tp`` of the pool bytes) and ``data`` replicates the
@@ -168,6 +171,8 @@ class ServingEngine:
         self.prefix = (PrefixCache(self.block_mgr)
                        if self.config.prefix_cache else None)
         self.telemetry = self.engine.telemetry
+        self.resilience = self.engine.resilience
+        self._finished_count = 0
         # span tracer (inert unless telemetry.tracing is on)
         self._tracer = self.telemetry.tracer
         self._metrics = self.telemetry.metrics
@@ -298,6 +303,9 @@ class ServingEngine:
             self.telemetry.emit("serving", "step.gauges",
                                 step=self._step_count, **g)
             self._metrics_step_gauges(g)
+        # host-observed per-step token progress: a server saturated with
+        # long generations must not be judged hung between completions
+        self.resilience.serving_step_progress()
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 0, **kwargs) -> Request:
@@ -308,12 +316,13 @@ class ServingEngine:
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       **kwargs)
         if self.sched.submit(req):
+            self.resilience.serving_request_begin()
             self.telemetry.emit("serving", "request.queued",
                                 step=self._step_count,
                                 request_id=req.request_id,
                                 prompt_len=req.prompt_len)
         else:
-            self._record(req, shed=True)
+            self._record(req, shed=True, began=False)
         return req
 
     @torch.inference_mode()
@@ -639,10 +648,10 @@ class ServingEngine:
                 tokens=len(req.tokens), request_id=req.request_id)
         self.sched.finish(req, reason, now)
         self._clear_slot(req.slot)
-        self._record(req, shed=False)
+        self._record(req, shed=False, began=True)
         done.append(req)
 
-    def _record(self, req: Request, shed: bool):
+    def _record(self, req: Request, shed: bool, began: bool = True):
         """One terminal request: its record kept for :meth:`stats`, the
         ``request.finish`` / ``request.shed`` event, the registry feed,
         and the close of its ``serve`` span."""
@@ -657,6 +666,13 @@ class ServingEngine:
                      end_ns=to_ns(req.finish_ts or req.submit_ts),
                      state=req.state, reason=req.finish_reason,
                      tokens=len(req.tokens))
+        if not began:
+            return  # never bracketed: submit-time shed
+        if shed:
+            self.resilience.serving_request_abandon()
+        else:
+            self._finished_count += 1
+            self.resilience.serving_heartbeat(self._finished_count)
 
     def _metrics_record(self, req: Request, rec: dict, shed: bool):
         """Per-terminal-request registry feed (JAX's): latency
@@ -916,6 +932,7 @@ class ServingEngine:
         self._last_tokens[slot] = int(export["last_token"])
         if self._keyed:
             self._set_samp_slot(slot, req)
+        self.resilience.serving_request_begin()
         self.telemetry.emit("serving", "request.migrated_in",
                             step=self._step_count, request_id=rid,
                             blocks=int(export["blocks"]),
@@ -936,6 +953,7 @@ class ServingEngine:
         if self._tracer.enabled and req.trace is not None:
             end_span(req.trace.pop("serve", None), end_ns=to_ns(now),
                      state="migrated", tokens=len(req.tokens))
+        self.resilience.serving_request_abandon()
         self.telemetry.emit("serving", "request.migrated_out",
                             step=self._step_count, request_id=request_id,
                             tokens=len(req.tokens))

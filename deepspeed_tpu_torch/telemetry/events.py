@@ -10,7 +10,7 @@ serving fleet through whatever ``telemetry=`` object its caller passes
 ``tools/telemetry_report.py``) read back, rotated segments included.
 Everything in ``data`` is JSON-safe (:func:`json_safe`): a 0-d tensor
 is never read (``.item()`` would sync the device), only its repr is
-kept. The flight recorder comes with the resilience slice.
+kept. The flight recorder (``flightrec.py``) rings the same events.
 """
 
 import json

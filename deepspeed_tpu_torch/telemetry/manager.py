@@ -34,6 +34,7 @@ already has (JAX's "no added host syncs" contract).
 import contextlib
 import os
 import time
+from collections import deque
 from typing import Dict, Optional
 
 from deepspeed_tpu_torch.telemetry import compile_watch
@@ -84,6 +85,10 @@ class Telemetry:
         self._metrics_file = None
         self._last_boundary_ns = None
         self._rank = 0
+        # the recent events (the resilience watchdog's dump tail)
+        self._tail = deque(maxlen=256)
+        self._recorder = None
+        self._sigterm_disarm = None
         if not self.enabled:
             return
         self._rank = process_rank()
@@ -129,6 +134,20 @@ class Telemetry:
                         f"{self.config.metrics_host}:"
                         f"{self.config.metrics_port} ({e}); registry "
                         f"stays live, endpoint disabled")
+        # flight recorder: continuously armed ring of recent events +
+        # metric snapshots, dumped on fault / breaker / SIGTERM triggers
+        fr = self.config.flight_recorder
+        if fr.enabled:
+            from deepspeed_tpu_torch.telemetry.flightrec import (
+                FlightRecorder, arm_sigterm, is_trigger)
+
+            self._recorder = FlightRecorder(
+                fr.dump_dir or self.config.dir, events=fr.events,
+                snapshots=fr.snapshots, max_dumps=fr.max_dumps)
+            self._is_trigger = is_trigger
+            if fr.on_sigterm:
+                self._sigterm_disarm = arm_sigterm(
+                    lambda: self._flight_dump("sigterm", trigger=None))
 
     # ------------------------------------------------------------------
     # event plumbing
@@ -139,6 +158,7 @@ class Telemetry:
         payload = dict(data or {})
         payload.update(fields)
         event = make_event(kind, name, step, self._rank, payload)
+        self._tail.append(event)
         if self._sink is not None:
             self._sink.write(event)
         if self._bridge is not None:
@@ -146,6 +166,36 @@ class Telemetry:
         if self.metrics is not NULL_REGISTRY:
             self.metrics.counter("ds_events_total", ("kind",)).labels(
                 kind=kind).inc()
+        if self._recorder is not None:
+            self._recorder.record_event(event)
+            if self._is_trigger(kind, name):
+                self._flight_dump(f"{kind}:{name}", trigger=event)
+
+    def _flight_dump(self, reason: str, trigger=None):
+        """One flight-recorder dump (fault event, breaker trip, SIGTERM,
+        or an explicit call). Flushes the JSONL sink first so the dump's
+        event tail and the sink agree, then records the dump itself as a
+        ``flightrec.dump`` fault event (excluded from re-triggering)."""
+        if self._recorder is None:
+            return None
+        self.flush()
+        registry = self.metrics if self.metrics is not NULL_REGISTRY \
+            else None
+        path = self._recorder.dump(reason, registry=registry,
+                                   trigger=trigger)
+        if path is not None:
+            self.metrics.counter(
+                "ds_flightrec_dumps_total", ("reason",)).labels(
+                    reason=reason.split(":", 1)[0]).inc()
+            self.emit("fault", "flightrec.dump", step=self._steps_seen,
+                      reason=reason, path=path)
+            self.flush()
+        return path
+
+    def tail(self, n: int = 50):
+        """The most recent ``n`` events (empty when disabled) — the
+        resilience watchdog's hang dump reads them."""
+        return list(self._tail)[-n:]
 
     # ------------------------------------------------------------------
     # collectors 1+2: signature watch + once-a-signature step cost
@@ -405,9 +455,11 @@ class Telemetry:
         if (self.config.memory
                 and step % max(1, self.config.sample_every) == 0):
             self._sample_memory(step)
-        if (step % max(1, self.config.sample_every) == 0
-                and self._metrics_file and m is not NULL_REGISTRY):
-            self._write_metrics_file()
+        if step % max(1, self.config.sample_every) == 0:
+            if self._recorder is not None and m is not NULL_REGISTRY:
+                self._recorder.record_snapshot(step, m.snapshot())
+            if self._metrics_file and m is not NULL_REGISTRY:
+                self._write_metrics_file()
         self._maybe_trace(step)
 
     def _write_metrics_file(self):
@@ -461,5 +513,10 @@ class Telemetry:
         if self._metrics_server is not None:
             self._metrics_server.close()
             self._metrics_server = None
+        if self._sigterm_disarm is not None:
+            # a closed recorder must not re-dump its stale ring on a
+            # later SIGTERM (nor keep this manager alive via the chain)
+            self._sigterm_disarm()
+            self._sigterm_disarm = None
         if self._sink is not None:
             self._sink.close()

@@ -36,6 +36,17 @@ and the classifier) becomes an ``nn.Linear``, every LayerNorm an
 weight, each RMSNorm ``scale`` a ``weight``; ``embed_tokens`` and an
 untied ``lm_head`` (both ``[V, C]``) as they are, and under
 ``tie_word_embeddings`` the embedding again as ``lm_head.weight``.
+
+:func:`params_to_jax`, :func:`bert_params_to_jax` and
+:func:`llama_params_to_jax` are the inverse maps: the port's whole state
+dict back to the JAX model's flax tree (layers stacked on a leading axis
+under ``scan_layers``, else one sub-tree a layer; Dense kernels ``[in,
+out]``; JAX's names), each leaf a contiguous CPU tensor of the state
+dict's dtype. ``x_to_jax(x_from_jax(tree))`` is ``tree`` exactly.
+:func:`training_params_to_jax` / :func:`training_params_from_jax` apply
+them to a training wrapper's state dict (``model.``-prefixed names) by
+the wrapped model's family: the layout of the checkpoints both packages
+write.
 """
 
 import numpy as np
@@ -222,3 +233,173 @@ def llama_training_model_from_jax(tree, config):
     model.model.load_state_dict(llama_params_from_jax(tree, config),
                                 assign=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# the inverse maps: the port's state dict -> the JAX model's flax tree
+# ---------------------------------------------------------------------------
+def _jax_leaf(t):
+    t = t.detach()
+    return (t if t.device.type == "meta" else t.cpu()).contiguous()
+
+
+def _kernel(weight):
+    """A flax Dense kernel ``[in, out]`` from an ``nn.Linear`` weight."""
+    return _jax_leaf(weight.detach().T)
+
+
+def _blocks(layers, scan: bool, stacked_key, layer_key):
+    """``{stacked_key: {"<block>": stacked}}`` from per-layer sub-trees
+    (scanned), else ``{layer_key(i): layer}``."""
+    if not scan:
+        return {layer_key(i): layer for i, layer in enumerate(layers)}
+    return {stacked_key[0]: {stacked_key[1]: _stack(layers)}}
+
+
+def _stack(layers):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return torch.stack(layers).contiguous()
+
+
+def params_to_jax(state_dict, config) -> dict:
+    """The JAX GPT-2's flax params (the bare tree) from the port's whole
+    ``GPT2LMHeadModel`` state dict; stacked under ``transformer/h/block``
+    with ``config.scan_layers``, else under ``transformer/h_<i>``."""
+    sd = state_dict
+    layers = []
+    for i in range(config.n_layer):
+        layer = {mod: {} for mod, _ in _DENSE}
+        for mod, name in _DENSE:
+            layer[mod][name] = {
+                "kernel": _kernel(sd[f"h.{i}.{mod}.{name}.weight"]),
+                "bias": _jax_leaf(sd[f"h.{i}.{mod}.{name}.bias"])}
+        for name in _NORMS:
+            layer[name] = {"scale": _jax_leaf(sd[f"h.{i}.{name}.weight"]),
+                           "bias": _jax_leaf(sd[f"h.{i}.{name}.bias"])}
+        layers.append(layer)
+    return {"wte": _jax_leaf(sd["wte"]), "wpe": _jax_leaf(sd["wpe"]),
+            "ln_f": {"scale": _jax_leaf(sd["ln_f.weight"]),
+                     "bias": _jax_leaf(sd["ln_f.bias"])},
+            "transformer": _blocks(layers, config.scan_layers,
+                                   ("h", "block"), lambda i: f"h_{i}")}
+
+
+def _flax_tree(entries):
+    """A flax sub-tree from state-dict entries ``{rest: tensor}`` of one
+    scope: ``<m>.weight`` / ``<m>.bias`` of a LayerNorm (a module named
+    ``*_ln``) become ``scale`` / ``bias``, of a Linear ``kernel`` /
+    ``bias``; a bare tensor keeps its name."""
+    tree = {}
+    for rest, t in entries.items():
+        parts = rest.split(".")
+        node = tree
+        if parts[-1] in ("weight", "bias"):
+            *mods, leaf = parts
+            if leaf == "weight":
+                leaf = "scale" if mods[-1].endswith("_ln") else "kernel"
+                t = _jax_leaf(t) if leaf == "scale" else _kernel(t)
+            else:
+                t = _jax_leaf(t)
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = t
+        else:
+            for m in parts[:-1]:
+                node = node.setdefault(m, {})
+            node[parts[-1]] = _jax_leaf(t)
+    return tree
+
+
+def bert_params_to_jax(state_dict, config) -> dict:
+    """The JAX BERT's flax params (``BertForMaskedLM``, or
+    ``BertForSequenceClassification`` with ``pooler`` / ``classifier``)
+    from the port's whole state dict; the encoder layers stacked under
+    ``bert/encoder/layers/layer`` with ``config.scan_layers`` (JAX's
+    default), else under ``bert/encoder/layer_<i>``."""
+    prefix = "bert.encoder.layers."
+    rest = {k: v for k, v in state_dict.items() if not k.startswith(prefix)}
+    tree = _flax_tree(rest)
+    layers = []
+    for i in range(config.num_hidden_layers):
+        p = f"{prefix}{i}."
+        layers.append(_flax_tree({k[len(p):]: v for k, v in
+                                  state_dict.items() if k.startswith(p)}))
+    tree.setdefault("bert", {})["encoder"] = _blocks(
+        layers, config.scan_layers, ("layers", "layer"),
+        lambda i: f"layer_{i}")
+    return tree
+
+
+def llama_params_to_jax(state_dict, config) -> dict:
+    """The JAX Llama's flax params (``LlamaModel``) from the port's whole
+    state dict; blocks stacked under ``layers/block`` with
+    ``config.scan_layers``, else under ``layers_<i>``; ``lm_head`` only
+    when the head is untied."""
+    sd = state_dict
+    tree = {"embed_tokens": _jax_leaf(sd["embed_tokens"]),
+            "norm": {"scale": _jax_leaf(sd["norm.weight"])}}
+    if not config.tie_word_embeddings:
+        tree["lm_head"] = _jax_leaf(sd["lm_head.weight"])
+    layers = []
+    for i in range(config.num_hidden_layers):
+        p = f"layers.{i}."
+        layer = {norm: {"scale": _jax_leaf(sd[f"{p}{norm}.weight"])}
+                 for norm in ("input_layernorm",
+                              "post_attention_layernorm")}
+        for mod, names in (("self_attn", ("q_proj", "k_proj", "v_proj",
+                                          "o_proj")),
+                           ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+            layer[mod] = {name: {"kernel": _kernel(
+                sd[f"{p}{mod}.{name}.weight"])} for name in names}
+        layers.append(layer)
+    tree.update(_blocks(layers, config.scan_layers, ("layers", "block"),
+                        lambda i: f"layers_{i}"))
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# training wrappers: the layout of the checkpoints both packages write
+# ---------------------------------------------------------------------------
+def model_family(model):
+    """``"gpt2"``, ``"bert"`` or ``"llama"`` by the wrapped model's
+    config; None for a model the JAX package has no tree for."""
+    config = getattr(getattr(model, "model", model), "config", None)
+    name = type(config).__name__
+    return {"GPT2Config": "gpt2", "BertConfig": "bert",
+            "LlamaConfig": "llama"}.get(name)
+
+
+def training_params_to_jax(model, state_dict):
+    """The JAX training model's flax params from a port training
+    wrapper's whole state dict (``model.<name>`` entries; optimizer slots
+    named alike map the same way, so a tied Llama's slot dict may lack
+    ``lm_head``); None for a model of another family."""
+    family = model_family(model)
+    if family is None:
+        return None
+    inner = {k[len("model."):]: v for k, v in state_dict.items()
+             if k.startswith("model.")}
+    config = model.model.config
+    if family == "gpt2":
+        return params_to_jax(inner, config)
+    if family == "bert":
+        return bert_params_to_jax(inner, config)
+    if config.tie_word_embeddings and "lm_head.weight" not in inner:
+        inner["lm_head.weight"] = inner["embed_tokens"]
+    return llama_params_to_jax(inner, config)
+
+
+def training_params_from_jax(model, tree) -> dict:
+    """A port training wrapper's state dict (``model.<name>`` entries,
+    fp32 CPU tensors) from the JAX training model's flax params."""
+    config = model.model.config
+    family = model_family(model)
+    if family == "gpt2":
+        sd = params_from_jax(tree, config)
+    elif family == "bert":
+        sd = bert_params_from_jax(tree, config)
+    else:
+        sd = llama_params_from_jax(tree, config)
+    return {f"model.{k}": v for k, v in sd.items()}

@@ -68,6 +68,13 @@ FLEET = ("serving.router", "serving.health", "serving.autoscaler",
          "serving.tenancy", "serving.gateway", "runtime.resilience.chaos",
          "telemetry.events", "telemetry.tracing", "telemetry.metrics",
          "telemetry.registry", "telemetry.prom")
+# the checkpoint and resilience slice's modules
+RESILIENCE = ("runtime.checkpoint_engine.checkpoint_engine",
+              "runtime.resilience.integrity", "runtime.resilience.topology",
+              "runtime.resilience.sentinel", "runtime.resilience.watchdog",
+              "runtime.resilience.manager", "runtime.dataloader",
+              "telemetry.flightrec", "checkpoint.deepspeed_checkpoint",
+              "utils.zero_to_fp32")
 
 
 def test_import_pulls_in_no_jax():
@@ -79,7 +86,7 @@ def test_import_pulls_in_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "missing = [m for m in "
-        f"{DATA_PARALLEL + TENSOR_PARALLEL + FLEET + LLAMA!r} "
+        f"{DATA_PARALLEL + TENSOR_PARALLEL + FLEET + LLAMA + RESILIENCE!r} "
         "if 'deepspeed_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

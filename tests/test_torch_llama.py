@@ -42,6 +42,7 @@ import pytest
 import torch
 
 import deepspeed_tpu
+import deepspeed_tpu.inference
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import gpt2 as jax_gpt2
 from deepspeed_tpu.models import llama as jax_llama

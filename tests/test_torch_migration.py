@@ -17,6 +17,7 @@ tiny fp32 GPT-2 (both packages on the same weights).
   element) and land bit for bit; int8 rows cost (D + 4) / (4 D) of fp32.
 """
 
+import itertools
 
 import jax
 import numpy as np
@@ -25,12 +26,14 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu.runtime.resilience import chaos as jax_chaos
+from deepspeed_tpu.serving import request as jax_request
 from deepspeed_tpu.serving.config import ServingConfig as JaxServingConfig
 from deepspeed_tpu.serving.engine import ServingEngine as JaxServingEngine
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from deepspeed_tpu_torch.runtime.resilience import chaos
 from deepspeed_tpu_torch.serving.config import ServingConfig
 from deepspeed_tpu_torch.serving.engine import ServingEngine
+from deepspeed_tpu_torch.serving import request as port_request
 from deepspeed_tpu_torch.serving.migration import Migrator
 from deepspeed_tpu_torch.serving.request import FINISHED, RUNNING, SHED
 from tests.test_torch_gpt2 import jax_engine, port_model
@@ -198,7 +201,11 @@ def _refusals(ie, cls):
 
 
 def test_refusals_match_jax(engines):
+    # the ids compared come from each package's per-process counter:
+    # start both at 0, whatever earlier tests in this process submitted
+    port_request._ids = itertools.count()
     ours = _refusals(engines[1], ServingEngine)
+    jax_request._ids = itertools.count()
     ref = _refusals(engines[0], JaxServingEngine)
     assert ours == ref
     assert [ours[i] for i in (0, 2, 3, 4, 5, 7, 9)] == [None] * 7

@@ -186,13 +186,29 @@ def test_unported_knob_raises_through_init_serving():
     ("dtype", "int8"),
 ])
 def test_unported_inference_keys_raise(key, value):
-    if key == "telemetry":  # ported: accepted; its resilience half raises
-        assert DeepSpeedInferenceConfig(telemetry=value).telemetry == value
-        for bad in ({"telemetry": {"flight_recorder": {"enabled": True}}},
-                    {"resilience": {"enabled": True}}):
-            with pytest.raises(NotImplementedError,
-                               match="the resilience slice"):
-                DeepSpeedInferenceConfig(**bad)
+    if key in ("telemetry", "checkpoint"):
+        # ported (with the resilience and checkpoint keys): accepted and
+        # resolved as the JAX config resolves them
+        from deepspeed_tpu.inference.config import \
+            DeepSpeedInferenceConfig as JaxInferenceConfig
+
+        assert getattr(DeepSpeedInferenceConfig(**{key: value}),
+                       key) == value
+        for good in ({"telemetry": {"flight_recorder": {"enabled": True}}},
+                     {"resilience": {"enabled": True}},
+                     {"checkpoint": "/x", "base_dir": "/y"},
+                     {"save_mp_checkpoint_path": "/z"},
+                     {"ckpt_config": {"a": 1}}):
+            port = DeepSpeedInferenceConfig(**good)
+            jax = JaxInferenceConfig(**good)
+            for name in ("telemetry", "resilience", "checkpoint",
+                         "base_dir", "save_mp_checkpoint_path",
+                         "checkpoint_config"):
+                assert getattr(port, name) == getattr(jax, name), \
+                    (good, name)
+        with pytest.raises(ValueError, match="policy"):
+            DeepSpeedInferenceConfig(
+                resilience={"sentinel": {"policy": "nope"}})
         return
     with pytest.raises(NotImplementedError, match="slice"):
         DeepSpeedInferenceConfig(**{key: value})

@@ -375,19 +375,42 @@ def test_config_batch_triangle():
     ({"compression_training": {}}, "training-features"),
     ({"flops_profiler": {"enabled": True}}, "training-features"),
     ({"telemetry": {"enabled": True}}, "telemetry"),
+    ({"checkpoint": {"sharded": True}}, r"\[10b\]"),
+    ({"checkpoint": {"async_save": True}}, r"\[10b\]"),
+    ({"aot": {"enabled": True}}, r"aot decision \(\[10\]\)"),
+    ({"tuning": {"enabled": True}}, "autotuning"),
 ])
 def test_unported_config_keys_raise(config, slice_name):
     if slice_name == "multi-GPU":  # tensor-parallel training is ported
         assert DeepSpeedConfig({"train_batch_size": 1, **config}).mesh.tp == 2
         return
-    if slice_name == "telemetry":  # ported; its resilience half raises
+    if slice_name == "telemetry":
+        # ported, with its resilience half: each key is accepted and
+        # resolved as the JAX config resolves it
+        from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+
         assert DeepSpeedConfig({"train_batch_size": 1, **config}) \
             .telemetry_config.enabled
-        for bad in ({"telemetry": {"flight_recorder": {"enabled": True}}},
-                    {"dump_state": True}, {"resilience": {}}):
-            with pytest.raises(NotImplementedError,
-                               match="the resilience slice"):
-                DeepSpeedConfig({"train_batch_size": 1, **bad})
+        for good in ({"telemetry": {"flight_recorder": {"enabled": True}}},
+                     {"dump_state": True},
+                     {"resilience": {"enabled": True,
+                                     "sentinel": {"policy": "rollback"}}},
+                     {"checkpoint": {"tag_validation": "fail"}},
+                     {"nebula": {"enabled": True}},
+                     {"elasticity": {"enabled": True}},
+                     {"dataloader_drop_last": True}):
+            port = DeepSpeedConfig({"train_batch_size": 1, **good})
+            jax = JaxConfig({"train_batch_size": 1, **good})
+            for attr in ("telemetry_config", "resilience_config",
+                         "checkpoint_config", "nebula_config"):
+                assert getattr(port, attr).model_dump() == \
+                    getattr(jax, attr).model_dump(), (good, attr)
+            for attr in ("dump_state", "elasticity_config",
+                         "dataloader_drop_last",
+                         "checkpoint_tag_validation_enabled",
+                         "checkpoint_tag_validation_fail"):
+                assert getattr(port, attr) == getattr(jax, attr), \
+                    (good, attr)
         return
     with pytest.raises(NotImplementedError, match=slice_name):
         DeepSpeedConfig({"train_batch_size": 1, **config})

@@ -1361,3 +1361,77 @@ def _flat_state(state):
     if isinstance(state, (list, tuple)):
         return [a for part in state for a in _flat_state(part)]
     return [] if state is None else [np.asarray(state)]
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across layouts
+# ---------------------------------------------------------------------------
+def checkpoint_reshard(rank, world, args):
+    """Checkpoints saved under one layout and loaded under another, on 2
+    ranks: ZeRO 2 on ``{"data": 2}`` takes 2 steps, saves to
+    ``<dir>/z2`` and takes steps 3 and 4 (the uninterrupted run); ZeRO 3
+    (every weight split) loads that tag and takes steps 3 and 4; tp=2
+    (``{"tp": 2}``, ZeRO 0) takes 2 steps, saves to ``<dir>/tp2`` and
+    takes steps 3 and 4. Each case's losses on every rank; on rank 0 also
+    its whole Adam state (``step`` and the gathered slots) as saved or as
+    loaded, its whole parameters after step 4 and its topology manifest.
+    Every engine runs ``args["scheduler"]``, as the parent's does. The
+    parent loads both tags at ZeRO 0 and tp=1 on one rank."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+
+    batches, ckpt = args["batches"], args["dir"]
+
+    def engine(config, mesh):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=_gpt2(args),
+            config={**config, "scheduler": args["scheduler"]},
+            mesh=MeshTopology(axis_sizes=mesh), device="cpu")
+        return eng
+
+    def steps(eng, ids):
+        out = []
+        for b in ids:
+            loss = eng({"input_ids": b})
+            eng.backward(loss)
+            eng.step()
+            out.append(float(loss))
+        return out
+
+    # copies: a tensor left whole is the live slot or parameter itself
+    def adam_state(eng):  # collectives: every rank calls
+        opt = eng._opt_state
+        state = {k: {n: v.numpy().copy() for n, v in
+                     eng._whole_slots(getattr(opt, k)).items()}
+                 for k in ("exp_avg", "exp_avg_sq")}
+        return {"step": int(opt.step), **state}
+
+    def params(eng):  # collectives: every rank calls
+        return {k: v.detach().cpu().numpy().copy()
+                for k, v in eng.module_state_dict().items()}
+
+    out, extra = {}, {}
+    z2 = engine(zero_config(2), {"data": 2})
+    out["z2"] = steps(z2, batches[:2])
+    z2.save_checkpoint(os.path.join(ckpt, "z2"))
+    extra["z2_saved"] = adam_state(z2)
+    out["z2"] += steps(z2, batches[2:4])
+    extra["z2_params"] = params(z2)
+    extra["z2_topology"] = z2.describe_topology(include_data=False)
+    z3 = engine(zero_config(3, stage3_param_persistence_threshold=0),
+                {"data": 2})
+    out["z3_split"] = any(e.pplan.sharded for e in z3._zero.entries)
+    out["z3_tag"] = z3.load_checkpoint(os.path.join(ckpt, "z2"))[0]
+    extra["z3_loaded"] = adam_state(z3)
+    out["z3"] = steps(z3, batches[2:4])
+    extra["z3_params"] = params(z3)
+    extra["z3_topology"] = z3.describe_topology(include_data=False)
+    tp = engine({**zero_config(0), "train_micro_batch_size_per_gpu": 4},
+                {"tp": 2})
+    out["tp2"] = steps(tp, batches[:2])
+    tp.save_checkpoint(os.path.join(ckpt, "tp2"))
+    extra["tp2_saved"] = adam_state(tp)
+    out["tp2"] += steps(tp, batches[2:4])
+    extra["tp2_params"] = params(tp)
+    extra["tp2_topology"] = tp.describe_topology(include_data=False)
+    return {**out, **extra} if rank == 0 else out
